@@ -70,6 +70,14 @@ SMALL_TRAJ_MM = 1.0       # [tracked-small]: largest frame-position difference G
 BLUR_FRAMES = (46, 47, 48)    # bench.py's hardened loop
 EXPOSURE_GAIN = 1.55
 EXPOSURE_FRAMES = (60, 95)
+# H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): the bounds
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+# K1 operations per tap: subtract, square, scale, exp, spatial product,
+# validity test, select, multiply-add (2), weight add
+K1_FLOPS_PER_TAP = 10
+FLUSH_BYTES = 128 << 20       # > the 50 MB L2: a cold launch follows this write
+SLEEP_CYCLES = 50_000_000     # ~25 ms of device sleep: longer than the host's queuing
 
 
 def log(msg: str) -> None:
@@ -77,7 +85,9 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, n: int = 20, warm: int = 5) -> float:
-    """Median of n CUDA-event timings of fn(), after `warm` warm-up calls."""
+    """Median of n CUDA-event timings of fn(), one event pair per call,
+    after `warm` warm-up calls. Around a wrapper this includes the host's
+    dispatch of everything it launches: the `call_ms` and `plain_ms`."""
     for _ in range(warm):
         fn()
     times = []
@@ -90,6 +100,76 @@ def cuda_ms(fn, n: int = 20, warm: int = 5) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def kernel_times(launch, n: int = 100, n_cold: int = 20):
+    """The kernel alone, its inputs prepared by the caller: (warm ms,
+    cold ms). A GPU-side sleep enqueued first lets the host queue every
+    launch before the device reaches the first event, so the host's
+    dispatch stays out of both. Warm: events around n back-to-back
+    launches, divided by n. Cold: median of n_cold single launches, each
+    after a FLUSH_BYTES write (outside the events) evicts the 50 MB L2."""
+    for _ in range(5):
+        launch()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    a.record()
+    for _ in range(n):
+        launch()
+    b.record()
+    b.synchronize()
+    warm = a.elapsed_time(b) / n
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    cold = []
+    for i in range(n_cold):
+        flush.fill_(float(i))
+        torch.cuda._sleep(SLEEP_CYCLES // 20)
+        a.record()
+        launch()
+        b.record()
+        b.synchronize()
+        cold.append(a.elapsed_time(b))
+    del flush
+    return warm, float(np.median(cold))
+
+
+def bound_ms(n_bytes: float, n_flops: float):
+    """The least time the card could take: the larger of bytes over the
+    memory rate and fp32 operations over the fp32 peak. Returns (ms, what
+    binds)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def timing_fields(launch, call, plain, n_bytes, n_flops) -> dict:
+    """The numbers each kernel reports: kernel alone (warm, cold), the
+    wrapper as the path calls it, the plain version, the bound and the
+    share of it that the warm kernel reaches."""
+    warm, cold = kernel_times(launch)
+    bms, by = bound_ms(n_bytes, n_flops)
+    return {"ms": warm, "kernel_ms": warm, "kernel_cold_ms": cold,
+            "call_ms": cuda_ms(call), "plain_ms": cuda_ms(plain),
+            "bound_ms": bms, "bound_by": by, "share": bms / warm, "library_ms": None}
+
+
+def fmt_times(t: dict) -> str:
+    return (f"kernel_ms={t['kernel_ms']:.4f} kernel_cold_ms={t['kernel_cold_ms']:.4f} "
+            f"call_ms={t['call_ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+            f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) share={t['share']:.3f} "
+            f"library_ms=none")
+
+
+def device_ops(fn) -> list:
+    """Names of the device ops (kernels, copies, fills) of one fn() call,
+    from torch.profiler, after one untraced call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def phase_device():
@@ -130,26 +210,32 @@ def phase_k1():
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
     same_invalid = bool(((got == 0) == (ref == 0)).all())
-    ms = cuda_ms(lambda: cuda_kernels.bilateral_cuda(dev))
-    plain_ms = cuda_ms(lambda: preprocess.bilateral_filter_plain(dev))
-    log(f"[k1] bilateral 480x640: max_abs_err={err:.3e} (tol {K1_TOL}) "
-        f"invalid_match={same_invalid} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+    taps = int((dev > 0).sum()) * 9 * 9               # the valid centres' taps
+    t = timing_fields(lambda: cuda_kernels.bilateral_cuda(dev),
+                      lambda: preprocess.bilateral_filter(dev),
+                      lambda: preprocess.bilateral_filter_plain(dev),
+                      2 * dev.numel() * 4, K1_FLOPS_PER_TAP * taps)
+    log(f"[k1] bilateral 480x640 r=4: max_abs_err={err:.3e} (tol {K1_TOL}) "
+        f"invalid_match={same_invalid} {fmt_times(t)}")
     if not (err <= K1_TOL and same_invalid):
         raise AssertionError("K1 disagrees with its plain version")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, **t}
 
 
-def _k2_inputs(pre_integrated: bool, seed: int):
+def _k2_inputs(pre_integrated: bool, seed: int, near: bool = False):
     """A noisy wall at z = 2 m before a VGA camera; 1008 listed chunks of
-    2 cm voxels around it at random slots of S = 16384, 16 padding lanes."""
+    2 cm voxels around it at random slots of S = 16384, 16 padding lanes.
+    `near`: a wall at 0.4 m and the 105 chunks of x in [-0.48, 0.64),
+    y in [-0.32, 0.48), z in [0.16, 0.64) m, most partly outside the view
+    (the TPU kernel clamped chunks this near)."""
     from texturefusion_torch.config import CameraConfig, TSDFConfig
     from texturefusion_torch.core import camera as cam
     cfg = TSDFConfig(voxel_resolution=0.02, capacity=16384, max_update_chunks=1024)
     intr = cam.Intrinsics.from_config(CameraConfig(far_plane=6.0))
     s1, v, u = cfg.capacity + 1, 512, cfg.max_update_chunks
     rng = np.random.default_rng(seed)
-    d = np.full((intr.height, intr.width), 2.0, np.float32)
-    d += rng.normal(0, 0.02, d.shape).astype(np.float32)
+    d = np.full((intr.height, intr.width), 0.4 if near else 2.0, np.float32)
+    d += rng.normal(0, 0.004 if near else 0.02, d.shape).astype(np.float32)
     d[rng.random(d.shape) < 0.05] = 0.0
     rgb = rng.random((intr.height, intr.width, 3)).astype(np.float32)
     quality = rng.random((intr.height, intr.width)).astype(np.float32)
@@ -160,8 +246,11 @@ def _k2_inputs(pre_integrated: bool, seed: int):
     else:
         rows = [np.full((s1, v), 999.0, np.float32), np.zeros((s1, v), np.float32),
                 np.zeros((s1, v, 3), np.float32), np.zeros((s1, v), np.float32)]
-    ids = np.asarray([(x, y, z) for x in range(-8, 8) for y in range(-5, 4)
-                      for z in range(10, 17)], np.int32)
+    if near:
+        ids = [(x, y, z) for x in range(-3, 4) for y in range(-2, 3) for z in range(1, 4)]
+    else:
+        ids = [(x, y, z) for x in range(-8, 8) for y in range(-5, 4) for z in range(10, 17)]
+    ids = np.asarray(ids, np.int32)
     n = len(ids)
     slots = rng.permutation(cfg.capacity)[:n]
     idx = np.concatenate([slots, np.full(u - n, cfg.capacity)]).astype(np.int64)
@@ -173,14 +262,25 @@ def _k2_inputs(pre_integrated: bool, seed: int):
             c(rgb), c(quality), torch.eye(4, device="cuda"), n)
 
 
+def _k2_bytes(n: int, with_color: bool, h: int, w: int) -> int:
+    """What one integrate must move: the listed rows read and written
+    once (sdf, weight; with colour also 3 colour floats and the count),
+    the image planes read once (depth; with colour rgb and quality), and
+    per lane its slot, flag and origin."""
+    row_floats = 512 * (6 if with_color else 2)
+    return 2 * n * row_floats * 4 + h * w * 4 * (5 if with_color else 1) + n * (8 + 1 + 12)
+
+
 def phase_k2():
-    from texturefusion_torch.ops import tsdf
+    from texturefusion_torch.core import se3
+    from texturefusion_torch.ops import cuda_kernels, tsdf
     worst = 0.0
     times = {}
-    for name, sign, pre, with_color in (("plus_fresh", 1.0, False, True),
-                                        ("minus_pre", -1.0, True, True),
-                                        ("depth_only", 1.0, True, False)):
-        cfg, intr, rows, origins, idx, active, d, rgb, q, pose, n = _k2_inputs(pre, 1)
+    for name, sign, pre, with_color, near in (("plus_fresh", 1.0, False, True, False),
+                                              ("minus_pre", -1.0, True, True, False),
+                                              ("depth_only", 1.0, True, False, False),
+                                              ("near", 1.0, True, True, True)):
+        cfg, intr, rows, origins, idx, active, d, rgb, q, pose, n = _k2_inputs(pre, 1, near)
         kb = tsdf.ChunkBatch(*(a.clone() for a in rows))
         pb = tsdf.ChunkBatch(*(a.clone() for a in rows))
         args = (origins, idx, active, d, rgb, q, pose, sign, intr, cfg)
@@ -202,16 +302,24 @@ def phase_k2():
             raise AssertionError(f"K2 {name}: updated flags disagree")
         n_upd = int(ku[:n].sum())
         worst = max(worst, *errs.values())
-        if name == "plus_fresh":
-            times["ms"] = cuda_ms(lambda: tsdf.integrate_frame_fused(
-                kb, *args, with_color=with_color))
-            times["plain_ms"] = cuda_ms(lambda: tsdf.integrate_frame_fused_plain(
-                pb, *args, with_color=with_color))
-        log(f"[k2] {name} S={cfg.capacity} U={idx.numel()} active={n} updated={n_upd}: "
+        log(f"[k2] {name} S={cfg.capacity} U={idx.numel()} active={n} updated={n_upd} "
+            f"partial_or_behind={int((kq[:n] < -1e10).sum())}: "
             + " ".join(f"{k}_err={v:.3e}" for k, v in errs.items())
             + f" quality_err={q_err:.3e}")
+        if name == "plus_fresh":
+            ops = device_ops(lambda: tsdf.integrate_frame_fused(kb, *args))
+            log(f"[k2] one integrate_frame_fused call: {len(ops)} device ops {ops}")
+            image = tsdf.pack_image(d, rgb, q)
+            org = origins[idx].contiguous()
+            w2c = se3.inverse(pose).contiguous()
+            times = timing_fields(
+                lambda: cuda_kernels.tsdf_integrate_cuda(*kb, idx, active, org, image, w2c,
+                                                         sign, intr, cfg),
+                lambda: tsdf.integrate_frame_fused(kb, *args),
+                lambda: tsdf.integrate_frame_fused_plain(pb, *args),
+                _k2_bytes(n, True, intr.height, intr.width), 60 * 512 * n)
+            log(f"[k2] timing plus_fresh, {n} lanes: {fmt_times(times)}")
         del kb, pb, rows
-    log(f"[k2] timing plus_fresh: kernel_ms={times['ms']:.4f} plain_ms={times['plain_ms']:.4f}")
     return {"max_abs_err": worst, **times}
 
 
