@@ -5,23 +5,37 @@
 
 Phases (each prints one line of numbers; any failure exits non-zero):
   1. device   - requires CUDA; prints the card's name and power limit
-  2. build    - compiles both hand-written kernels with nvcc (sm_90a)
+  2. build    - compiles both hand-written kernels with nvcc (sm_90a),
+                one process per source, all at once
   3. K1       - bilateral kernel vs its plain PyTorch version on a
-                480x640 depth image with holes and a depth step
+                480x640 depth image with holes and a depth step (radius
+                4, timed), and at radius 1 and 8 and on 479x641 and
+                120x160 images
   4. K2       - TSDF voxel-update kernel vs its plain version at
                 S = 16384 slots, U = 1024 lanes: +1 from an empty volume,
-                -1 on a pre-integrated volume, and depth only
+                -1 on a pre-integrated volume, depth only, and chunks
+                0.16-0.64 m from the camera; one integrate_frame_fused
+                call must be one device op (torch.profiler)
+     Each kernel is timed alone (kernel_ms warm: events around 100
+     back-to-back launches of the bare kernel call, queued behind a
+     device-side sleep; kernel_cold_ms: single launches after a 128 MiB
+     write evicts the L2, median of 20), as its wrapper is called on the
+     path (call_ms: one event pair around the call, median of 20; it
+     includes the host's dispatch) and as its plain version (plain_ms),
+     beside its bound (bound_ms, and what binds) and the share of the
+     bound that kernel_ms reaches.
   5. slice    - the ground-truth-pose main path at the bench's size
                 (after a 10-frame warm-up through a throwaway volume):
                 120 VGA frames of the 360-degree loop in the bench room,
                 2 cm voxels, rendered on the GPU with sensor noise, packed,
                 preprocessed (K1), integrated into TSDFVolume (K2),
                 meshed every 10 frames and exported as PLY; map error
-                against the analytic scene and launch counts
+                against the analytic scene, launch counts, K2's mean lanes
+                a launch and the full-row K2 bound at that width
   6. small    - the same path on a 160x120 input, GPU kernels against
                 the CPU's plain versions
-  7. profile  - 20 slice frames under torch.profiler: device busy share
-                and the device ops that take most of the time
+  7. profile  - 20 slice frames under torch.profiler: device ops a frame,
+                device busy share and the ops that take most of the time
   8. tracked  - the tracked SLAM path on bench.py's hardened loop (after a
                 10-frame warm-up through a throwaway GCSLAM): 120 VGA
                 frames with noise, an exposure step and a blur burst;
@@ -38,10 +52,10 @@ Phases (each prints one line of numbers; any failure exits non-zero):
                 within 1 mm
  10. profile-tracked - 20 tracked frames under torch.profiler (no gate)
 The line before the last is a JSON object with each kernel's launches
-in phases 5 and 8, its error against the plain version and both times;
-the last line is {"ok": true, "device": {...}}.
+in phases 5 and 8, its error against the plain version and its times,
+bound and share; the last line is {"ok": true, "device": {...}}.
 
-Imports nothing of jax. Builds into texturefusion_torch/_build/.
+Imports nothing of jax or of the JAX package. Builds into texturefusion_torch/_build/.
 """
 
 import json
@@ -194,17 +208,34 @@ def phase_build():
     from texturefusion_torch.ops import cuda_kernels
     t0 = time.perf_counter()
     cuda_kernels.build(verbose=True)
-    log(f"[build] nvcc {' '.join(cuda_kernels.NVCC_FLAGS)}: "
+    flags = "; ".join(f"{src} {' '.join(extra) or '(no extra flags)'}"
+                      for src, extra in cuda_kernels.SOURCES.items())
+    log(f"[build] nvcc {' '.join(cuda_kernels.NVCC_FLAGS)}; {flags}: "
         f"{time.perf_counter() - t0:.2f} s")
 
 
+def _k1_depth(h: int, w: int, seed: int) -> torch.Tensor:
+    """Depth in 0.5-3 m with a 1 m step at mid-width and ~5% holes."""
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(0.5, 3.0, (h, w)).astype(np.float32)
+    d[:, w // 2:] += 1.0
+    d[rng.random(d.shape) < 0.05] = 0.0
+    return torch.as_tensor(d, device="cuda")
+
+
 def phase_k1():
+    """K1 against its plain version at radius 4 on VGA (timed), and at
+    radius 1 and 8 and on ragged sizes (checked only)."""
     from texturefusion_torch.ops import cuda_kernels, preprocess
-    rng = np.random.default_rng(0)
-    d = rng.uniform(0.5, 3.0, (480, 640)).astype(np.float32)
-    d[:, 320:] += 1.0                                  # a 1 m depth step
-    d[rng.random(d.shape) < 0.05] = 0.0                # ~5% holes
-    dev = torch.as_tensor(d, device="cuda")
+    for r, (h, w) in ((1, (480, 640)), (8, (480, 640)), (4, (479, 641)), (4, (120, 160))):
+        x = _k1_depth(h, w, r)
+        got = cuda_kernels.bilateral_cuda(x, radius=r)
+        ref = preprocess.bilateral_filter_plain(x, radius=r)
+        err = float((got - ref).abs().max())
+        if not (err <= K1_TOL and bool(((got == 0) == (ref == 0)).all())):
+            raise AssertionError(f"K1 disagrees with its plain version at r={r}, {h}x{w}")
+        log(f"[k1] r={r} {h}x{w}: max_abs_err={err:.3e}")
+    dev = _k1_depth(480, 640, 0)
     got = cuda_kernels.bilateral_cuda(dev)
     ref = preprocess.bilateral_filter_plain(dev)
     torch.cuda.synchronize()
@@ -263,16 +294,40 @@ def _k2_inputs(pre_integrated: bool, seed: int, near: bool = False):
 
 
 def _k2_bytes(n: int, with_color: bool, h: int, w: int) -> int:
-    """What one integrate must move: the listed rows read and written
-    once (sdf, weight; with colour also 3 colour floats and the count),
-    the image planes read once (depth; with colour rgb and quality), and
-    per lane its slot, flag and origin."""
+    """Full-row count: the listed rows read and written once (sdf, weight;
+    with colour also 3 colour floats and the count), the image planes read
+    once (depth; with colour rgb and quality), and per lane its slot, flag
+    and origin."""
     row_floats = 512 * (6 if with_color else 2)
     return 2 * n * row_floats * 4 + h * w * 4 * (5 if with_color else 1) + n * (8 + 1 + 12)
 
 
+def _k2_needed_bytes(before, after, origins, idx, n, pose, intr, cfg) -> int:
+    """What this frame's data needs: the rows of the voxels that change,
+    read and written (sdf and weight 16 B; colour and count 32 B), the
+    distinct depth pixels the in-image voxels sample (4 B) and the
+    distinct rgb and quality pixels the changed colour voxels sample
+    (16 B), and per lane its slot, flag and origin."""
+    from texturefusion_torch.core import camera as cam
+    from texturefusion_torch.core import geometry, se3
+    rows = idx[:n]
+    changed = [a[rows] != b[rows] for a, b in zip(before, after)]
+    upd = changed[0] | changed[1]
+    cupd = changed[2].any(-1) | changed[3]
+    cent = torch.as_tensor(geometry.voxel_centroids(cfg.chunk_size, cfg.voxel_resolution),
+                           device=pose.device)
+    world = (origins[rows][:, None, :] + cent[None]).reshape(-1, 3)
+    uv, z = cam.project(intr, se3.transform_points(se3.inverse(pose), world))
+    ur, vr = torch.round(uv[:, 0]), torch.round(uv[:, 1])
+    in_img = (ur > 0) & (ur < intr.width - 1) & (vr > 0) & (vr < intr.height - 1) & (z > 0)
+    pix = (vr * intr.width + ur).long()
+    n_pix = int(pix[in_img].unique().numel())
+    n_cpix = int(pix[cupd.reshape(-1) & in_img].unique().numel())
+    return (int(upd.sum()) * 16 + int(cupd.sum()) * 32 + n_pix * 4 + n_cpix * 16
+            + n * (8 + 1 + 12))
+
+
 def phase_k2():
-    from texturefusion_torch.core import se3
     from texturefusion_torch.ops import cuda_kernels, tsdf
     worst = 0.0
     times = {}
@@ -284,7 +339,7 @@ def phase_k2():
         kb = tsdf.ChunkBatch(*(a.clone() for a in rows))
         pb = tsdf.ChunkBatch(*(a.clone() for a in rows))
         args = (origins, idx, active, d, rgb, q, pose, sign, intr, cfg)
-        kq, ku = tsdf.integrate_frame_fused(kb, *args, with_color=with_color)
+        kq, ku = tsdf.integrate_frame_fused(kb, *args, with_color=with_color, n_lanes=n)
         pq, pu = tsdf.integrate_frame_fused_plain(pb, *args, with_color=with_color)
         torch.cuda.synchronize()
         errs = {}
@@ -307,18 +362,26 @@ def phase_k2():
             + " ".join(f"{k}_err={v:.3e}" for k, v in errs.items())
             + f" quality_err={q_err:.3e}")
         if name == "plus_fresh":
-            ops = device_ops(lambda: tsdf.integrate_frame_fused(kb, *args))
-            log(f"[k2] one integrate_frame_fused call: {len(ops)} device ops {ops}")
-            image = tsdf.pack_image(d, rgb, q)
-            org = origins[idx].contiguous()
-            w2c = se3.inverse(pose).contiguous()
-            times = timing_fields(
-                lambda: cuda_kernels.tsdf_integrate_cuda(*kb, idx, active, org, image, w2c,
-                                                         sign, intr, cfg),
-                lambda: tsdf.integrate_frame_fused(kb, *args),
-                lambda: tsdf.integrate_frame_fused_plain(pb, *args),
-                _k2_bytes(n, True, intr.height, intr.width), 60 * 512 * n)
-            log(f"[k2] timing plus_fresh, {n} lanes: {fmt_times(times)}")
+            ops = device_ops(lambda: tsdf.integrate_frame_fused(kb, *args, n_lanes=n))
+            log(f"[k2] one integrate_frame_fused call: {len(ops)} device op(s) {ops}")
+            if len(ops) != 1:
+                raise AssertionError(f"integrate_frame_fused ran {len(ops)} device ops, not 1")
+            bare = lambda bps=cuda_kernels.K2_BLOCKS_PER_SM: (  # noqa: E731
+                cuda_kernels.tsdf_integrate_cuda(*kb, idx, active, origins, d, rgb, q, pose,
+                                                 sign, intr, cfg, n_lanes=n,
+                                                 blocks_per_sm=bps))
+            needed = _k2_needed_bytes(rows, pb, origins, idx, n, pose, intr, cfg)
+            times = timing_fields(bare, lambda: tsdf.integrate_frame_fused(kb, *args, n_lanes=n),
+                                  lambda: tsdf.integrate_frame_fused_plain(pb, *args),
+                                  needed, 60 * 512 * n)
+            full, _ = bound_ms(_k2_bytes(n, True, intr.height, intr.width), 60 * 512 * n)
+            log(f"[k2] timing plus_fresh, {n} lanes: {fmt_times(times)}; the data needs "
+                f"{needed} B; at full rows and planes the bound is {full:.4f} ms "
+                f"(share {full / times['kernel_ms']:.3f})")
+            times["full_row_bound_ms"] = full
+            sweep = {b: kernel_times(lambda b=b: bare(b), n_cold=1)[0] for b in (2, 4, 8, 16)}
+            log("[k2] warm kernel_ms by blocks per SM: "
+                + " ".join(f"{b}:{v:.4f}" for b, v in sweep.items()))
         del kb, pb, rows
     return {"max_abs_err": worst, **times}
 
@@ -422,6 +485,9 @@ def phase_slice(n_frames=120):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(cuda_kernels.LAUNCHES)
+    lanes = cuda_kernels.LANES["tsdf_integrate"] / max(launches["tsdf_integrate"], 1)
+    lanes_bound, _ = bound_ms(_k2_bytes(round(lanes), True, config.camera.height,
+                                        config.camera.width), 60 * 512 * lanes)
     peak = torch.cuda.max_memory_allocated()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -439,7 +505,8 @@ def phase_slice(n_frames=120):
         f"integrate {stages['integrate']:.3f} s, mesh {stages['mesh']:.3f} s)")
     log(f"[slice] chunks={vol.n_active()} verts={len(verts)} faces={len(faces)} "
         f"ply_bytes={ply_bytes} map_rms_mm={rms_mm:.3f} map_median_mm={med_mm:.3f} "
-        f"launches={json.dumps(launches)} peak_mem_bytes={peak} "
+        f"launches={json.dumps(launches)} k2_mean_lanes={lanes:.1f} "
+        f"k2_full_row_bound_ms_at_mean_lanes={lanes_bound:.4f} peak_mem_bytes={peak} "
         f"allocator={vol.alloc.kind}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
@@ -450,16 +517,18 @@ def phase_slice(n_frames=120):
     return launches, (config, scene, poses, packed)
 
 
-def _device_time(prof, wall: float, n_top: int) -> str:
-    """Device ops (kernels, memcpys, memsets) of a profile: count, busy
-    time, busy share of `wall`, and the n_top names by device time."""
+def _device_time(prof, wall: float, n_top: int, n_frames: int) -> str:
+    """Device ops (kernels, memcpys, memsets) of a profile over n_frames:
+    count (and per frame), busy time, busy share of `wall`, and the n_top
+    names by device time."""
     device_ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in device_ops) * 1e-6
     by_name = {}
     for e in device_ops:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n_top]
-    return (f"device_ops={len(device_ops)} device_busy={busy:.4f} s "
+    return (f"device_ops={len(device_ops)} per_frame={len(device_ops) / n_frames:.1f} "
+            f"device_busy={busy:.4f} s "
             f"busy_share={busy / wall:.3f} "
             f"top_ms={json.dumps([[k[:70], round(v, 3)] for k, v in top])}")
 
@@ -475,7 +544,7 @@ def phase_profile(frames, first=60, n=20):
         run_slice(config, scene, poses[sel], packed[sel], "cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    log(f"[profile] {n} frames wall={wall:.4f} s " + _device_time(prof, wall, 8))
+    log(f"[profile] {n} frames wall={wall:.4f} s " + _device_time(prof, wall, 8, n))
 
 
 def phase_small():
@@ -645,7 +714,7 @@ def cpu_draw_fn(tcfg):
     seeded as GCSLAM's, so that runs on two devices get the same draws."""
     from texturefusion_torch.slam.matching import ransac_draws
     gen = torch.Generator().manual_seed(42)
-    return lambda cfg, n: ransac_draws(cfg, tcfg.max_features_pad, gen, "cpu",
+    return lambda cfg, n: ransac_draws(cfg, tcfg.max_features_pad, gen,
                                        () if n is None else (n,))
 
 
@@ -694,7 +763,7 @@ def phase_profile_tracked(frames, first=60, n=20):
         run_tracked(config, packed[first:first + n], "cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    log(f"[profile-tracked] {n} frames wall={wall:.4f} s " + _device_time(prof, wall, 12))
+    log(f"[profile-tracked] {n} frames wall={wall:.4f} s " + _device_time(prof, wall, 12, n))
 
 
 def main() -> int:

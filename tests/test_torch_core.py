@@ -81,7 +81,7 @@ def test_camera_projection_matches_jax():
     depth = rng.uniform(0.5, 3.0, (CAM.height, CAM.width)).astype(np.float32)
     _close(tcam.backproject_depth_map(ti, torch.as_tensor(depth)),
            jcam.backproject_depth_map(ji, jnp.asarray(depth)))
-    for a, b in zip(tcam.pixel_grid(ti), jcam.pixel_grid(ji)):
+    for a, b in zip(tcam.pixel_grid(ti, device="cpu"), jcam.pixel_grid(ji)):
         _close(a, b)
     _close(tcam.in_image(ti, uv_t, 1.0), jcam.in_image(ji, uv_j, 1.0))
 
@@ -109,3 +109,22 @@ def test_geometry_matches_jax(chunk, res):
     np.testing.assert_array_equal(tgeo.world_to_chunk(torch.as_tensor(pts), ext).numpy(),
                                   np.asarray(jgeo.world_to_chunk(jnp.asarray(pts), ext)))
     np.testing.assert_array_equal(tgeo.neighbor_offsets_6(), jgeo.neighbor_offsets_6())
+
+
+def test_config_copy_matches_jax():
+    """The port's own config dataclasses have the JAX package's fields,
+    defaults and presets."""
+    import dataclasses
+
+    from texturefusion_torch import config as tcfg
+    from texturefusion_tpu import config as jcfg
+    classes = [n for n, v in vars(jcfg).items()
+               if dataclasses.is_dataclass(v) and v.__module__ == jcfg.__name__]
+    assert classes
+    for name in classes:
+        jf = [(f.name, f.default) for f in dataclasses.fields(getattr(jcfg, name))]
+        tf = [(f.name, f.default) for f in dataclasses.fields(getattr(tcfg, name))]
+        assert tf == jf, name
+    assert dataclasses.asdict(tcfg.tiny_test_config()) == dataclasses.asdict(
+        jcfg.tiny_test_config())
+    assert dataclasses.asdict(tcfg.PipelineConfig()) == dataclasses.asdict(jcfg.PipelineConfig())

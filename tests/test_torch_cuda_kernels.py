@@ -5,10 +5,12 @@ no jax, so on the GPU machine they run without the repo's conftest:
 
     python -m pytest tests/test_torch_cuda_kernels.py --noconftest -q -m cuda
 
-The unmarked tests check, on any machine, what the wrappers refuse and
-that the ctypes parameter block matches the C struct.
+The unmarked tests check, on any machine, what the wrappers refuse, that
+the ctypes parameter block matches the C struct, that CPU tensors take
+the plain versions, and that the port's entry points default to the card.
 """
 
+import inspect
 import os
 import re
 
@@ -27,6 +29,18 @@ CONFIG = PipelineConfig(
     camera=CameraConfig(width=128, height=96, fx=100.0, fy=100.0, cx=63.5, cy=47.5,
                         far_plane=6.0),
     tsdf=TSDFConfig(voxel_resolution=0.05, capacity=64, max_update_chunks=16))
+# (rtol, atol) of sdf, weight, color, color_count: tests/test_pallas_voxel.py's
+ROW_TOL = ((1e-5, 1e-5), (1e-6, 1e-6), (1e-4, 1e-3), (1e-6, 1e-6))
+
+# chunk-id sets of the K2 scenes (extent 0.4 m): the 12 chunks around a
+# wall at z = 2 m; chunks at 0-0.8 m before a wall at 0.4 m (the TPU kernel
+# clamped chunks this near); chunks from z = -0.4 m to 0.8 m and wider than
+# the view before a wall at 0.6 m (behind the camera and partly outside it)
+SCENES = {
+    "wall": (2.0, [(x, y, 4) for x in range(-2, 2) for y in range(-1, 2)]),
+    "near": (0.4, [(x, y, z) for x in range(-1, 1) for y in range(-1, 1) for z in (0, 1)]),
+    "behind": (0.6, [(x, y, z) for x in (-3, -1, 0, 2) for y in (-1,) for z in (-1, 0, 1)]),
+}
 
 
 @pytest.fixture
@@ -36,11 +50,14 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _wall(seed, pre_integrated, device):
+def _scene(seed, pre_integrated, device, scene="wall", n_active=None):
+    """Rows, the origins table, idx/active (n_active real lanes first, then
+    the trash slot), depth/rgb/quality planes and an identity pose."""
     cfg, intr = CONFIG.tsdf, cam.Intrinsics.from_config(CONFIG.camera)
-    s1, v = cfg.capacity + 1, 512
+    s1, v, u = cfg.capacity + 1, 512, cfg.max_update_chunks
+    wall, ids = SCENES[scene]
     rng = np.random.default_rng(seed)
-    d = (2.0 + rng.normal(0, 0.02, (intr.height, intr.width))).astype(np.float32)
+    d = (wall + rng.normal(0, 0.01 * wall, (intr.height, intr.width))).astype(np.float32)
     d[rng.random(d.shape) < 0.05] = 0.0
     rgb = rng.random((intr.height, intr.width, 3)).astype(np.float32)
     q = rng.random((intr.height, intr.width)).astype(np.float32)
@@ -51,49 +68,83 @@ def _wall(seed, pre_integrated, device):
     else:
         rows = [np.full((s1, v), 999.0, np.float32), np.zeros((s1, v), np.float32),
                 np.zeros((s1, v, 3), np.float32), np.zeros((s1, v), np.float32)]
-    ids = np.asarray([(x, y, 4) for x in range(-2, 2) for y in range(-1, 2)], np.int32)
-    idx = np.concatenate([np.arange(len(ids)), np.full(16 - len(ids), cfg.capacity)])
+    ids = np.asarray(ids, np.int32)
+    n = len(ids) if n_active is None else n_active
+    slots = rng.permutation(cfg.capacity)[:n]
+    idx = np.concatenate([slots, np.full(u - n, cfg.capacity)])
     origins = np.zeros((s1, 3), np.float32)
-    origins[:len(ids)] = ids * 0.4
+    origins[slots] = ids[:n] * (cfg.chunk_size * cfg.voxel_resolution)
     t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
     return (tsdf.ChunkBatch(*(t(a) for a in rows)), t(origins), t(idx.astype(np.int64)),
-            t(np.arange(16) < len(ids)), t(d), t(rgb), t(q), torch.eye(4, device=device),
-            intr, cfg)
+            t(np.arange(u) < n), t(d), t(rgb), t(q), torch.eye(4, device=device),
+            intr, cfg), n
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("seed", [0, 1])
-def test_bilateral_kernel_matches_plain(cuda_device, seed):
-    rng = np.random.default_rng(seed)
-    d = rng.uniform(0.5, 3.0, (120, 160)).astype(np.float32)
-    d[:, 80:] += 1.0
+@pytest.mark.parametrize("radius,shape", [(1, (120, 160)), (4, (120, 160)), (8, (120, 160)),
+                                          (4, (479, 641)), (1, (479, 641)), (8, (479, 641))])
+def test_bilateral_kernel_matches_plain(cuda_device, radius, shape):
+    rng = np.random.default_rng(radius)
+    d = rng.uniform(0.5, 3.0, shape).astype(np.float32)
+    d[:, shape[1] // 2:] += 1.0
     d[rng.random(d.shape) < 0.05] = 0.0
     x = torch.as_tensor(d, device=cuda_device)
     before = cuda_kernels.LAUNCHES["bilateral"]
-    got = preprocess.bilateral_filter(x)
+    got = preprocess.bilateral_filter(x, radius=radius)
     assert cuda_kernels.LAUNCHES["bilateral"] == before + 1
-    torch.testing.assert_close(got, preprocess.bilateral_filter_plain(x), atol=1e-5, rtol=0)
+    ref = preprocess.bilateral_filter_plain(x, radius=radius)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    assert torch.equal(got == 0, ref == 0)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sign,pre,with_color", [(1.0, False, True), (1.0, True, True),
-                                                 (-1.0, True, True), (1.0, True, False)])
-def test_tsdf_kernel_matches_plain(cuda_device, sign, pre, with_color):
-    kb, *args = _wall(0, pre, cuda_device)
+@pytest.mark.parametrize("scene,n_active,sign,pre,with_color", [
+    ("wall", None, 1.0, False, True),      # 12 of 16 lanes, from an empty volume
+    ("wall", None, 1.0, True, True),
+    ("wall", None, -1.0, True, True),      # de-integration: weights fall to 0 and reset
+    ("wall", None, 1.0, True, False),      # depth only: no rgb or quality
+    ("wall", 1, 1.0, True, True),          # one active lane
+    ("near", None, 1.0, True, True),
+    ("behind", None, 1.0, False, True),
+    ("behind", None, -1.0, True, True),
+])
+def test_tsdf_kernel_matches_plain(cuda_device, scene, n_active, sign, pre, with_color):
+    args, n = _scene(0, pre, cuda_device, scene, n_active)
+    kb, origins, idx, active, d, rgb, q, pose, intr, cfg = args
     pb = tsdf.ChunkBatch(*(a.clone() for a in kb))
+    planes = (rgb, q) if with_color else (None, None)
     before = cuda_kernels.LAUNCHES["tsdf_integrate"]
-    kq, ku = tsdf.integrate_frame_fused(kb, *args[:7], sign, *args[7:],
-                                        with_color=with_color)
+    kq, ku = tsdf.integrate_frame_fused(kb, origins, idx, active, d, *planes, pose, sign,
+                                        intr, cfg, with_color=with_color, n_lanes=n)
     assert cuda_kernels.LAUNCHES["tsdf_integrate"] == before + 1
-    pq, pu = tsdf.integrate_frame_fused_plain(pb, *args[:7], sign, *args[7:],
-                                              with_color=with_color)
-    cap = CONFIG.tsdf.capacity
-    for a, b, (rtol, atol) in zip(kb, pb, ((1e-5, 1e-5), (1e-6, 1e-6), (1e-4, 1e-3),
-                                           (1e-6, 1e-6))):
+    pq, pu = tsdf.integrate_frame_fused_plain(pb, origins, idx, active, d, rgb, q, pose, sign,
+                                              intr, cfg, with_color=with_color)
+    cap = cfg.capacity
+    for a, b, (rtol, atol) in zip(kb, pb, ROW_TOL):
         torch.testing.assert_close(a[:cap], b[:cap], rtol=rtol, atol=atol)
-    torch.testing.assert_close(kq[:12], pq[:12], rtol=1e-4, atol=1e-2)
-    assert torch.equal(ku[:12], pu[:12]) and bool(ku.any())
-    assert not bool(ku[12:].any()) and bool((kq[12:] == 0).all())
+    torch.testing.assert_close(kq[:n], pq[:n], rtol=1e-4, atol=1e-2)
+    assert torch.equal(ku[:n], pu[:n]) and bool(ku.any())
+    assert not bool(ku[n:].any()) and bool((kq[n:] == 0).all())
+    if sign < 0:
+        assert bool((kb.weight[idx[:n]] == 0).any())     # some voxels reset
+    if scene == "behind":
+        assert bool((kq[:n] < -1e10).any())              # partial / behind chunks flagged
+
+
+@pytest.mark.cuda
+def test_tsdf_kernel_reads_the_active_flags(cuda_device):
+    """Inside n_lanes, a lane whose active flag is off is left alone."""
+    args, n = _scene(2, True, cuda_device)
+    kb, origins, idx, active, d, rgb, q, pose, intr, cfg = args
+    active[3] = False
+    pb = tsdf.ChunkBatch(*(a.clone() for a in kb))
+    kq, ku = tsdf.integrate_frame_fused(kb, origins, idx, active, d, rgb, q, pose, 1.0,
+                                        intr, cfg, n_lanes=n)
+    pq, pu = tsdf.integrate_frame_fused_plain(pb, origins, idx, active, d, rgb, q, pose, 1.0,
+                                              intr, cfg)
+    torch.testing.assert_close(kb.sdf[:cfg.capacity], pb.sdf[:cfg.capacity],
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(ku, pu) and not bool(ku[3]) and float(kq[3]) == 0.0
 
 
 @pytest.mark.cuda
@@ -103,7 +154,8 @@ def test_slice_gpu_matches_cpu(cuda_device):
     config = tiny_test_config()
     intr = cam.Intrinsics.from_config(config.camera)
     poses = synthetic.orbit_trajectory(2)
-    depths, rgbs = synthetic.render_sequence(synthetic.BoxRoomScene(), intr, poses)
+    depths, rgbs = synthetic.render_sequence(synthetic.BoxRoomScene(), intr, poses,
+                                             device="cpu")
     vols = []
     for dev in ("cpu", cuda_device):
         vol = TSDFVolume(config, device=dev)
@@ -120,11 +172,40 @@ def test_slice_gpu_matches_cpu(cuda_device):
 def test_wrappers_refuse_cpu_and_wrong_types():
     with pytest.raises(ValueError, match="CUDA"):
         cuda_kernels.bilateral_cuda(torch.zeros(8, 8))
-    kb, *args = _wall(0, False, "cpu")
+    for radius in (-1, cuda_kernels.MAX_RADIUS + 1):
+        with pytest.raises(ValueError, match="radius"):
+            cuda_kernels.bilateral_cuda(torch.zeros(8, 8), radius=radius)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_kernels.bilateral_cuda(torch.zeros(8, 8, dtype=torch.float64))
+    with pytest.raises(ValueError, match=r"\[H, W\]"):
+        cuda_kernels.bilateral_cuda(torch.zeros(2, 8, 8))
+
+    (kb, origins, idx, active, d, rgb, q, pose, intr, cfg), _ = _scene(0, False, "cpu")
+
+    def call(**change):
+        a = dict(origins=origins, idx=idx, active=active, depth=d, rgb=rgb, quality=q,
+                 cam_to_world=pose)
+        a.update(change)
+        return cuda_kernels.tsdf_integrate_cuda(
+            *kb, a["idx"], a["active"], a["origins"], a["depth"], a["rgb"], a["quality"],
+            a["cam_to_world"], 1.0, intr, cfg, n_lanes=change.get("n_lanes"))
+
     with pytest.raises(ValueError, match="CUDA"):
-        cuda_kernels.tsdf_integrate_cuda(*kb, args[1], args[2], args[0][args[1]],
-                                         tsdf.pack_image(args[3], args[4], args[5]),
-                                         args[6], 1.0, args[7], args[8])
+        call()
+    with pytest.raises(ValueError, match="float32"):
+        call(depth=d.double())
+    with pytest.raises(ValueError, match="int64"):
+        call(idx=idx.int())
+    with pytest.raises(ValueError, match="shape"):
+        call(origins=origins[:-1])                   # the full table, not a gather
+    with pytest.raises(ValueError, match="shape"):
+        call(rgb=rgb[:-1])
+    with pytest.raises(ValueError, match="contiguous"):
+        call(cam_to_world=pose.t())
+    with pytest.raises(ValueError, match="required"):
+        call(quality=None)
+    with pytest.raises(ValueError, match="n_lanes"):
+        call(n_lanes=idx.numel() + 1)
 
 
 def test_params_struct_matches_cuda_source():
@@ -138,10 +219,15 @@ def test_params_struct_matches_cuda_source():
         decl = decl.strip()
         if decl:
             ctype, names = decl.split(None, 1)
-            fields += [(n.strip(), ctype) for n in names.split(",")]
+            for name in names.split(","):
+                m = re.fullmatch(r"(\w+)(?:\[(\d+)\])?", name.strip())
+                fields.append((m.group(1), ctype, int(m.group(2) or 0)))
     ctypes_map = {"float": "c_float", "int": "c_int"}
-    assert [(n, ctypes_map[t]) for n, t in fields] == [
-        (n, t.__name__) for n, t in cuda_kernels.TsdfParams._fields_]
+    want = []
+    for name, t in cuda_kernels.TsdfParams._fields_:
+        n = getattr(t, "_length_", 0)
+        want.append((name, (t._type_ if n else t).__name__, n))
+    assert [(n, ctypes_map[t], k) for n, t, k in fields] == want
 
 
 def test_cpu_tensors_take_the_plain_path():
@@ -149,6 +235,33 @@ def test_cpu_tensors_take_the_plain_path():
     x = torch.rand(16, 16) + 1.0
     torch.testing.assert_close(preprocess.bilateral_filter(x),
                                preprocess.bilateral_filter_plain(x))
-    kb, *args = _wall(1, True, "cpu")
-    tsdf.integrate_frame_fused(kb, *args[:7], 1.0, *args[7:])
+    (kb, *args), _ = _scene(1, True, "cpu")
+    tsdf.integrate_frame_fused(kb, *args[:6], args[6], 1.0, *args[7:])
     assert cuda_kernels.LAUNCHES == before
+
+
+def test_entry_points_default_to_the_card():
+    """The port's entry points run on the card unless the caller asks for
+    the CPU; the helpers below them take no default device."""
+    from texturefusion_torch.core import camera, se3
+    from texturefusion_torch.fusion.chunkmap import TSDFVolume
+    from texturefusion_torch.io import synthetic
+    from texturefusion_torch.ops import marching_cubes
+    from texturefusion_torch.slam import fastba, gcslam, loopclosure, promote
+    from texturefusion_torch.utils import convert
+
+    def default(fn):
+        return inspect.signature(fn).parameters["device"].default
+
+    for fn in (TSDFVolume, gcslam.GCSLAM, synthetic.render_sequence,
+               convert.volume_state_from_numpy, convert.keypoints_from_numpy,
+               convert.edges_from_numpy, convert.poses_from_numpy,
+               convert.descriptor_db_from_numpy, convert.mesh_pool_from_numpy):
+        assert default(fn) == "cuda", fn
+    for fn in (se3.identity, camera.pixel_grid, tsdf.make_empty_batch,
+               marching_cubes.make_mesh_pool, promote.KeypointDB,
+               loopclosure.KeyframeDescriptorDB, fastba.make_edges):
+        assert default(fn) is inspect.Parameter.empty, fn
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            TSDFVolume(tiny_test_config())

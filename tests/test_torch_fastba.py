@@ -64,7 +64,7 @@ def graph():
 
 def _both(poses, edges, active):
     return ((jnp.asarray(poses), edges, jnp.asarray(active)),
-            (poses_from_numpy(poses), edges_from_numpy(edges), torch.as_tensor(active)))
+            (poses_from_numpy(poses, "cpu"), edges_from_numpy(edges, "cpu"), torch.as_tensor(active)))
 
 
 def test_preintegrate_from_registration_matches_jax():

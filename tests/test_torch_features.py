@@ -44,7 +44,7 @@ def frames():
            for g, d in zip(grays, depths)]
     tkp = [tf.extract_features(torch.tensor(g), torch.tensor(d), CFG.tracking, TI)
            for g, d in zip(grays, depths)]
-    return grays, [keypoints_from_numpy(k) for k in jkp], tkp
+    return grays, [keypoints_from_numpy(k, "cpu") for k in jkp], tkp
 
 
 def _words(rng, shape):
@@ -182,12 +182,12 @@ def vga_frames():
     frames), through both packages' extract_features."""
     poses = tsyn.loop_trajectory(120, radius=1.5)
     scene = tsyn.BoxRoomScene(room_min=(-2.6, -1.5, -2.6), room_max=(2.6, 1.5, 2.6))
-    depths, rgbs = tsyn.render_sequence(scene, VGA_TI, [poses[0], poses[59]])
+    depths, rgbs = tsyn.render_sequence(scene, VGA_TI, [poses[0], poses[59]], device="cpu")
     out = []
     for d, c in zip(depths, rgbs):
         g = np.asarray(jpre.rgb_to_gray(jnp.asarray(c)) * 255.0)
         jk = keypoints_from_numpy(jf.extract_features(jnp.asarray(g), jnp.asarray(d),
-                                                      VGA.tracking, VGA_JI))
+                                                      VGA.tracking, VGA_JI), "cpu")
         out.append((g, jk, tf.extract_features(torch.tensor(g), torch.tensor(d), VGA.tracking,
                                                VGA_TI)))
     return out

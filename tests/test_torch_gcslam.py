@@ -45,7 +45,7 @@ def _render(poses):
 
 def _run_both(poses, depths, grays, final_ba=False):
     js = JSLAM(CFG)
-    ts = TSLAM(CFG, draw_fn=JaxKeyDraws())
+    ts = TSLAM(CFG, device="cpu", draw_fn=JaxKeyDraws())
     for i, (d, g) in enumerate(zip(depths, grays)):
         js.update_frame(jnp.asarray(g), jnp.asarray(d), timestamp=float(i))
         ts.update_frame(torch.tensor(g), torch.tensor(d), timestamp=float(i))
@@ -115,7 +115,7 @@ def test_keyframes_attach_and_ba_ran(loop):
 
 def test_static_camera_single_keyframe(orbit):
     _, depths, grays, _, _ = orbit
-    slam = TSLAM(CFG)
+    slam = TSLAM(CFG, device="cpu")
     for i in range(4):
         slam.update_frame(torch.tensor(grays[0]), torch.tensor(depths[0]), timestamp=float(i))
     assert len(slam.keyframes) == 1
@@ -125,7 +125,7 @@ def test_static_camera_single_keyframe(orbit):
 
 def test_lost_tracking_starts_new_origin_then_merges():
     poses, depths, grays = _render(jsyn.orbit_trajectory(6))
-    slam = TSLAM(CFG)
+    slam = TSLAM(CFG, device="cpu")
     blank = torch.zeros((JI.height, JI.width))
 
     def feed(i, is_blank=False):
@@ -152,7 +152,7 @@ def test_lost_tracking_starts_new_origin_then_merges():
 ])
 def test_unported_ba_branches_raise(loop, change):
     _, depths, grays, _, _ = loop
-    slam = TSLAM(CFG.replace(**change))
+    slam = TSLAM(CFG.replace(**change), device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         for i, (d, g) in enumerate(zip(depths, grays)):
             slam.update_frame(torch.tensor(g), torch.tensor(d), timestamp=float(i))
@@ -161,7 +161,7 @@ def test_unported_ba_branches_raise(loop, change):
 
 def test_add_edge_preintegrates_a_registration(orbit):
     _, depths, grays, _, _ = orbit
-    slam = TSLAM(CFG)
+    slam = TSLAM(CFG, device="cpu")
     for i in (0, 1):
         slam.update_frame(torch.tensor(grays[i]), torch.tensor(depths[i]), timestamp=float(i))
     kp0, kp1 = slam.frames[0].keypoints, slam._prev_kp
@@ -178,7 +178,7 @@ def test_add_edge_preintegrates_a_registration(orbit):
 
 def test_stale_keyframe_result_raises(orbit):
     _, depths, grays, _, _ = orbit
-    slam = TSLAM(CFG)
+    slam = TSLAM(CFG, device="cpu")
     slam.update_frame(torch.tensor(grays[0]), torch.tensor(depths[0]))
     kp = slam.frames[0].keypoints
     res = slam._register(kp, kp)

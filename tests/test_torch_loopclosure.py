@@ -44,11 +44,11 @@ def state():
     depths, rgbs = jsyn.render_sequence(jsyn.BoxRoomScene(), JI, poses)
     jkp = [jf.extract_features(jpre.rgb_to_gray(jnp.asarray(c)) * 255.0, jnp.asarray(d),
                                CFG.tracking, JI) for d, c in zip(depths, rgbs)]
-    tkp = [keypoints_from_numpy(k) for k in jkp]
+    tkp = [keypoints_from_numpy(k, "cpu") for k in jkp]
     jdb = jlc.KeyframeDescriptorDB(max_keyframes=MAX_KF)
-    tdb = tlc.KeyframeDescriptorDB(max_keyframes=MAX_KF)
+    tdb = tlc.KeyframeDescriptorDB(max_keyframes=MAX_KF, device="cpu")
     jkdb = jpr.KeypointDB(MAX_KF, CFG.tracking.max_features_pad)
-    tkdb = tpr.KeypointDB(MAX_KF, CFG.tracking.max_features_pad)
+    tkdb = tpr.KeypointDB(MAX_KF, CFG.tracking.max_features_pad, "cpu")
     for slot, f in enumerate(KF_FRAMES):
         jdb.add(slot, jkp[f].desc, jkp[f].valid)
         tdb.add(slot, tkp[f].desc, tkp[f].valid)
@@ -62,7 +62,7 @@ def test_db_rows_identical(state):
     np.testing.assert_array_equal(tdb.desc.numpy(), np.asarray(jdb.desc).view(np.int32))
     np.testing.assert_array_equal(tdb.valid.numpy(), np.asarray(jdb.valid))
     assert tdb.kf_ids == jdb.kf_ids and tdb.valid[:len(KF_FRAMES)].any(1).all()
-    db = descriptor_db_from_numpy(jdb.desc, jdb.valid, jdb.kf_ids)
+    db = descriptor_db_from_numpy(jdb.desc, jdb.valid, jdb.kf_ids, device="cpu")
     assert torch.equal(db.desc, tdb.desc) and db.kf_ids == tdb.kf_ids
 
 

@@ -46,7 +46,7 @@ def seq():
     depths, rgbs = jsyn.render_sequence(jsyn.BoxRoomScene(), JI, poses)
     jkp = [jf.extract_features(jpre.rgb_to_gray(jnp.asarray(c)) * 255.0, jnp.asarray(d),
                                CFG.tracking, JI) for d, c in zip(depths[:3], rgbs[:3])]
-    return poses, depths, jkp, [keypoints_from_numpy(k) for k in jkp]
+    return poses, depths, jkp, [keypoints_from_numpy(k, "cpu") for k in jkp]
 
 
 @pytest.mark.parametrize("ref,src,seed", [(0, 1, 0), (0, 2, 1), (1, 1, 2)])

@@ -70,7 +70,7 @@ def test_mesh_chunks_pooled_matches_jax(p_cap, t_cap):
         tsdf=tiny_test_config().tsdf.__class__(voxel_resolution=0.05, capacity=CAP),
         mesh=MeshConfig(pool_verts_per_chunk=p_cap, pool_tris_per_chunk=t_cap))
     arrs = _sphere_volume_arrays()
-    vol = convert.volume_state_from_numpy(config, *arrs)
+    vol = convert.volume_state_from_numpy(config, *arrs, device="cpu")
     assert vol.n_active() == 64
     mesher = IncrementalMesher(vol)
     slots = np.sort(np.nonzero(arrs[6])[0])[::2]     # half the chunks
@@ -93,7 +93,7 @@ def test_mesh_chunks_pooled_matches_jax(p_cap, t_cap):
     np.testing.assert_array_equal(tt.numpy()[:len(slots)], np.asarray(jt)[:len(slots)])
     assert tv.numpy().sum() > 0
 
-    ref = convert.mesh_pool_from_numpy(*(np.asarray(a) for a in jpool))
+    ref = convert.mesh_pool_from_numpy(*(np.asarray(a) for a in jpool), device="cpu")
     got = mesher.pool
     rows = slice(0, CAP)
     for name in ("vcount", "tcount", "tris"):
@@ -111,7 +111,7 @@ def test_mesh_chunks_pooled_matches_jax(p_cap, t_cap):
 
 
 def test_gather_and_unpack_roundtrip():
-    pool = tmc.make_mesh_pool(4, 8, 8)
+    pool = tmc.make_mesh_pool(4, 8, 8, "cpu")
     pool.col_packed[1, :3] = torch.tensor([0x010203, 0xFFFFFF, 0x7F0080],
                                           dtype=torch.int32)
     rows = tmc.gather_pool_rows(pool, torch.tensor([1]))
@@ -127,7 +127,7 @@ def test_release_and_drop_forget_chunks():
     config = tiny_test_config().replace(
         tsdf=tiny_test_config().tsdf.__class__(voxel_resolution=0.05, capacity=CAP))
     arrs = _sphere_volume_arrays(1)
-    vol = convert.volume_state_from_numpy(config, *arrs)
+    vol = convert.volume_state_from_numpy(config, *arrs, device="cpu")
     np.testing.assert_array_equal(vol.lookup(arrs[5][arrs[6]]), np.nonzero(arrs[6])[0])
     mesher = IncrementalMesher(vol)
     vol.dirty_mesh.update(vol.active_slots().tolist())

@@ -1,6 +1,7 @@
-"""The port runs without jax (the GT-pose slice and the tracked SLAM path,
-the latter through chip_smoke.run_tracked on CPU tensors), and
-chip_smoke.py refuses to run without a GPU.
+"""The port runs without jax and without any module of the JAX package
+(the GT-pose slice and the tracked SLAM path, the latter through
+chip_smoke.run_tracked on CPU tensors), and chip_smoke.py refuses to run
+without a GPU.
 
 Both checks run in fresh subprocesses, so the test session's own jax
 import cannot hide an import of jax by the port.
@@ -33,8 +34,8 @@ from texturefusion_torch.ops import preprocess, tsdf
 cfg = tiny_test_config()
 intr = cam.Intrinsics.from_config(cfg.camera)
 poses = synthetic.orbit_trajectory(2)
-depths, rgbs = synthetic.render_sequence(synthetic.BoxRoomScene(), intr, poses)
-vol = TSDFVolume(cfg)
+depths, rgbs = synthetic.render_sequence(synthetic.BoxRoomScene(), intr, poses, device="cpu")
+vol = TSDFVolume(cfg, device="cpu")
 mesher = IncrementalMesher(vol)
 for i, (p, d, c) in enumerate(zip(poses, depths, rgbs)):
     packed = preprocess.pack_frame((d * 5000).astype(np.uint16), (c * 255).astype(np.uint8))
@@ -43,12 +44,13 @@ for i, (p, d, c) in enumerate(zip(poses, depths, rgbs)):
     vol.integrate_frame(dep, rgb, q, p, keyframe_id=i)
 mesher.update_meshes()
 v, f, _, _ = mesher.full_mesh()
-batch = tsdf.make_empty_batch(4, 512)
+batch = tsdf.make_empty_batch(4, 512, "cpu")
 frame_step(torch.as_tensor(depths[0]), torch.as_tensor(rgbs[0]), batch,
            torch.zeros(4, 3), torch.ones(4, dtype=torch.bool),
            torch.as_tensor(poses[0]), intr, cfg.tsdf)
 assert len(v) > 100 and len(f) > 100, (len(v), len(f))
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "texturefusion_tpu")))
 print("JAX_MODULES", bad)
 """
 
@@ -69,7 +71,7 @@ from texturefusion_torch.utils import convert
 cfg = tiny_test_config()
 intr = cam.Intrinsics.from_config(cfg.camera)
 poses = synthetic.orbit_trajectory(5)
-depths, rgbs = synthetic.render_sequence(synthetic.BoxRoomScene(), intr, poses)
+depths, rgbs = synthetic.render_sequence(synthetic.BoxRoomScene(), intr, poses, device="cpu")
 packed = [preprocess.pack_frame((d * 5000).astype(np.uint16), (c * 255).astype(np.uint8))
           for d, c in zip(depths, rgbs)]
 slam, _ = chip_smoke.run_tracked(cfg, packed, "cpu")
@@ -79,7 +81,8 @@ d0, d1 = torch.as_tensor(depths[0]), torch.as_tensor(depths[1])
 r = icp.icp_refine(d0, preprocess.extract_normal_map(d0, intr), d1, torch.eye(4), intr)
 assert torch.isfinite(r.pose).all()
 loop_closure.precision_recall(loop_closure.detected_pairs_from_slam(slam), set())
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "texturefusion_tpu")))
 print("JAX_MODULES", bad)
 """
 

@@ -49,7 +49,7 @@ def runs():
 
     jvol = JVolume(CONFIG)
     jmesh = JMesher(jvol)
-    tvol = TVolume(CONFIG)
+    tvol = TVolume(CONFIG, device="cpu")
     tmesh = TMesher(tvol)
     for i, (p, d, c) in enumerate(zip(poses, depths, rgbs)):
         dj, cj = jnp.asarray(d), jnp.asarray(c)
@@ -145,7 +145,7 @@ def test_port_render_colours_match_jax():
     room = dict(room_min=(-2.6, -1.5, -2.6), room_max=(2.6, 1.5, 2.6))
     poses = jsyn.loop_trajectory(120, radius=1.5)[:60:20]
     _, jrgb = jsyn.render_sequence(jsyn.BoxRoomScene(**room), ji, poses)
-    _, trgb = tsyn.render_sequence(tsyn.BoxRoomScene(**room), ti, poses)
+    _, trgb = tsyn.render_sequence(tsyn.BoxRoomScene(**room), ti, poses, device="cpu")
     diff = np.abs((trgb * 255).astype(np.uint8).astype(int)
                   - (jrgb * 255).astype(np.uint8).astype(int))
     assert (diff == 0).mean() >= 0.995, (diff == 0).mean()
@@ -171,7 +171,7 @@ def test_frame_step_matches_jax():
                        jtsdf.make_empty_batch(len(ids), 512), jnp.asarray(origins),
                        jnp.asarray(active), jnp.asarray(pose), ji, cfg)
     tb, tq, tn = tstep(torch.as_tensor(depth), torch.as_tensor(rgb),
-                       ttsdf.make_empty_batch(len(ids), 512), torch.as_tensor(origins),
+                       ttsdf.make_empty_batch(len(ids), 512, "cpu"), torch.as_tensor(origins),
                        torch.as_tensor(active), torch.as_tensor(pose), ti, cfg)
     for name, t, j, atol in zip(("sdf", "weight", "color", "color_count"), tb, jb,
                                 (1e-4, 0, 1e-2, 0)):

@@ -97,10 +97,10 @@ def steps():
     want = _jax_tracked2(packed[FRAME_IDX], kp_ref, kp_prev, kf_depth, kf_weight, base_key,
                          FRAME_IDX, CFG.tracking)
     cuda_kernels.reset_launch_counts()
-    inputs = (torch.tensor(packed[FRAME_IDX]), keypoints_from_numpy(kp_ref),
+    inputs = (torch.tensor(packed[FRAME_IDX]), keypoints_from_numpy(kp_ref, "cpu"),
               torch.tensor(np.asarray(kf_depth)), torch.tensor(np.asarray(kf_weight)))
     draws = tracked2_draws(base_key, FRAME_IDX, CFG.tracking)
-    got = frame_step_tracked2(inputs[0], None, inputs[1], keypoints_from_numpy(kp_prev),
+    got = frame_step_tracked2(inputs[0], None, inputs[1], keypoints_from_numpy(kp_prev, "cpu"),
                               *inputs[2:], 7, FRAME_IDX, TI, CFG.tracking, SCALE, draws=draws)
     return want, got, inputs, draws
 
@@ -119,7 +119,7 @@ def test_bundle_matches(steps):
 
 def test_keypoints_match(steps):
     (_, jkp, *_), (_, tkp, *_), *_ = steps
-    jkp = keypoints_from_numpy(jkp)
+    jkp = keypoints_from_numpy(jkp, "cpu")
     lvl0 = (jkp.level == 0).numpy()
     np.testing.assert_array_equal(tkp.desc.numpy()[lvl0], jkp.desc.numpy()[lvl0])
     np.testing.assert_array_equal(tkp.valid.numpy(), jkp.valid.numpy())

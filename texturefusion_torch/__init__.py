@@ -15,10 +15,9 @@ hand-written CUDA kernels carry them on the GPU (csrc/bilateral.cu,
 csrc/tsdf_integrate.cu, built and bound by ops/cuda_kernels.py); every
 tensor on the CPU takes the plain PyTorch version of the same function.
 
-The package never imports jax. It shares the configuration dataclasses
-of `texturefusion_tpu.config` (pure dataclasses, re-exported as
-`texturefusion_torch.config`) and the source of the native chunk
-allocator.
+The package never imports jax, nor anything of the JAX package: it
+keeps its own copies of the configuration dataclasses (config.py) and of
+the native chunk allocator (native.py, csrc/chunk_alloc.cpp).
 """
 
 __version__ = "0.1.0"

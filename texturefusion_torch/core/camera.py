@@ -96,7 +96,7 @@ def undistort_points(intr: Intrinsics, uv: torch.Tensor,
     return torch.stack([x * intr.fx + intr.cx, y * intr.fy + intr.cy], dim=-1)
 
 
-def pixel_grid(intr: Intrinsics, dtype=torch.float32, device=None
+def pixel_grid(intr: Intrinsics, dtype=torch.float32, *, device
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(H, W) grids of pixel u (x) and v (y) coordinates."""
     v, u = torch.meshgrid(
@@ -107,7 +107,7 @@ def pixel_grid(intr: Intrinsics, dtype=torch.float32, device=None
 
 def backproject_depth_map(intr: Intrinsics, depth: torch.Tensor) -> torch.Tensor:
     """(H, W) depth -> (H, W, 3) camera-frame point map."""
-    u, v = pixel_grid(intr, depth.dtype, depth.device)
+    u, v = pixel_grid(intr, depth.dtype, device=depth.device)
     return unproject(intr, u, v, depth)
 
 

@@ -143,7 +143,7 @@ def make_pose(rot: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, _HAT[key].expand(batch + (1, 4))], dim=-2)
 
 
-def identity(batch_shape=(), dtype=torch.float32, device=None) -> torch.Tensor:
+def identity(batch_shape=(), dtype=torch.float32, *, device) -> torch.Tensor:
     return torch.eye(4, dtype=dtype, device=device).expand(
         tuple(batch_shape) + (4, 4)).clone()
 

@@ -28,7 +28,7 @@ from texturefusion_torch.ops import tsdf as tsdf_ops
 
 
 class TSDFVolume:
-    def __init__(self, config: PipelineConfig, device="cpu"):
+    def __init__(self, config: PipelineConfig, device="cuda"):
         self.config = config
         self.cfg = config.tsdf
         self.intr = cam.Intrinsics.from_config(config.camera)
@@ -160,19 +160,16 @@ class TSDFVolume:
         if len(slots) == 0:
             return slots
         with_color = rgb is not None
-        h, w = self.intr.height, self.intr.width
-        if rgb is None:
-            rgb = torch.zeros((h, w, 3), dtype=torch.float32, device=self.device)
-        if quality_map is None:
-            quality_map = torch.zeros((h, w), dtype=torch.float32, device=self.device)
-
+        if with_color and quality_map is None:
+            quality_map = torch.zeros(depth.shape, dtype=torch.float32, device=self.device)
         budget = self.cfg.max_update_chunks
         for start in range(0, len(slots), budget):
             chunk_slots = slots[start:start + budget]
             idx, active = self._padded(chunk_slots)
             quality, updated = tsdf_ops.integrate_frame_fused(
                 self.batch, self.origins, idx, active, depth, rgb, quality_map,
-                pose, float(sign), self.intr, self.cfg, with_color=with_color)
+                pose, float(sign), self.intr, self.cfg, with_color=with_color,
+                n_lanes=len(chunk_slots))
             if with_color and keyframe_id is not None:
                 self._record_obs(chunk_slots, quality, updated, keyframe_id, sign)
             self._mark_dirty(chunk_slots)

@@ -107,7 +107,7 @@ def render_frame(scene: BoxRoomScene, intr: cam.Intrinsics,
 
 
 def render_sequence(scene: BoxRoomScene, intr: cam.Intrinsics,
-                    poses: List[np.ndarray], device="cpu"):
+                    poses: List[np.ndarray], device="cuda"):
     """Render a sequence on `device`; returns numpy (depths [N, H, W],
     rgbs [N, H, W, 3])."""
     depths, rgbs = [], []

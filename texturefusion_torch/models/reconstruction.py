@@ -62,8 +62,7 @@ def tracked_draws(base_seed: int, frame_idx: int, tcfg: TrackingConfig, device
     made on `device` from the frame's generator."""
     gen = frame_generator(base_seed, frame_idx, device)
     k = tcfg.max_features_pad
-    return (ransac_draws(tcfg, k, gen, device),
-            ransac_draws(lite_config(tcfg), k, gen, device))
+    return ransac_draws(tcfg, k, gen), ransac_draws(lite_config(tcfg), k, gen)
 
 
 def track_frame_fused(packed_or_depth: torch.Tensor, rgb, kp_ref: Keypoints,
@@ -92,8 +91,7 @@ def frame_step_tracked(packed_or_depth: torch.Tensor, rgb, kp_ref: Keypoints,
     BasicAPI.cpp:506-635). Returns (bundle, kp, res, fused_depth, fused_weight)."""
     if draws is None:
         draws = ransac_draws(tcfg, tcfg.max_features_pad,
-                             frame_generator(base_seed, frame_idx, kf_depth.device),
-                             kf_depth.device)
+                             frame_generator(base_seed, frame_idx, kf_depth.device))
     bundle, kp, res = track_frame_fused(packed_or_depth, rgb, kp_ref, draws, intr, tcfg,
                                         depth_scale)
     return (bundle, kp, res) + _fuse_if_tracked(kf_depth, kf_weight, bundle[0], res, intr)

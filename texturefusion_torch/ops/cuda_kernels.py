@@ -7,15 +7,19 @@ The two TPU kernels of the JAX package have Hopper counterparts here:
 
 Both are compiled on first use by nvcc into one shared library with a
 plain C interface (texturefusion_torch/_build/, named by a hash of the
-sources so an edited source rebuilds) and bound with ctypes: pointers,
-the current stream and scalars cross as c_void_p / c_int / c_float.
+sources and flags so an edited source rebuilds) and bound with ctypes:
+pointers, the current stream and scalars cross as c_void_p / c_int /
+c_float. Each source is compiled with its own flags, all at once, and the
+objects are linked into the library: K2 needs -fmad=false (its projection
+must round as the plain version does), K1 wants fused multiply-adds.
 Each launch function returns cudaGetLastError() and the wrapper raises
 if it is not 0. The wrappers check device, dtype, shape and contiguity,
 allocate their outputs with torch.empty and never synchronise.
 
 `LAUNCHES` counts kernel launches per kernel; each wrapper adds one
 right after its launch and nowhere else, so a run can show that its main
-path went through the kernels.
+path went through the kernels. `LANES` sums the lanes K2 was launched
+over.
 """
 
 from __future__ import annotations
@@ -30,24 +34,28 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from texturefusion_torch.core import geometry
-
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
-SOURCES = ("bilateral.cu", "tsdf_integrate.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
+              "-Xcompiler", "-fPIC")
+# each source and the flags it adds to NVCC_FLAGS
+SOURCES = {"bilateral.cu": (), "tsdf_integrate.cu": ("-fmad=false",)}
+
+MAX_RADIUS = 8              # K1 is instantiated for radius 0..MAX_RADIUS
+K2_BLOCKS_PER_SM = 4        # K2's persistent blocks per SM
 
 LAUNCHES = {"bilateral": 0, "tsdf_integrate": 0}
+LANES = {"tsdf_integrate": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, LANES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:
@@ -65,11 +73,38 @@ class TsdfParams(ctypes.Structure):
             "near_plane", "far_plane", "trunc_quad", "trunc_linear",
             "trunc_const", "trunc_scale", "res_diag", "color_band",
             "integration_weight", "min_weight", "color_saturation", "sign")] + [
-        ("with_color", ctypes.c_int), ("n_rows", ctypes.c_int)]
+        ("with_color", ctypes.c_int), ("n_rows", ctypes.c_int),
+        ("centroid", ctypes.c_float * 8)]
+
+
+def _compile(srcs, path: str, verbose: bool) -> None:
+    """nvcc every source to an object at once, then link the library."""
+    tmp = f"{path}.{os.getpid()}"
+    objs = [f"{tmp}.{i}.o" for i in range(len(srcs))]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, *SOURCES[os.path.basename(s)],
+                               "-Xptxas", "-v", "-c", "-o", o, s],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for s, o in zip(srcs, objs)]
+    outs = [(p, *p.communicate()) for p in procs]
+    try:
+        for p, _, err in outs:
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n{err}")
+            if verbose:
+                print(err.strip())
+        res = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", f"{tmp}.so", *objs],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+        os.replace(f"{tmp}.so", path)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
 
 
 def build(verbose: bool = False) -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
+    """Compile (once per hash of sources and flags) and load the kernel library."""
     global _lib
     with _lock:
         if _lib is not None:
@@ -79,25 +114,19 @@ def build(verbose: bool = False) -> ctypes.CDLL:
         for s in srcs:
             with open(s, "rb") as f:
                 h.update(f.read())
+            h.update(" ".join(SOURCES[os.path.basename(s)]).encode())
         h.update(" ".join(NVCC_FLAGS).encode())
         path = os.path.join(_BUILD, f"libtf_kernels_{h.hexdigest()[:16]}.so")
         if not os.path.exists(path):
             os.makedirs(_BUILD, exist_ok=True)
-            tmp = f"{path}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, *srcs]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-            if verbose:
-                print(res.stderr.strip())
-            os.replace(tmp, path)
+            _compile(srcs, path, verbose)
         lib = ctypes.CDLL(path)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.tf_bilateral_launch.restype = i
         lib.tf_bilateral_launch.argtypes = [p, p, p, i, i, i, f, p]
         lib.tf_tsdf_integrate_launch.restype = i
-        lib.tf_tsdf_integrate_launch.argtypes = [p] * 12 + [
-            ctypes.POINTER(TsdfParams), i, p]
+        lib.tf_tsdf_integrate_launch.argtypes = [p] * 13 + [
+            ctypes.POINTER(TsdfParams), i, i, i, p]
         _lib = lib
         return lib
 
@@ -109,8 +138,10 @@ def _check(rc: int, name: str) -> None:
 
 def _require(t: torch.Tensor, name: str, dtype: torch.dtype,
              shape: Optional[Tuple[int, ...]] = None) -> None:
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    """Type, layout and shape of one kernel argument (its device is
+    checked by _on_card, after every argument passed these)."""
+    if t is None:
+        raise ValueError(f"{name} is required")
     if t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
@@ -119,15 +150,21 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
 
 
-_device_consts: dict = {}
+def _on_card(**tensors: Optional[torch.Tensor]) -> None:
+    for name, t in tensors.items():
+        if t is not None and not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
 
 
-def _device_const(key, make) -> torch.Tensor:
-    """Small per-device constant tables (spatial weights, centroids)."""
-    t = _device_consts.get(key)
-    if t is None:
-        t = _device_consts[key] = make()
-    return t
+_host_consts: dict = {}
+
+
+def _host_const(key, make):
+    """Per-setting host constants: spatial weights, parameter blocks."""
+    v = _host_consts.get(key)
+    if v is None:
+        v = _host_consts[key] = make()
+    return v
 
 
 def spatial_weights(radius: int, sigma_space: float) -> np.ndarray:
@@ -141,57 +178,34 @@ def spatial_weights(radius: int, sigma_space: float) -> np.ndarray:
 
 def bilateral_cuda(depth: torch.Tensor, radius: int = 4,
                    sigma_space: float = 4.5, sigma_range: float = 0.03) -> torch.Tensor:
-    """K1: [H, W] f32 depth on the card -> [H, W] filtered depth."""
+    """K1: [H, W] f32 depth on the card -> [H, W] filtered depth.
+    radius must lie in 0..MAX_RADIUS (the kernel is instantiated for
+    each); the spatial weights travel in the kernel's parameter block."""
+    if not 0 <= radius <= MAX_RADIUS:
+        raise ValueError(f"radius must lie in 0..{MAX_RADIUS}, got {radius}")
     _require(depth, "depth", torch.float32)
     if depth.dim() != 2:
         raise ValueError(f"depth must be [H, W], got {tuple(depth.shape)}")
+    _on_card(depth=depth)
     lib = build()
     h, w = depth.shape
-    ws = _device_const(("ws", depth.device, radius, sigma_space), lambda: torch.as_tensor(
-        spatial_weights(radius, sigma_space), device=depth.device))
+    ws = _host_const(("ws", radius, sigma_space), lambda: spatial_weights(radius, sigma_space))
+    # exp(-diff²/(2σr²)) = exp2(-(s·diff)²): the kernel stages depths
+    # times s and takes exp2
+    scale = np.sqrt(np.log2(np.e) / (2.0 * sigma_range * sigma_range))
     out = torch.empty_like(depth)
     stream = torch.cuda.current_stream(depth.device).cuda_stream
-    rc = lib.tf_bilateral_launch(depth.data_ptr(), out.data_ptr(), ws.data_ptr(),
-                                 h, w, radius,
-                                 float(np.float32(1.0 / (2.0 * sigma_range * sigma_range))),
-                                 stream)
+    rc = lib.tf_bilateral_launch(depth.data_ptr(), out.data_ptr(), ws.ctypes.data,
+                                 h, w, radius, float(np.float32(scale)), stream)
     _check(rc, "bilateral")
     LAUNCHES["bilateral"] += 1
     return out
 
 
-def tsdf_integrate_cuda(sdf: torch.Tensor, weight: torch.Tensor,
-                        color: torch.Tensor, ccnt: torch.Tensor,
-                        idx: torch.Tensor, active: torch.Tensor,
-                        origins: torch.Tensor, image: torch.Tensor,
-                        world_to_cam: torch.Tensor, sign: float,
-                        intr, cfg, with_color: bool = True
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2: update rows sdf/weight/ccnt [S+1, 512], color [S+1, 512, 3]
-    IN PLACE at the slots `idx` [U] (int64; padding lanes inactive).
-    origins [U, 3] are the listed rows' chunk origins, image [H, W, 5]
-    is depth | rgb×255 | quality, world_to_cam [4, 4]. Returns
-    (quality [U] f32, updated [U] bool)."""
-    n_rows, n_vox = sdf.shape
-    if n_vox != cfg.chunk_size ** 3 or n_vox != 512:
-        raise ValueError(f"rows must be [S+1, 512], got {tuple(sdf.shape)}")
-    u = idx.shape[0]
-    _require(sdf, "sdf", torch.float32)
-    _require(weight, "weight", torch.float32, (n_rows, n_vox))
-    _require(color, "color", torch.float32, (n_rows, n_vox, 3))
-    _require(ccnt, "color_count", torch.float32, (n_rows, n_vox))
-    _require(idx, "idx", torch.int64, (u,))
-    _require(active, "active", torch.bool, (u,))
-    _require(origins, "origins", torch.float32, (u, 3))
-    _require(image, "image", torch.float32, (intr.height, intr.width, 5))
-    _require(world_to_cam, "world_to_cam", torch.float32, (4, 4))
-    lib = build()
-    dev = sdf.device
-    cent = _device_const(("cent", dev, cfg.chunk_size, cfg.voxel_resolution),
-                         lambda: torch.as_tensor(geometry.voxel_centroids(
-                             cfg.chunk_size, cfg.voxel_resolution), device=dev))
+def _tsdf_params(intr, cfg, sign: float, with_color: bool, n_rows: int) -> TsdfParams:
     res_diag = float(np.sqrt(3.0)) * cfg.voxel_resolution
-    params = TsdfParams(
+    centroid = ((np.arange(8) + 0.5) * cfg.voxel_resolution).astype(np.float32)
+    return TsdfParams(
         fx=intr.fx, fy=intr.fy, cx=intr.cx, cy=intr.cy,
         width=intr.width, height=intr.height,
         near_plane=intr.near, far_plane=intr.far,
@@ -200,15 +214,67 @@ def tsdf_integrate_cuda(sdf: torch.Tensor, weight: torch.Tensor,
         res_diag=res_diag, color_band=res_diag * 0.5 + cfg.color_band_pad,
         integration_weight=cfg.integration_weight, min_weight=cfg.min_weight,
         color_saturation=cfg.color_saturation, sign=float(sign),
-        with_color=int(with_color), n_rows=n_rows)
-    quality = torch.empty(u, dtype=torch.float32, device=dev)
+        with_color=int(with_color), n_rows=n_rows,
+        centroid=(ctypes.c_float * 8)(*centroid.tolist()))
+
+
+def tsdf_integrate_cuda(sdf: torch.Tensor, weight: torch.Tensor,
+                        color: torch.Tensor, ccnt: torch.Tensor,
+                        idx: torch.Tensor, active: torch.Tensor,
+                        origins: torch.Tensor, depth: torch.Tensor,
+                        rgb: Optional[torch.Tensor], quality: Optional[torch.Tensor],
+                        cam_to_world: torch.Tensor, sign: float, intr, cfg,
+                        with_color: bool = True, n_lanes: Optional[int] = None,
+                        blocks_per_sm: int = K2_BLOCKS_PER_SM
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2: update rows sdf/weight/ccnt [S+1, 512], color [S+1, 512, 3]
+    IN PLACE at the slots `idx` [U] (int64; `active` [U] bool marks the
+    real lanes). origins [S+1, 3] is the full chunk-origin table (read by
+    slot), depth [H, W], rgb [H, W, 3] in 0..1, quality [H, W] (rgb and
+    quality are not read, and may be None, when with_color is False),
+    cam_to_world [4, 4]. Lanes from `n_lanes` on (default U) must be
+    inactive: the kernel runs over the first n_lanes only and zeroes the
+    outputs of the rest. One launch. Returns (quality [U] f32, updated
+    [U] bool)."""
+    n_rows, n_vox = sdf.shape
+    if n_vox != cfg.chunk_size ** 3 or n_vox != 512:
+        raise ValueError(f"rows must be [S+1, 512], got {tuple(sdf.shape)}")
+    u = idx.shape[0]
+    n_lanes = u if n_lanes is None else int(n_lanes)
+    if not 0 <= n_lanes <= u:
+        raise ValueError(f"n_lanes must lie in 0..{u}, got {n_lanes}")
+    _require(sdf, "sdf", torch.float32)
+    _require(weight, "weight", torch.float32, (n_rows, n_vox))
+    _require(color, "color", torch.float32, (n_rows, n_vox, 3))
+    _require(ccnt, "color_count", torch.float32, (n_rows, n_vox))
+    _require(idx, "idx", torch.int64, (u,))
+    _require(active, "active", torch.bool, (u,))
+    _require(origins, "origins", torch.float32, (n_rows, 3))
+    _require(depth, "depth", torch.float32, (intr.height, intr.width))
+    if with_color:
+        _require(rgb, "rgb", torch.float32, (intr.height, intr.width, 3))
+        _require(quality, "quality", torch.float32, (intr.height, intr.width))
+    _require(cam_to_world, "cam_to_world", torch.float32, (4, 4))
+    _on_card(sdf=sdf, weight=weight, color=color, color_count=ccnt, idx=idx, active=active,
+             origins=origins, depth=depth, rgb=rgb if with_color else None,
+             quality=quality if with_color else None, cam_to_world=cam_to_world)
+    for name, t in (("sdf", sdf), ("weight", weight), ("color", color), ("color_count", ccnt)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (bulk copies)")
+    lib = build()
+    dev = sdf.device
+    params = _host_const(("tsdf", intr, cfg, float(sign), bool(with_color), n_rows),
+                         lambda: _tsdf_params(intr, cfg, sign, with_color, n_rows))
+    out_q = torch.empty(u, dtype=torch.float32, device=dev)
     updated = torch.empty(u, dtype=torch.bool, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.tf_tsdf_integrate_launch(
         sdf.data_ptr(), weight.data_ptr(), color.data_ptr(), ccnt.data_ptr(),
-        idx.data_ptr(), active.data_ptr(), origins.data_ptr(), image.data_ptr(),
-        cent.data_ptr(), world_to_cam.data_ptr(), quality.data_ptr(),
-        updated.data_ptr(), ctypes.byref(params), u, stream)
+        idx.data_ptr(), active.data_ptr(), origins.data_ptr(), depth.data_ptr(),
+        rgb.data_ptr() if with_color else None, quality.data_ptr() if with_color else None,
+        cam_to_world.data_ptr(), out_q.data_ptr(), updated.data_ptr(), ctypes.byref(params),
+        n_lanes, u, blocks_per_sm, stream)
     _check(rc, "tsdf_integrate")
     LAUNCHES["tsdf_integrate"] += 1
-    return quality, updated
+    LANES["tsdf_integrate"] += n_lanes
+    return out_q, updated

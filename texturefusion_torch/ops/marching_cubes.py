@@ -165,7 +165,7 @@ class MeshPool:
                      self.vcount, self.tcount))
 
 
-def make_mesh_pool(capacity: int, p: int, t: int, device=None) -> MeshPool:
+def make_mesh_pool(capacity: int, p: int, t: int, device) -> MeshPool:
     i32 = dict(dtype=torch.int32, device=device)
     return MeshPool(
         verts=torch.zeros((capacity + 1, p, 3), dtype=torch.float32, device=device),

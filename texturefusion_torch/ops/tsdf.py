@@ -6,9 +6,11 @@ ProjectionIntegrator.cpp:67-426 voxelUpdateSIMD; QuadraticTruncator.h:45-48).
 `integrate_chunks` is the plain PyTorch voxel update over a gathered
 [U, 512] batch of chunk rows: the CPU path, and on the card the oracle
 of kernel K2 (csrc/tsdf_integrate.cu). `integrate_frame_fused` updates
-the full slot rows IN PLACE: on CUDA tensors through K2, on CPU tensors
-through `integrate_frame_fused_plain` (gather → integrate_chunks →
-index_copy_). Semantics kept from the reference's AVX path:
+the full slot rows IN PLACE: on CUDA tensors through one launch of K2,
+which takes the frame's planes, the origins table and the pose as they
+are; on CPU tensors through `integrate_frame_fused_plain` (gather →
+integrate_chunks → index_copy_). Semantics kept from the reference's AVX
+path:
 
   * truncation once per chunk, at the chunk origin's camera depth
   * strict-interior pixel validity (0 < u < W-1, 0 < v < H-1), the pixel
@@ -24,7 +26,7 @@ index_copy_). Semantics kept from the reference's AVX path:
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,7 +55,7 @@ class ChunkBatch:
         return ChunkBatch(*(a[idx] for a in self))
 
 
-def make_empty_batch(u: int, v: int, device=None,
+def make_empty_batch(u: int, v: int, device,
                      dtype=torch.float32) -> ChunkBatch:
     return ChunkBatch(
         sdf=torch.full((u, v), RESET_SDF, dtype=dtype, device=device),
@@ -78,15 +80,16 @@ def pack_image(depth: torch.Tensor, rgb: torch.Tensor,
 
 def integrate_chunks(batch: ChunkBatch, origins: torch.Tensor,
                      active: torch.Tensor, depth: torch.Tensor,
-                     rgb: torch.Tensor, quality_map: torch.Tensor,
+                     rgb: Optional[torch.Tensor], quality_map: Optional[torch.Tensor],
                      cam_to_world: torch.Tensor, sign: float,
                      intr: cam.Intrinsics, cfg: TSDFConfig,
                      with_color: bool = True
                      ) -> Tuple[ChunkBatch, torch.Tensor, torch.Tensor]:
     """Plain voxel update of a gathered batch. origins [U, 3], active [U]
-    bool, depth [H, W], rgb [H, W, 3] in 0..1, quality_map [H, W],
-    cam_to_world [4, 4], sign ±1. Returns (new batch, per-chunk quality
-    [U], per-chunk updated flag [U])."""
+    bool, depth [H, W], rgb [H, W, 3] in 0..1, quality_map [H, W] (both
+    unread, and may be None, when with_color is False), cam_to_world
+    [4, 4], sign ±1. Returns (new batch, per-chunk quality [U], per-chunk
+    updated flag [U])."""
     u_chunks, v_voxels = batch.sdf.shape
     dev = batch.sdf.device
     res_diag = float(np.sqrt(3.0)) * cfg.voxel_resolution
@@ -168,22 +171,22 @@ def integrate_frame_fused_plain(batch: ChunkBatch, origins_full: torch.Tensor,
 
 def integrate_frame_fused(batch: ChunkBatch, origins_full: torch.Tensor,
                           idx: torch.Tensor, active: torch.Tensor,
-                          depth: torch.Tensor, rgb: torch.Tensor,
-                          quality_map: torch.Tensor, cam_to_world: torch.Tensor,
+                          depth: torch.Tensor, rgb: Optional[torch.Tensor],
+                          quality_map: Optional[torch.Tensor], cam_to_world: torch.Tensor,
                           sign: float, intr: cam.Intrinsics, cfg: TSDFConfig,
-                          with_color: bool = True
+                          with_color: bool = True, n_lanes: Optional[int] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Voxel update of the full slot rows [S+1, ...] IN PLACE at slots idx
     [U] (int64, trash-padded; active [U] bool marks the real lanes).
-    Returns (per-chunk quality [U], updated [U]). CUDA rows launch kernel
-    K2; CPU rows take integrate_frame_fused_plain."""
+    rgb and quality_map may be None when with_color is False. Lanes from
+    `n_lanes` on must be inactive (the caller knows how many are real, so
+    K2 launches over those alone). Returns (per-chunk quality [U],
+    updated [U]). CUDA rows launch kernel K2 once, and nothing else; CPU
+    rows take integrate_frame_fused_plain."""
     if batch.sdf.is_cuda:
-        image = (pack_image(depth, rgb, quality_map) if with_color else
-                 torch.nn.functional.pad(depth[..., None], (0, 4)).contiguous())
         return cuda_kernels.tsdf_integrate_cuda(
-            *batch, idx, active, origins_full[idx].contiguous(), image,
-            se3.inverse(cam_to_world).contiguous(), sign, intr, cfg,
-            with_color=with_color)
+            *batch, idx, active, origins_full, depth, rgb, quality_map, cam_to_world,
+            sign, intr, cfg, with_color=with_color, n_lanes=n_lanes)
     if batch.sdf.device.type != "cpu":
         raise ValueError(f"integrate_frame_fused: unsupported device {batch.sdf.device}")
     return integrate_frame_fused_plain(batch, origins_full, idx, active, depth, rgb,

@@ -62,7 +62,7 @@ def preintegrate_from_registration(p: torch.Tensor, q: torch.Tensor,
     return preintegrate_edge(p, q, inliers * huber_weights(rn, huber_delta))
 
 
-def make_edges(capacity: int, device=None) -> EdgeSums:
+def make_edges(capacity: int, device) -> EdgeSums:
     z = lambda *s: torch.zeros((capacity,) + s, device=device)  # noqa: E731
     return EdgeSums(kf_i=torch.zeros(capacity, dtype=torch.int64, device=device),
                     kf_j=torch.zeros(capacity, dtype=torch.int64, device=device),

@@ -68,12 +68,12 @@ class KeyframeRecord:
 
 
 class GCSLAM:
-    def __init__(self, config: PipelineConfig, device=None,
+    def __init__(self, config: PipelineConfig, device="cuda",
                  draw_fn: Optional[Callable[[TrackingConfig, Optional[int]], torch.Tensor]] = None):
         self.config = config
         self.cfg = config.tracking
         self.intr = cam.Intrinsics.from_config(config.camera)
-        self.device = torch.device(device or "cpu")
+        self.device = torch.device(device)
         self.frames: List[FrameRecord] = []
         self.keyframes: List[KeyframeRecord] = []
         max_kf = config.ba.max_keyframes
@@ -107,7 +107,7 @@ class GCSLAM:
 
     def _generator_draws(self, cfg: TrackingConfig, n: Optional[int] = None) -> torch.Tensor:
         batch = () if n is None else (n,)
-        return ransac_draws(cfg, self.cfg.max_features_pad, self._gen, self.device, batch)
+        return ransac_draws(cfg, self.cfg.max_features_pad, self._gen, batch)
 
     def _draws(self, cfg: TrackingConfig, n: Optional[int] = None) -> torch.Tensor:
         return self._draw_fn(cfg, n).to(self.device)

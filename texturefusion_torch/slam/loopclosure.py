@@ -28,7 +28,7 @@ _ROW_CHUNK_ELEMS = 1 << 25   # Q·rows·S distances per chunk (128 MiB of f32)
 class KeyframeDescriptorDB:
     """Per-keyframe descriptor subsamples, stacked on the device."""
 
-    def __init__(self, sub_per_kf: int = 256, max_keyframes: int = 512, device=None):
+    def __init__(self, sub_per_kf: int = 256, max_keyframes: int = 512, *, device):
         self.sub = sub_per_kf
         self.max_kf = max_keyframes
         self.desc = torch.zeros((max_keyframes, sub_per_kf, hamming.WORDS),

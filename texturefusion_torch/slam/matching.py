@@ -52,17 +52,18 @@ def lite_config(cfg: TrackingConfig) -> TrackingConfig:
                                use_fine_search=False)
 
 
-def gumbel(shape, generator=None, device=None) -> torch.Tensor:
-    """Standard Gumbel draws −log(−log U), U uniform on [tiny, 1)."""
-    u = torch.rand(shape, generator=generator, device=device)
+def gumbel(shape, generator: torch.Generator) -> torch.Tensor:
+    """Standard Gumbel draws −log(−log U), U uniform on [tiny, 1), on the
+    generator's device."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
     return -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(torch.float32).tiny)))
 
 
-def ransac_draws(cfg: TrackingConfig, k: int, generator=None, device=None,
+def ransac_draws(cfg: TrackingConfig, k: int, generator: torch.Generator,
                  batch: Tuple[int, ...] = ()) -> torch.Tensor:
-    """Gumbel draws for register_frames: [*batch, R, H, 4, k]."""
-    return gumbel(tuple(batch) + (n_rounds(cfg), cfg.ransac_iterations, 4, k),
-                  generator, device)
+    """Gumbel draws for register_frames: [*batch, R, H, 4, k], on the
+    generator's device."""
+    return gumbel(tuple(batch) + (n_rounds(cfg), cfg.ransac_iterations, 4, k), generator)
 
 
 def _norm(v: torch.Tensor) -> torch.Tensor:

@@ -28,7 +28,7 @@ class KeypointDB:
     """Stacked keypoints of every keyframe, indexed by keyframe SLOT
     ([max_kf, pad, ...] tensors on the device)."""
 
-    def __init__(self, max_kf: int, pad: int, device=None):
+    def __init__(self, max_kf: int, pad: int, device):
         self.max_kf = max_kf
         z = lambda *s, dtype=torch.float32: torch.zeros((max_kf, pad) + s, dtype=dtype,  # noqa: E731
                                                         device=device)

@@ -21,7 +21,7 @@ def volume_state_from_numpy(config: PipelineConfig, sdf: np.ndarray,
                             weight: np.ndarray, color: np.ndarray,
                             color_count: np.ndarray, origins: np.ndarray,
                             ids: np.ndarray, used: np.ndarray,
-                            device="cpu") -> TSDFVolume:
+                            device="cuda") -> TSDFVolume:
     """A port TSDFVolume holding these rows ([cap+1, 512], color
     [cap+1, 512, 3], origins [cap+1, 3]) with the allocated chunk ids
     (ids [cap, 3], used [cap]) registered at the same slots."""
@@ -39,7 +39,7 @@ def volume_state_from_numpy(config: PipelineConfig, sdf: np.ndarray,
     return vol
 
 
-def keypoints_from_numpy(kp, device="cpu"):
+def keypoints_from_numpy(kp, device="cuda"):
     """A port Keypoints from a JAX Keypoints' arrays (any tuple in field
     order; leading batch axes allowed). The uint32 descriptor words are
     viewed as int32 with the same bits."""
@@ -49,7 +49,7 @@ def keypoints_from_numpy(kp, device="cpu"):
     return Keypoints(*(torch.tensor(a, device=device) for a in arrs))
 
 
-def edges_from_numpy(edges, device="cpu"):
+def edges_from_numpy(edges, device="cuda"):
     """A port EdgeSums from a JAX EdgeSums' arrays (indices as int64)."""
     from texturefusion_torch.slam.fastba import EdgeSums
     arrs = [np.asarray(a) for a in edges]
@@ -57,12 +57,12 @@ def edges_from_numpy(edges, device="cpu"):
     return EdgeSums(*(torch.tensor(a, device=device) for a in arrs))
 
 
-def poses_from_numpy(poses, device="cpu") -> torch.Tensor:
+def poses_from_numpy(poses, device="cuda") -> torch.Tensor:
     """[..., 4, 4] pose array as float32."""
     return torch.tensor(np.asarray(poses, np.float32), device=device)
 
 
-def descriptor_db_from_numpy(desc, valid, kf_ids, device="cpu"):
+def descriptor_db_from_numpy(desc, valid, kf_ids, device="cuda"):
     """A port KeyframeDescriptorDB holding a JAX DB's rows (desc
     [R, S, 8] uint32, valid [R, S]) and its keyframe ids."""
     from texturefusion_torch.slam.loopclosure import KeyframeDescriptorDB
@@ -78,7 +78,7 @@ def descriptor_db_from_numpy(desc, valid, kf_ids, device="cpu"):
 def mesh_pool_from_numpy(verts: np.ndarray, col_packed: np.ndarray,
                          nrm_packed: np.ndarray, tris: np.ndarray,
                          vcount: np.ndarray, tcount: np.ndarray,
-                         device="cpu") -> mc.MeshPool:
+                         device="cuda") -> mc.MeshPool:
     """A port MeshPool from a JAX pool's arrays (packed channels arrive
     as uint32 and are stored as int32 with the same bits)."""
     def i32(a):
