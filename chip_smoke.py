@@ -12,9 +12,10 @@ Phases (each prints one line of numbers; any failure exits non-zero):
                 4, timed), and at radius 1 and 8 and on 479x641 and
                 120x160 images
   4. K2       - TSDF voxel-update kernel vs its plain version at
-                S = 16384 slots, U = 1024 lanes: +1 from an empty volume,
-                -1 on a pre-integrated volume, depth only, and chunks
-                0.16-0.64 m from the camera; one integrate_frame_fused
+                S = 16384 slots, 1008 listed chunks: +1 from an empty
+                volume, -1 on a pre-integrated volume, depth only, chunks
+                0.16-0.64 m from the camera, and 2048 chunks (the default
+                config's whole update budget); one integrate_frame_fused
                 call must be one device op (torch.profiler)
      Each kernel is timed alone (kernel_ms warm: events around 100
      back-to-back launches of the bare kernel call, queued behind a
@@ -31,7 +32,8 @@ Phases (each prints one line of numbers; any failure exits non-zero):
                 preprocessed (K1), integrated into TSDFVolume (K2),
                 meshed every 10 frames and exported as PLY; map error
                 against the analytic scene, launch counts, K2's mean lanes
-                a launch and the full-row K2 bound at that width
+                a launch, and K2 timed alone at that width beside its
+                full-row bound
   6. small    - the same path on a 160x120 input, GPU kernels against
                 the CPU's plain versions
   7. profile  - 20 slice frames under torch.profiler: device ops a frame,
@@ -87,9 +89,10 @@ EXPOSURE_FRAMES = (60, 95)
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): the bounds
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
-# K1 operations per tap: subtract, square, scale, exp, spatial product,
-# validity test, select, multiply-add (2), weight add
-K1_FLOPS_PER_TAP = 10
+EXP_PER_SM_CLOCK = 16         # MUFU.EX2 results a clock per SM (the FP32 pipe: 128)
+# K1 fp32 operations per tap: subtract, square, spatial product,
+# multiply-add (2), weight add; and one exp
+K1_FLOPS_PER_TAP = 6
 FLUSH_BYTES = 128 << 20       # > the 50 MB L2: a cold launch follows this write
 SLEEP_CYCLES = 50_000_000     # ~25 ms of device sleep: longer than the host's queuing
 
@@ -148,30 +151,40 @@ def kernel_times(launch, n: int = 100, n_cold: int = 20):
     return warm, float(np.median(cold))
 
 
-def bound_ms(n_bytes: float, n_flops: float):
-    """The least time the card could take: the larger of bytes over the
-    memory rate and fp32 operations over the fp32 peak. Returns (ms, what
-    binds)."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+def exp_per_s() -> float:
+    """The exp unit's peak: SMs x EXP_PER_SM_CLOCK x the card's maximum
+    SM clock (nvidia-smi clocks.max.sm)."""
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * EXP_PER_SM_CLOCK * mhz * 1e6
 
 
-def timing_fields(launch, call, plain, n_bytes, n_flops) -> dict:
+def bound_ms(n_bytes: float, ops: dict):
+    """The least time the card could take: the largest of bytes over the
+    memory rate and, for each kind of operation in `ops` ({unit: (count,
+    peak per s)}), its count over its peak. Returns (ms, "bytes" or
+    "operations", the unit that binds)."""
+    times = {"bytes": n_bytes / HBM_BYTES_PER_S, **{k: n / r for k, (n, r) in ops.items()}}
+    unit = max(times, key=times.get)
+    return times[unit] * 1e3, ("bytes" if unit == "bytes" else "operations"), unit
+
+
+def timing_fields(launch, call, plain, n_bytes, ops) -> dict:
     """The numbers each kernel reports: kernel alone (warm, cold), the
     wrapper as the path calls it, the plain version, the bound and the
     share of it that the warm kernel reaches."""
     warm, cold = kernel_times(launch)
-    bms, by = bound_ms(n_bytes, n_flops)
+    bms, by, unit = bound_ms(n_bytes, ops)
     return {"ms": warm, "kernel_ms": warm, "kernel_cold_ms": cold,
             "call_ms": cuda_ms(call), "plain_ms": cuda_ms(plain),
-            "bound_ms": bms, "bound_by": by, "share": bms / warm, "library_ms": None}
+            "bound_ms": bms, "bound_by": by, "bound_unit": unit, "share": bms / warm,
+            "library_ms": None}
 
 
 def fmt_times(t: dict) -> str:
+    by = t["bound_by"] if t["bound_unit"] == "bytes" else f"{t['bound_by']}: {t['bound_unit']}"
     return (f"kernel_ms={t['kernel_ms']:.4f} kernel_cold_ms={t['kernel_cold_ms']:.4f} "
             f"call_ms={t['call_ms']:.4f} plain_ms={t['plain_ms']:.4f} "
-            f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) share={t['share']:.3f} "
-            f"library_ms=none")
+            f"bound_ms={t['bound_ms']:.4f} ({by}) share={t['share']:.3f} library_ms=none")
 
 
 def device_ops(fn) -> list:
@@ -241,11 +254,15 @@ def phase_k1():
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
     same_invalid = bool(((got == 0) == (ref == 0)).all())
-    taps = int((dev > 0).sum()) * 9 * 9               # the valid centres' taps
+    # the taps this frame needs: valid taps inside the image around valid centres
+    valid = (dev > 0).to(torch.float32)[None, None]
+    taps = int((torch.nn.functional.conv2d(valid, torch.ones(1, 1, 9, 9, device="cuda"),
+                                           padding=4) * valid).sum())
     t = timing_fields(lambda: cuda_kernels.bilateral_cuda(dev),
                       lambda: preprocess.bilateral_filter(dev),
                       lambda: preprocess.bilateral_filter_plain(dev),
-                      2 * dev.numel() * 4, K1_FLOPS_PER_TAP * taps)
+                      2 * dev.numel() * 4, {"fp32": (K1_FLOPS_PER_TAP * taps, FP32_FLOPS_PER_S),
+                                            "exp unit": (taps, exp_per_s())})
     log(f"[k1] bilateral 480x640 r=4: max_abs_err={err:.3e} (tol {K1_TOL}) "
         f"invalid_match={same_invalid} {fmt_times(t)}")
     if not (err <= K1_TOL and same_invalid):
@@ -253,17 +270,24 @@ def phase_k1():
     return {"max_abs_err": err, **t}
 
 
-def _k2_inputs(pre_integrated: bool, seed: int, near: bool = False):
-    """A noisy wall at z = 2 m before a VGA camera; 1008 listed chunks of
-    2 cm voxels around it at random slots of S = 16384, 16 padding lanes.
-    `near`: a wall at 0.4 m and the 105 chunks of x in [-0.48, 0.64),
-    y in [-0.32, 0.48), z in [0.16, 0.64) m, most partly outside the view
-    (the TPU kernel clamped chunks this near)."""
+def _k2_inputs(pre_integrated: bool, seed: int, scene: str = "wall"):
+    """A noisy wall at z = 2 m before a VGA camera; 2 cm voxels; listed
+    chunks at random slots of S = 16384. "wall": 1008 chunks around the
+    wall. "wide": 2048 chunks of x in [-1.28, 1.28), y in [-0.96, 0.96),
+    z in [1.28, 3.04) m, the default config's whole update budget. "near":
+    a wall at 0.4 m and the 105 chunks of x in [-0.48, 0.64), y in
+    [-0.32, 0.48), z in [0.16, 0.64) m, most partly outside the view (the
+    TPU kernel clamped chunks this near). idx lists the chunks' slots,
+    padded with the trash slot to the budget U (1024; 2048 for "wide"),
+    and active marks the real lanes: the plain version takes both, the
+    kernel idx[:n] alone, as TSDFVolume lists them."""
     from texturefusion_torch.config import CameraConfig, TSDFConfig
     from texturefusion_torch.core import camera as cam
-    cfg = TSDFConfig(voxel_resolution=0.02, capacity=16384, max_update_chunks=1024)
+    cfg = TSDFConfig(voxel_resolution=0.02, capacity=16384,
+                     max_update_chunks=2048 if scene == "wide" else 1024)
     intr = cam.Intrinsics.from_config(CameraConfig(far_plane=6.0))
     s1, v, u = cfg.capacity + 1, 512, cfg.max_update_chunks
+    near = scene == "near"
     rng = np.random.default_rng(seed)
     d = np.full((intr.height, intr.width), 0.4 if near else 2.0, np.float32)
     d += rng.normal(0, 0.004 if near else 0.02, d.shape).astype(np.float32)
@@ -279,6 +303,9 @@ def _k2_inputs(pre_integrated: bool, seed: int, near: bool = False):
                 np.zeros((s1, v, 3), np.float32), np.zeros((s1, v), np.float32)]
     if near:
         ids = [(x, y, z) for x in range(-3, 4) for y in range(-2, 3) for z in range(1, 4)]
+    elif scene == "wide":
+        ids = [(x, y, z) for x in range(-8, 8) for y in range(-6, 6) for z in range(8, 19)]
+        ids = [ids[i] for i in sorted(rng.permutation(len(ids))[:u])]
     else:
         ids = [(x, y, z) for x in range(-8, 8) for y in range(-5, 4) for z in range(10, 17)]
     ids = np.asarray(ids, np.int32)
@@ -331,16 +358,20 @@ def phase_k2():
     from texturefusion_torch.ops import cuda_kernels, tsdf
     worst = 0.0
     times = {}
-    for name, sign, pre, with_color, near in (("plus_fresh", 1.0, False, True, False),
-                                              ("minus_pre", -1.0, True, True, False),
-                                              ("depth_only", 1.0, True, False, False),
-                                              ("near", 1.0, True, True, True)):
-        cfg, intr, rows, origins, idx, active, d, rgb, q, pose, n = _k2_inputs(pre, 1, near)
+    for name, sign, pre, with_color, scene in (("plus_fresh", 1.0, False, True, "wall"),
+                                               ("minus_pre", -1.0, True, True, "wall"),
+                                               ("depth_only", 1.0, True, False, "wall"),
+                                               ("near", 1.0, True, True, "near"),
+                                               ("wide_plus", 1.0, True, True, "wide"),
+                                               ("wide_minus", -1.0, True, True, "wide")):
+        cfg, intr, rows, origins, idx, active, d, rgb, q, pose, n = _k2_inputs(pre, 1, scene)
         kb = tsdf.ChunkBatch(*(a.clone() for a in rows))
         pb = tsdf.ChunkBatch(*(a.clone() for a in rows))
-        args = (origins, idx, active, d, rgb, q, pose, sign, intr, cfg)
-        kq, ku = tsdf.integrate_frame_fused(kb, *args, with_color=with_color, n_lanes=n)
-        pq, pu = tsdf.integrate_frame_fused_plain(pb, *args, with_color=with_color)
+        frame = (d, rgb, q, pose, sign, intr, cfg)
+        kq, ku = tsdf.integrate_frame_fused(kb, origins, idx[:n], None, *frame,
+                                            with_color=with_color)
+        pq, pu = tsdf.integrate_frame_fused_plain(pb, origins, idx, active, *frame,
+                                                  with_color=with_color)
         torch.cuda.synchronize()
         errs = {}
         cap = cfg.capacity
@@ -349,41 +380,61 @@ def phase_k2():
             errs[field] = float(diff.max())
             if not bool((diff <= atol + rtol * b[:cap].abs()).all()):
                 raise AssertionError(f"K2 {name}: {field} disagrees (max {errs[field]:.3e})")
-        q_err = float((kq[:n] - pq[:n]).abs().max())
-        if with_color and not bool(((kq[:n] - pq[:n]).abs()
+        q_err = float((kq - pq[:n]).abs().max())
+        if with_color and not bool(((kq - pq[:n]).abs()
                                     <= K2_Q_TOL[1] + K2_Q_TOL[0] * pq[:n].abs()).all()):
             raise AssertionError(f"K2 {name}: quality disagrees (max {q_err:.3e})")
-        if not bool((ku[:n] == pu[:n]).all()):
+        if not (ku.shape == (n,) and bool((ku == pu[:n]).all())):
             raise AssertionError(f"K2 {name}: updated flags disagree")
-        n_upd = int(ku[:n].sum())
+        n_upd = int(ku.sum())
         worst = max(worst, *errs.values())
-        log(f"[k2] {name} S={cfg.capacity} U={idx.numel()} active={n} updated={n_upd} "
-            f"partial_or_behind={int((kq[:n] < -1e10).sum())}: "
+        log(f"[k2] {name} S={cfg.capacity} lanes={n} updated={n_upd} "
+            f"partial_or_behind={int((kq < -1e10).sum())}: "
             + " ".join(f"{k}_err={v:.3e}" for k, v in errs.items())
             + f" quality_err={q_err:.3e}")
         if name == "plus_fresh":
-            ops = device_ops(lambda: tsdf.integrate_frame_fused(kb, *args, n_lanes=n))
+            args = (origins, idx[:n], None, *frame)
+            ops = device_ops(lambda: tsdf.integrate_frame_fused(kb, *args))
             log(f"[k2] one integrate_frame_fused call: {len(ops)} device op(s) {ops}")
             if len(ops) != 1:
                 raise AssertionError(f"integrate_frame_fused ran {len(ops)} device ops, not 1")
-            bare = lambda bps=cuda_kernels.K2_BLOCKS_PER_SM: (  # noqa: E731
-                cuda_kernels.tsdf_integrate_cuda(*kb, idx, active, origins, d, rgb, q, pose,
-                                                 sign, intr, cfg, n_lanes=n,
-                                                 blocks_per_sm=bps))
             needed = _k2_needed_bytes(rows, pb, origins, idx, n, pose, intr, cfg)
-            times = timing_fields(bare, lambda: tsdf.integrate_frame_fused(kb, *args, n_lanes=n),
-                                  lambda: tsdf.integrate_frame_fused_plain(pb, *args),
-                                  needed, 60 * 512 * n)
-            full, _ = bound_ms(_k2_bytes(n, True, intr.height, intr.width), 60 * 512 * n)
+            times = timing_fields(lambda: cuda_kernels.tsdf_integrate_cuda(
+                                      *kb, idx[:n], None, origins, *frame),
+                                  lambda: tsdf.integrate_frame_fused(kb, *args),
+                                  lambda: tsdf.integrate_frame_fused_plain(
+                                      pb, origins, idx, active, *frame),
+                                  needed, {"fp32": (60 * 512 * n, FP32_FLOPS_PER_S)})
+            full = _k2_full_bound_ms(n, intr.height, intr.width)
             log(f"[k2] timing plus_fresh, {n} lanes: {fmt_times(times)}; the data needs "
                 f"{needed} B; at full rows and planes the bound is {full:.4f} ms "
                 f"(share {full / times['kernel_ms']:.3f})")
             times["full_row_bound_ms"] = full
-            sweep = {b: kernel_times(lambda b=b: bare(b), n_cold=1)[0] for b in (2, 4, 8, 16)}
-            log("[k2] warm kernel_ms by blocks per SM: "
-                + " ".join(f"{b}:{v:.4f}" for b, v in sweep.items()))
         del kb, pb, rows
     return {"max_abs_err": worst, **times}
+
+
+def _k2_full_bound_ms(n: int, h: int, w: int) -> float:
+    """K2's bound at full rows and planes for n chunks of an h x w frame."""
+    return bound_ms(_k2_bytes(n, True, h, w), {"fp32": (60 * 512 * n, FP32_FLOPS_PER_S)})[0]
+
+
+def k2_width_times(width: int, tsdf_integrate=None, seed: int = 1):
+    """K2 alone (kernel_times: warm, cold ms) on `width` chunks drawn at
+    random from the "wide" scene, +1 on pre-integrated rows. The main
+    path's width is K2's mean lanes on [slice]. `tsdf_integrate(rows,
+    slots, origins, d, rgb, q, pose, sign, intr, cfg)` launches the
+    kernel once; by default cuda_kernels.tsdf_integrate_cuda on the
+    slots alone."""
+    from texturefusion_torch.ops import cuda_kernels
+    cfg, intr, rows, origins, idx, _, d, rgb, q, pose, n = _k2_inputs(True, seed, "wide")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    slots = idx[:n][torch.randperm(n, generator=gen, device="cuda")[:width]].contiguous()
+    if tsdf_integrate is None:
+        def tsdf_integrate(rows, slots, *frame):
+            return cuda_kernels.tsdf_integrate_cuda(*rows, slots, None, *frame)
+    return kernel_times(lambda: tsdf_integrate(rows, slots, origins, d, rgb, q, pose, 1.0,
+                                               intr, cfg))
 
 
 def _slice_config(small: bool):
@@ -486,8 +537,6 @@ def phase_slice(n_frames=120):
     wall = time.perf_counter() - t0
     launches = dict(cuda_kernels.LAUNCHES)
     lanes = cuda_kernels.LANES["tsdf_integrate"] / max(launches["tsdf_integrate"], 1)
-    lanes_bound, _ = bound_ms(_k2_bytes(round(lanes), True, config.camera.height,
-                                        config.camera.width), 60 * 512 * lanes)
     peak = torch.cuda.max_memory_allocated()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -505,8 +554,7 @@ def phase_slice(n_frames=120):
         f"integrate {stages['integrate']:.3f} s, mesh {stages['mesh']:.3f} s)")
     log(f"[slice] chunks={vol.n_active()} verts={len(verts)} faces={len(faces)} "
         f"ply_bytes={ply_bytes} map_rms_mm={rms_mm:.3f} map_median_mm={med_mm:.3f} "
-        f"launches={json.dumps(launches)} k2_mean_lanes={lanes:.1f} "
-        f"k2_full_row_bound_ms_at_mean_lanes={lanes_bound:.4f} peak_mem_bytes={peak} "
+        f"launches={json.dumps(launches)} k2_mean_lanes={lanes:.1f} peak_mem_bytes={peak} "
         f"allocator={vol.alloc.kind}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
@@ -514,7 +562,14 @@ def phase_slice(n_frames=120):
         raise AssertionError("empty mesh or PLY round trip failed")
     if not (np.isfinite(verts).all() and med_mm < MAP_MEDIAN_MM and rms_mm <= MAP_RMS_MM):
         raise AssertionError(f"map gates failed: median {med_mm} mm, rms {rms_mm} mm")
-    return launches, (config, scene, poses, packed)
+    width = round(lanes)
+    warm, cold = k2_width_times(width)
+    full = _k2_full_bound_ms(width, config.camera.height, config.camera.width)
+    log(f"[slice] K2 alone at the path's mean width, {width} lanes: kernel_ms={warm:.4f} "
+        f"kernel_cold_ms={cold:.4f} full_row_bound_ms={full:.4f} share={full / warm:.3f}")
+    path = {"path_lanes": lanes, "path_kernel_ms": warm, "path_kernel_cold_ms": cold,
+            "path_full_row_bound_ms": full}
+    return launches, path, (config, scene, poses, packed)
 
 
 def _device_time(prof, wall: float, n_top: int, n_frames: int) -> str:
@@ -771,7 +826,7 @@ def main() -> int:
     phase_build()
     k1 = phase_k1()
     k2 = phase_k2()
-    launches, frames = phase_slice()
+    launches, k2_path, frames = phase_slice()
     phase_small()
     phase_profile(frames)
     tracked_launches, tracked_frames = phase_tracked()
@@ -785,7 +840,7 @@ def main() -> int:
         {"name": "tsdf_integrate", "route": "cuda",
          "source": "texturefusion_torch/csrc/tsdf_integrate.cu",
          "replaces": "examples/pallas_voxel_kernel.py:230",
-         "launches": launches["tsdf_integrate"], **k2},
+         "launches": launches["tsdf_integrate"], **k2, **k2_path},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -35,12 +35,17 @@ ROW_TOL = ((1e-5, 1e-5), (1e-6, 1e-6), (1e-4, 1e-3), (1e-6, 1e-6))
 # chunk-id sets of the K2 scenes (extent 0.4 m): the 12 chunks around a
 # wall at z = 2 m; chunks at 0-0.8 m before a wall at 0.4 m (the TPU kernel
 # clamped chunks this near); chunks from z = -0.4 m to 0.8 m and wider than
-# the view before a wall at 0.6 m (behind the camera and partly outside it)
+# the view before a wall at 0.6 m (behind the camera and partly outside it);
+# 2048 chunks from z = -1.6 m to 4.4 m around a wall at 2 m, the default
+# config's whole update budget
 SCENES = {
     "wall": (2.0, [(x, y, 4) for x in range(-2, 2) for y in range(-1, 2)]),
     "near": (0.4, [(x, y, z) for x in range(-1, 1) for y in range(-1, 1) for z in (0, 1)]),
     "behind": (0.6, [(x, y, z) for x in (-3, -1, 0, 2) for y in (-1,) for z in (-1, 0, 1)]),
+    "wide": (2.0, [(x, y, z) for x in range(-8, 8) for y in range(-8, 8)
+                   for z in range(-4, 12, 2)]),
 }
+WIDE_TSDF = TSDFConfig(voxel_resolution=0.05, capacity=4096, max_update_chunks=2048)
 
 
 @pytest.fixture
@@ -53,7 +58,8 @@ def cuda_device():
 def _scene(seed, pre_integrated, device, scene="wall", n_active=None):
     """Rows, the origins table, idx/active (n_active real lanes first, then
     the trash slot), depth/rgb/quality planes and an identity pose."""
-    cfg, intr = CONFIG.tsdf, cam.Intrinsics.from_config(CONFIG.camera)
+    cfg = WIDE_TSDF if scene == "wide" else CONFIG.tsdf
+    intr = cam.Intrinsics.from_config(CONFIG.camera)
     s1, v, u = cfg.capacity + 1, 512, cfg.max_update_chunks
     wall, ids = SCENES[scene]
     rng = np.random.default_rng(seed)
@@ -107,24 +113,29 @@ def test_bilateral_kernel_matches_plain(cuda_device, radius, shape):
     ("near", None, 1.0, True, True),
     ("behind", None, 1.0, False, True),
     ("behind", None, -1.0, True, True),
+    ("wide", None, 1.0, False, True),      # 2048 lanes, from an empty volume
+    ("wide", None, 1.0, True, True),
+    ("wide", None, -1.0, True, True),
 ])
 def test_tsdf_kernel_matches_plain(cuda_device, scene, n_active, sign, pre, with_color):
+    """The kernel takes the real slots only, as TSDFVolume lists them; the
+    plain version the padded list with its active flags."""
     args, n = _scene(0, pre, cuda_device, scene, n_active)
     kb, origins, idx, active, d, rgb, q, pose, intr, cfg = args
     pb = tsdf.ChunkBatch(*(a.clone() for a in kb))
     planes = (rgb, q) if with_color else (None, None)
     before = cuda_kernels.LAUNCHES["tsdf_integrate"]
-    kq, ku = tsdf.integrate_frame_fused(kb, origins, idx, active, d, *planes, pose, sign,
-                                        intr, cfg, with_color=with_color, n_lanes=n)
+    kq, ku = tsdf.integrate_frame_fused(kb, origins, idx[:n], None, d, *planes, pose, sign,
+                                        intr, cfg, with_color=with_color)
     assert cuda_kernels.LAUNCHES["tsdf_integrate"] == before + 1
     pq, pu = tsdf.integrate_frame_fused_plain(pb, origins, idx, active, d, rgb, q, pose, sign,
                                               intr, cfg, with_color=with_color)
     cap = cfg.capacity
     for a, b, (rtol, atol) in zip(kb, pb, ROW_TOL):
         torch.testing.assert_close(a[:cap], b[:cap], rtol=rtol, atol=atol)
-    torch.testing.assert_close(kq[:n], pq[:n], rtol=1e-4, atol=1e-2)
-    assert torch.equal(ku[:n], pu[:n]) and bool(ku.any())
-    assert not bool(ku[n:].any()) and bool((kq[n:] == 0).all())
+    assert kq.shape == ku.shape == (n,)
+    torch.testing.assert_close(kq, pq[:n], rtol=1e-4, atol=1e-2)
+    assert torch.equal(ku, pu[:n]) and bool(ku.any())
     if sign < 0:
         assert bool((kb.weight[idx[:n]] == 0).any())     # some voxels reset
     if scene == "behind":
@@ -133,18 +144,20 @@ def test_tsdf_kernel_matches_plain(cuda_device, scene, n_active, sign, pre, with
 
 @pytest.mark.cuda
 def test_tsdf_kernel_reads_the_active_flags(cuda_device):
-    """Inside n_lanes, a lane whose active flag is off is left alone."""
+    """A padded slot list with its active flags: a lane whose flag is off,
+    real or padding, is left alone and reports nothing."""
     args, n = _scene(2, True, cuda_device)
     kb, origins, idx, active, d, rgb, q, pose, intr, cfg = args
     active[3] = False
     pb = tsdf.ChunkBatch(*(a.clone() for a in kb))
     kq, ku = tsdf.integrate_frame_fused(kb, origins, idx, active, d, rgb, q, pose, 1.0,
-                                        intr, cfg, n_lanes=n)
+                                        intr, cfg)
     pq, pu = tsdf.integrate_frame_fused_plain(pb, origins, idx, active, d, rgb, q, pose, 1.0,
                                               intr, cfg)
     torch.testing.assert_close(kb.sdf[:cfg.capacity], pb.sdf[:cfg.capacity],
                                rtol=1e-5, atol=1e-5)
     assert torch.equal(ku, pu) and not bool(ku[3]) and float(kq[3]) == 0.0
+    assert not bool(ku[n:].any()) and bool((kq[n:] == 0).all())
 
 
 @pytest.mark.cuda
@@ -188,7 +201,7 @@ def test_wrappers_refuse_cpu_and_wrong_types():
         a.update(change)
         return cuda_kernels.tsdf_integrate_cuda(
             *kb, a["idx"], a["active"], a["origins"], a["depth"], a["rgb"], a["quality"],
-            a["cam_to_world"], 1.0, intr, cfg, n_lanes=change.get("n_lanes"))
+            a["cam_to_world"], 1.0, intr, cfg)
 
     with pytest.raises(ValueError, match="CUDA"):
         call()
@@ -204,8 +217,8 @@ def test_wrappers_refuse_cpu_and_wrong_types():
         call(cam_to_world=pose.t())
     with pytest.raises(ValueError, match="required"):
         call(quality=None)
-    with pytest.raises(ValueError, match="n_lanes"):
-        call(n_lanes=idx.numel() + 1)
+    with pytest.raises(ValueError, match="shape"):
+        call(active=active[:-1])                     # one flag a lane
 
 
 def test_params_struct_matches_cuda_source():

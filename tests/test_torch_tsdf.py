@@ -135,17 +135,19 @@ def test_trash_lanes_leave_real_rows_alone():
     assert not got[2].any() and (got[1] == 0).all()
 
 
-@pytest.mark.parametrize("n_lanes", [None, 12])
-def test_depth_only_update_takes_no_colour_planes(n_lanes):
+@pytest.mark.parametrize("n_listed", [None, 12])
+def test_depth_only_update_takes_no_colour_planes(n_listed):
     """The depth-only update reads no rgb or quality plane: the port takes
-    None for both (and K2's launch width n_lanes, which changes nothing on
-    the CPU) and equals JAX's depth-only update fed full planes."""
+    None for both and equals JAX's depth-only update fed full planes,
+    whether it is given JAX's padded list with active flags (None) or only
+    the 12 real slots and no flags, as TSDFVolume gives them (12)."""
     rows, origins, idx, active, d, rgb, quality, pose = inputs = _setup(True, seed=2)
     t = torch.as_tensor
     batch = ttsdf.ChunkBatch(*(t(a.copy()) for a in rows))
+    lanes = (t(idx), t(active)) if n_listed is None else (t(idx[:n_listed]), None)
     q, upd = ttsdf.integrate_frame_fused(
-        batch, t(origins), t(idx), t(active), t(d), None, None, t(pose), 1.0,
-        tcam.Intrinsics.from_config(CONFIG.camera), CFG, with_color=False, n_lanes=n_lanes)
+        batch, t(origins), *lanes, t(d), None, None, t(pose), 1.0,
+        tcam.Intrinsics.from_config(CONFIG.camera), CFG, with_color=False)
     got = [a.numpy() for a in batch], q.numpy(), upd.numpy()
     _compare(got, _jax_fused(*inputs, 1.0, False), int(active.sum()), False)
     assert got[2].any() and (got[1] == 0).all()

@@ -21,12 +21,13 @@
 // What bounds it on the H100: latency. Counted at full rows (read and
 // write sdf, weight, 3 colour floats and the count, 24 B a voxel, plus the
 // 6.1 MB of depth, rgb and quality at VGA), 1008 chunks move ~31 MB, 9.2 us
-// at 3.35 TB/s (H100 SXM data-sheet rate, 700 W power limit). But only
-// voxels inside the truncation band change, and only they need their rows:
-// what a frame's data needs is a few MB (chip_smoke.py [k2] counts it),
-// ~1 us. Each chunk instead waits on a chain of dependent loads: its slot,
-// its origin, the depth at each voxel's pixel, then rgb and quality for
-// the colour band; with ~60 flops a voxel, the arithmetic is small.
+// at 3.35 TB/s (H100 SXM data-sheet rate, 700 W power limit), and the
+// ~240 chunks of a frame on the fusion path ~3.6 us. But only voxels
+// inside the truncation band change, and only they need their rows: what
+// a frame's data needs is a few MB (chip_smoke.py [k2] counts it), ~1 us.
+// Each chunk instead waits on a chain of dependent loads: its slot, its
+// origin, the depth at each voxel's pixel, then rgb and quality for the
+// colour band; with ~60 flops a voxel, the arithmetic is small.
 //
 // Design:
 //  - One launch per integrate takes the frame as the plain version does:
@@ -34,25 +35,23 @@
 //    the full origins table read by slot, and cam_to_world, inverted in
 //    every thread with se3.inverse's arithmetic. The caller dispatches no
 //    other device op (no packing, gather or inverse).
-//  - Persistent blocks (blocks_per_sm per SM, 4 by default) walk the
-//    lanes below n_lanes, the count the host already knows; lanes past it
-//    only get their outputs zeroed.
-//  - Each block keeps a kStages-deep ring of sdf and weight rows (4 KB a
-//    chunk) in shared memory. One elected thread fills it with bulk
-//    asynchronous copies (cp.async.bulk, completion on an mbarrier), so
-//    the rows of the next chunks are in flight while this chunk is
-//    projected and its depth gathered; only then does the block wait.
-//    The colour and count rows (8 KB a chunk) are not copied: only the
-//    few voxels inside the colour band read them, as float4, alongside
-//    their rgb and quality samples.
-//  - 128 threads, 4 voxels (x-adjacent) a thread: rows are read as float4
-//    and written back as coalesced float4, and only where one of the 4
-//    voxels changed.
+//  - One 128-thread block per listed lane, 4 voxels (x-adjacent) a
+//    thread. The grid is the list's length: the caller lists the real
+//    lanes only (the active flags, when given, still mark lanes to skip).
+//    A frame's ~240 lanes fill the card's 132 SMs in one wave, and up to
+//    16 blocks sit on an SM at once.
+//  - Each thread issues its float4 sdf and weight loads as soon as it has
+//    the slot, before the projection, so the rows are in flight while the
+//    pose is inverted, the voxels projected and the depth gathered.
+//  - The colour and count rows (8 KB a chunk) are read, as float4, only
+//    by threads with a voxel inside the colour band, and the sdf and
+//    weight rows are written back (coalesced float4) only where one of the
+//    thread's 4 voxels changed.
 //  - The voxel centroids' 8 distinct offsets sit in a shared table: an
 //    index into the parameter block that is not a constant makes the
 //    compiler copy the whole block to local memory.
-//  - Per chunk, flags and the quality sum are reduced by warp votes and
-//    shuffles and one shared-memory pass (double-buffered by chunk).
+//  - Flags and the quality sum are reduced by warp votes and shuffles and
+//    one shared-memory pass.
 //
 // Arithmetic follows the plain PyTorch version
 // (texturefusion_torch/ops/tsdf.py integrate_chunks) operation for
@@ -82,116 +81,46 @@ namespace {
 
 constexpr int kVoxels = 512;               // 8^3, x-fastest
 constexpr int kThreads = 128;              // 4 voxels a thread
-constexpr int kStages = 3;                 // ring depth
-constexpr uint32_t kPlaneBytes = kVoxels * 4;
 constexpr float kResetSdf = 999.0f;
-
-struct __align__(128) Stage {
-  float sdf[kVoxels];
-  float weight[kVoxels];
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ bool lane_live(const int64_t* idx, const uint8_t* active,
-                                          int lane, int n_rows, int64_t* slot) {
-  *slot = idx[lane];
-  return active[lane] && *slot >= 0 && *slot < n_rows;
-}
 
 __global__ void __launch_bounds__(kThreads)
 tsdf_integrate_kernel(float* __restrict__ sdf, float* __restrict__ weight,
                       float* __restrict__ color, float* __restrict__ ccnt,
                       const int64_t* __restrict__ idx,
-                      const uint8_t* __restrict__ active,
+                      const uint8_t* __restrict__ active,   // may be null: all live
                       const float* __restrict__ origins,
                       const float* __restrict__ depth,
                       const float* __restrict__ rgb,
                       const float* __restrict__ qmap,
                       const float* __restrict__ c2w,
                       float* __restrict__ quality_out,
-                      uint8_t* __restrict__ updated_out, int n_lanes, int n_total,
-                      const TsdfParams p) {
-  __shared__ Stage ring[kStages];
-  __shared__ __align__(8) uint64_t full[kStages];
-  __shared__ float warp_q[2][kThreads / 32];
-  __shared__ int warp_flags[2][kThreads / 32];
+                      uint8_t* __restrict__ updated_out, const TsdfParams p) {
+  __shared__ float warp_q[kThreads / 32];
+  __shared__ int warp_flags[kThreads / 32];
   __shared__ float cent[8];   // indexed by voxel coordinate: a constant index of p only
 
+  const int lane = blockIdx.x;
   const int t = threadIdx.x;
-  const int warp = t >> 5;
+  const int64_t slot = idx[lane];
+  const bool live = (active == nullptr || active[lane]) && slot >= 0 && slot < p.n_rows;
+  if (!live) {                                   // block-uniform
+    if (t == 0) {
+      quality_out[lane] = 0.0f;
+      updated_out[lane] = 0;
+    }
+    return;
+  }
   const bool with_color = p.with_color != 0;
 
-  // lanes past n_lanes are inactive: only their outputs are written
-  for (int i = n_lanes + blockIdx.x * kThreads + t; i < n_total; i += gridDim.x * kThreads) {
-    quality_out[i] = 0.0f;
-    updated_out[i] = 0;
-  }
+  // the rows first: nothing below decides whether they are needed
+  const int64_t row4 = slot * (kVoxels / 4) + t;   // float4 index of voxel 4t
+  const float4 s4 = reinterpret_cast<const float4*>(sdf)[row4];
+  const float4 w4 = reinterpret_cast<const float4*>(weight)[row4];
 
-  // the producer: one thread starts the bulk copies of lane k's rows into
-  // stage k % kStages; an inactive lane's stage completes with no bytes
-  auto fill = [&](int k) {
-    const int lane = blockIdx.x + k * gridDim.x;
-    uint64_t* bar = &full[k % kStages];
-    Stage& st = ring[k % kStages];
-    int64_t slot;
-    if (!lane_live(idx, active, lane, p.n_rows, &slot)) {
-      mbar_arrive(bar);
-      return;
-    }
-    const int64_t row = slot * kVoxels;
-    mbar_arrive_tx(bar, 2 * kPlaneBytes);
-    bulk_load(st.sdf, sdf + row, kPlaneBytes, bar);
-    bulk_load(st.weight, weight + row, kPlaneBytes, bar);
-  };
-
-  const int n_mine = blockIdx.x < n_lanes ? (n_lanes - 1 - blockIdx.x) / gridDim.x + 1 : 0;
   if (t == 0) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) cent[i] = p.centroid[i];
-    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int k = 0; k < kStages && k < n_mine; ++k) fill(k);
   }
-  __syncthreads();
 
   // world -> camera: se3.inverse(cam_to_world), Rt then -(Rt t) summed
   // x + y + z, each product rounded (no fused multiply-add in this file)
@@ -206,190 +135,153 @@ tsdf_integrate_kernel(float* __restrict__ sdf, float* __restrict__ weight,
   }
   const float w_in = p.integration_weight * p.sign;
   const int v0 = 4 * t;                          // this thread's 4 voxels
-  const float cy_off = cent[(v0 >> 3) & 7];
-  const float cz_off = cent[v0 >> 6];
+  const float ox = origins[slot * 3 + 0];
+  const float oy = origins[slot * 3 + 1];
+  const float oz = origins[slot * 3 + 2];
+  const float oz_cam = w2c[8] * ox + w2c[9] * oy + w2c[10] * oz + w2c[11];
+  const float trunc = fabsf(p.trunc_quad * oz_cam * oz_cam + p.trunc_linear * oz_cam +
+                            p.trunc_const) * p.trunc_scale;
+  __syncthreads();                               // cent is filled
+  const float wy = oy + cent[(v0 >> 3) & 7];
+  const float wz = oz + cent[v0 >> 6];
 
-  for (int k = 0; k < n_mine; ++k) {
-    const int lane = blockIdx.x + k * gridDim.x;
-    const int buf = k & 1;
-    int64_t slot;
-    const bool live = lane_live(idx, active, lane, p.n_rows, &slot);  // block-uniform
-    bool any_upd = false, partial = false, behind = false;
-    float qsum = 0.0f;
-
-    if (live) {
-      const float ox = origins[slot * 3 + 0];
-      const float oy = origins[slot * 3 + 1];
-      const float oz = origins[slot * 3 + 2];
-      const float oz_cam = w2c[8] * ox + w2c[9] * oy + w2c[10] * oz + w2c[11];
-      const float trunc = fabsf(p.trunc_quad * oz_cam * oz_cam + p.trunc_linear * oz_cam +
-                                p.trunc_const) * p.trunc_scale;
-      const float wy = oy + cy_off;
-      const float wz = oz + cz_off;
-
-      // project and gather depth for the 4 voxels while the rows arrive
-      float z[4], d[4];
-      int pix[4];
-      bool in_img[4];
+  // project and gather depth for the 4 voxels
+  float z[4], d[4];
+  int pix[4];
+  bool in_img[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float wx = ox + cent[(v0 + j) & 7];
-        // (r0*x + r1*y + r2*z) + t, in this order
-        const float xc = w2c[0] * wx + w2c[1] * wy + w2c[2] * wz + w2c[3];
-        const float yc = w2c[4] * wx + w2c[5] * wy + w2c[6] * wz + w2c[7];
-        z[j] = w2c[8] * wx + w2c[9] * wy + w2c[10] * wz + w2c[11];
-        const float safe_z = fabsf(z[j]) > 1e-9f ? z[j] : 1e-9f;
-        const float ur = rintf(p.fx * xc / safe_z + p.cx);  // half to even
-        const float vr = rintf(p.fy * yc / safe_z + p.cy);
-        in_img[j] = ur > 0.0f && ur < (float)(p.width - 1) && vr > 0.0f &&
-                    vr < (float)(p.height - 1) && z[j] > 0.0f;
-        pix[j] = in_img[j] ? (int)vr * p.width + (int)ur : 0;
-      }
+  for (int j = 0; j < 4; ++j) {
+    const float wx = ox + cent[(v0 + j) & 7];
+    // (r0*x + r1*y + r2*z) + t, in this order
+    const float xc = w2c[0] * wx + w2c[1] * wy + w2c[2] * wz + w2c[3];
+    const float yc = w2c[4] * wx + w2c[5] * wy + w2c[6] * wz + w2c[7];
+    z[j] = w2c[8] * wx + w2c[9] * wy + w2c[10] * wz + w2c[11];
+    const float safe_z = fabsf(z[j]) > 1e-9f ? z[j] : 1e-9f;
+    const float ur = rintf(p.fx * xc / safe_z + p.cx);  // half to even
+    const float vr = rintf(p.fy * yc / safe_z + p.cy);
+    in_img[j] = ur > 0.0f && ur < (float)(p.width - 1) && vr > 0.0f &&
+                vr < (float)(p.height - 1) && z[j] > 0.0f;
+    pix[j] = in_img[j] ? (int)vr * p.width + (int)ur : 0;
+  }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) d[j] = in_img[j] ? depth[pix[j]] : 0.0f;
+  for (int j = 0; j < 4; ++j) d[j] = in_img[j] ? depth[pix[j]] : 0.0f;
 
-      float dist[4];
-      bool upd[4], cupd[4];
-      float g[4][4];                               // rgb*255, quality
+  float dist[4];
+  bool upd[4], cupd[4];
+  bool any_upd = false, partial = false, behind = false;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        dist[j] = d[j] - z[j];
-        const bool depth_ok = d[j] > p.near_plane && d[j] < p.far_plane;
-        upd[j] = in_img[j] && depth_ok && dist[j] > -0.03f && dist[j] < trunc + p.res_diag;
-        cupd[j] = with_color && in_img[j] && depth_ok && fabsf(dist[j]) < p.color_band;
-        partial |= !in_img[j] && z[j] > 0.0f;
-        behind |= z[j] <= 0.0f;
-        any_upd |= upd[j];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        g[j][0] = g[j][1] = g[j][2] = g[j][3] = 0.0f;
-        if (cupd[j]) {
-          g[j][0] = rgb[pix[j] * 3 + 0] * 255.0f;
-          g[j][1] = rgb[pix[j] * 3 + 1] * 255.0f;
-          g[j][2] = rgb[pix[j] * 3 + 2] * 255.0f;
-          g[j][3] = qmap[pix[j]];
-        }
-      }
-      const int64_t row4 = slot * (kVoxels / 4) + t;   // float4 index of voxel v0
-      // the colour rows of these 4 voxels, read only when one is in the band
-      const bool cupd4 = cupd[0] || cupd[1] || cupd[2] || cupd[3];
-      float4 ca, cb, cc, n4;
-      if (cupd4) {
-        const float4* c4 = reinterpret_cast<const float4*>(color) + 3 * row4;
-        ca = c4[0];
-        cb = c4[1];
-        cc = c4[2];
-        n4 = reinterpret_cast<const float4*>(ccnt)[row4];
-      }
+  for (int j = 0; j < 4; ++j) {
+    dist[j] = d[j] - z[j];
+    const bool depth_ok = d[j] > p.near_plane && d[j] < p.far_plane;
+    upd[j] = in_img[j] && depth_ok && dist[j] > -0.03f && dist[j] < trunc + p.res_diag;
+    cupd[j] = with_color && in_img[j] && depth_ok && fabsf(dist[j]) < p.color_band;
+    partial |= !in_img[j] && z[j] > 0.0f;
+    behind |= z[j] <= 0.0f;
+    any_upd |= upd[j];
+  }
 
-      mbar_wait(&full[k % kStages], (k / kStages) & 1);
-      const Stage& st = ring[k % kStages];
-
-      const float4 s4 = reinterpret_cast<const float4*>(st.sdf)[t];
-      const float4 w4 = reinterpret_cast<const float4*>(st.weight)[t];
-      float s_old[4] = {s4.x, s4.y, s4.z, s4.w};
-      float w_old[4] = {w4.x, w4.y, w4.z, w4.w};
-      bool upd4 = false;
+  float s_old[4] = {s4.x, s4.y, s4.z, s4.w};
+  float w_old[4] = {w4.x, w4.y, w4.z, w4.w};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (upd[j]) {
-          float new_w = w_old[j] + w_in;
-          float new_sdf = (s_old[j] * w_old[j] + dist[j] * w_in) / (new_w + 1e-4f);
-          if (new_w <= p.min_weight) {
-            new_sdf = kResetSdf;
-            new_w = 0.0f;
-          }
-          s_old[j] = new_sdf;
-          w_old[j] = new_w;
-          upd4 = true;
-        }
+  for (int j = 0; j < 4; ++j) {
+    if (upd[j]) {
+      float new_w = w_old[j] + w_in;
+      float new_sdf = (s_old[j] * w_old[j] + dist[j] * w_in) / (new_w + 1e-4f);
+      if (new_w <= p.min_weight) {
+        new_sdf = kResetSdf;
+        new_w = 0.0f;
       }
-      if (upd4) {
-        reinterpret_cast<float4*>(sdf)[row4] = make_float4(s_old[0], s_old[1], s_old[2], s_old[3]);
-        reinterpret_cast<float4*>(weight)[row4] =
-            make_float4(w_old[0], w_old[1], w_old[2], w_old[3]);
-      }
-
-      if (cupd4) {
-        float c[12] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y, cb.z, cb.w, cc.x, cc.y, cc.z, cc.w};
-        float cnt[4] = {n4.x, n4.y, n4.z, n4.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (cupd[j]) {
-            float r = c[3 * j + 0] + g[j][0] * p.sign;
-            float gg = c[3 * j + 1] + g[j][1] * p.sign;
-            float b = c[3 * j + 2] + g[j][2] * p.sign;
-            float n = cnt[j] + p.sign;
-            if (fmaxf(r, fmaxf(gg, b)) > p.color_saturation && p.sign > 0.0f) {
-              r *= 0.25f;
-              gg *= 0.25f;
-              b *= 0.25f;
-              n *= 0.25f;
-            }
-            c[3 * j + 0] = r;
-            c[3 * j + 1] = gg;
-            c[3 * j + 2] = b;
-            cnt[j] = n;
-            qsum += g[j][3];
-          }
-        }
-        float4* out4 = reinterpret_cast<float4*>(color) + 3 * row4;
-        out4[0] = make_float4(c[0], c[1], c[2], c[3]);
-        out4[1] = make_float4(c[4], c[5], c[6], c[7]);
-        out4[2] = make_float4(c[8], c[9], c[10], c[11]);
-        reinterpret_cast<float4*>(ccnt)[row4] = make_float4(cnt[0], cnt[1], cnt[2], cnt[3]);
-      }
-    } else {
-      mbar_wait(&full[k % kStages], (k / kStages) & 1);
+      s_old[j] = new_sdf;
+      w_old[j] = new_w;
     }
+  }
+  if (upd[0] || upd[1] || upd[2] || upd[3]) {
+    reinterpret_cast<float4*>(sdf)[row4] = make_float4(s_old[0], s_old[1], s_old[2], s_old[3]);
+    reinterpret_cast<float4*>(weight)[row4] = make_float4(w_old[0], w_old[1], w_old[2], w_old[3]);
+  }
 
-    // per-chunk reductions: warp votes and shuffles, then one shared pass
-    const int flags = (__any_sync(0xffffffffu, any_upd) ? 1 : 0) |
-                      (__any_sync(0xffffffffu, partial) ? 2 : 0) |
-                      (__any_sync(0xffffffffu, behind) ? 4 : 0);
-    for (int off = 16; off > 0; off >>= 1) qsum += __shfl_down_sync(0xffffffffu, qsum, off);
-    if ((t & 31) == 0) {
-      warp_q[buf][warp] = qsum;
-      warp_flags[buf][warp] = flags;
-    }
-    __syncthreads();   // stage k % kStages is consumed; the sums are in
-    if (t == 0) {
-      float q = 0.0f;
-      int f = 0;
+  float qsum = 0.0f;
+  if (cupd[0] || cupd[1] || cupd[2] || cupd[3]) {
+    // rgb*255 and quality at the pixels, beside the colour rows of these
+    // 4 voxels
+    float g[4][4];
 #pragma unroll
-      for (int w = 0; w < kThreads / 32; ++w) {
-        q += warp_q[buf][w];
-        f |= warp_flags[buf][w];
-      }
-      quality_out[lane] = (live && with_color) ? ((f & 6) ? -1e11f : q) : 0.0f;
-      updated_out[lane] = (live && (f & 1)) ? 1 : 0;
-      if (k + kStages < n_mine) {
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        fill(k + kStages);
+    for (int j = 0; j < 4; ++j) {
+      g[j][0] = g[j][1] = g[j][2] = g[j][3] = 0.0f;
+      if (cupd[j]) {
+        g[j][0] = rgb[pix[j] * 3 + 0] * 255.0f;
+        g[j][1] = rgb[pix[j] * 3 + 1] * 255.0f;
+        g[j][2] = rgb[pix[j] * 3 + 2] * 255.0f;
+        g[j][3] = qmap[pix[j]];
       }
     }
+    float4* c4 = reinterpret_cast<float4*>(color) + 3 * row4;
+    float4* n4p = reinterpret_cast<float4*>(ccnt) + row4;
+    const float4 ca = c4[0], cb = c4[1], cc = c4[2], n4 = *n4p;
+    float c[12] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y, cb.z, cb.w, cc.x, cc.y, cc.z, cc.w};
+    float cnt[4] = {n4.x, n4.y, n4.z, n4.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (cupd[j]) {
+        float r = c[3 * j + 0] + g[j][0] * p.sign;
+        float gg = c[3 * j + 1] + g[j][1] * p.sign;
+        float b = c[3 * j + 2] + g[j][2] * p.sign;
+        float n = cnt[j] + p.sign;
+        if (fmaxf(r, fmaxf(gg, b)) > p.color_saturation && p.sign > 0.0f) {
+          r *= 0.25f;
+          gg *= 0.25f;
+          b *= 0.25f;
+          n *= 0.25f;
+        }
+        c[3 * j + 0] = r;
+        c[3 * j + 1] = gg;
+        c[3 * j + 2] = b;
+        cnt[j] = n;
+        qsum += g[j][3];
+      }
+    }
+    c4[0] = make_float4(c[0], c[1], c[2], c[3]);
+    c4[1] = make_float4(c[4], c[5], c[6], c[7]);
+    c4[2] = make_float4(c[8], c[9], c[10], c[11]);
+    *n4p = make_float4(cnt[0], cnt[1], cnt[2], cnt[3]);
+  }
+
+  // per-chunk reductions: warp votes and shuffles, then one shared pass
+  const int warp = t >> 5;
+  const int flags = (__any_sync(0xffffffffu, any_upd) ? 1 : 0) |
+                    (__any_sync(0xffffffffu, partial) ? 2 : 0) |
+                    (__any_sync(0xffffffffu, behind) ? 4 : 0);
+  for (int off = 16; off > 0; off >>= 1) qsum += __shfl_down_sync(0xffffffffu, qsum, off);
+  if ((t & 31) == 0) {
+    warp_q[warp] = qsum;
+    warp_flags[warp] = flags;
+  }
+  __syncthreads();
+  if (t == 0) {
+    float q = 0.0f;
+    int f = 0;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) {
+      q += warp_q[w];
+      f |= warp_flags[w];
+    }
+    quality_out[lane] = with_color ? ((f & 6) ? -1e11f : q) : 0.0f;
+    updated_out[lane] = (f & 1) ? 1 : 0;
   }
 }
 
 }  // namespace
 
+// One block per lane of idx [n_lanes]; active [n_lanes] may be null.
 extern "C" int tf_tsdf_integrate_launch(
     float* sdf, float* weight, float* color, float* ccnt, const int64_t* idx,
     const uint8_t* active, const float* origins, const float* depth, const float* rgb,
     const float* quality, const float* cam_to_world, float* quality_out,
-    uint8_t* updated_out, const TsdfParams* params, int n_lanes, int n_total,
-    int blocks_per_sm, void* stream) {
-  if (n_total <= 0) return (int)cudaSuccess;
-  if (n_lanes < 0 || n_lanes > n_total || blocks_per_sm < 1) return (int)cudaErrorInvalidValue;
-  int dev = 0, n_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  int grid = blocks_per_sm * n_sm;
-  if (n_lanes < grid) grid = n_lanes > 0 ? n_lanes : 1;
-  tsdf_integrate_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+    uint8_t* updated_out, const TsdfParams* params, int n_lanes, void* stream) {
+  if (n_lanes < 0) return (int)cudaErrorInvalidValue;
+  if (n_lanes == 0) return (int)cudaSuccess;
+  tsdf_integrate_kernel<<<n_lanes, kThreads, 0, (cudaStream_t)stream>>>(
       sdf, weight, color, ccnt, idx, active, origins, depth, rgb, quality, cam_to_world,
-      quality_out, updated_out, n_lanes, n_total, *params);
+      quality_out, updated_out, *params);
   return (int)cudaGetLastError();
 }

@@ -5,7 +5,7 @@ Structure/ChunkManager.h:119-1306 ChunkManager; Structure/Chisel.h:103-249
 PrepareIntersectChunks / IntegrateDepthScanColor). The TSDF lives in
 dense [capacity + 1, 512] tensors on `device`; the native allocator maps
 integer chunk IDs to slots. Slot `capacity` is a trash row that padded
-lanes point at.
+slot lists point at; the volume itself lists only its real slots.
 
 Unlike the JAX package, every host read is synchronous: discovery reads
 its unique ids and count at once, and each integration records its
@@ -15,7 +15,7 @@ per-chunk observation quality right away.
 from __future__ import annotations
 
 import warnings
-from typing import Optional, Set, Tuple
+from typing import Optional, Set
 
 import numpy as np
 import torch
@@ -135,17 +135,6 @@ class TSDFVolume:
         self._register_new(new_slots)
         return slots[slots >= 0]
 
-    def _padded(self, slots: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Pad a slot list to the static budget with the trash slot:
-        (idx [budget] int64, active [budget] bool)."""
-        budget = self.cfg.max_update_chunks
-        slots = np.asarray(slots[:budget], np.int64)
-        pad = budget - len(slots)
-        idx = np.concatenate([slots, np.full(pad, self.cfg.capacity, np.int64)])
-        active = np.arange(budget) < len(slots)
-        return (torch.as_tensor(idx, device=self.device),
-                torch.as_tensor(active, device=self.device))
-
     def integrate_frame(self, depth: torch.Tensor, rgb: Optional[torch.Tensor],
                         quality_map: Optional[torch.Tensor], cam_to_world,
                         keyframe_id: Optional[int] = None, sign: float = 1.0,
@@ -165,11 +154,10 @@ class TSDFVolume:
         budget = self.cfg.max_update_chunks
         for start in range(0, len(slots), budget):
             chunk_slots = slots[start:start + budget]
-            idx, active = self._padded(chunk_slots)
+            idx = torch.as_tensor(np.asarray(chunk_slots, np.int64), device=self.device)
             quality, updated = tsdf_ops.integrate_frame_fused(
-                self.batch, self.origins, idx, active, depth, rgb, quality_map,
-                pose, float(sign), self.intr, self.cfg, with_color=with_color,
-                n_lanes=len(chunk_slots))
+                self.batch, self.origins, idx, None, depth, rgb, quality_map,
+                pose, float(sign), self.intr, self.cfg, with_color=with_color)
             if with_color and keyframe_id is not None:
                 self._record_obs(chunk_slots, quality, updated, keyframe_id, sign)
             self._mark_dirty(chunk_slots)
@@ -177,11 +165,10 @@ class TSDFVolume:
 
     def _record_obs(self, slots: np.ndarray, quality: torch.Tensor,
                     updated: torch.Tensor, kf_id: int, sign: float) -> None:
-        n = len(slots)
-        up = updated[:n].cpu().numpy()
+        up = updated.cpu().numpy()
         sl = np.asarray(slots, np.int64)[up]
         if sign > 0:
-            self._obs_q[sl, kf_id] = quality[:n].cpu().numpy()[up]
+            self._obs_q[sl, kf_id] = quality.cpu().numpy()[up]
             self._obs_mask[sl, kf_id] = True
         else:
             self._obs_q[sl, kf_id] = 0.0

@@ -43,7 +43,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = {"bilateral.cu": (), "tsdf_integrate.cu": ("-fmad=false",)}
 
 MAX_RADIUS = 8              # K1 is instantiated for radius 0..MAX_RADIUS
-K2_BLOCKS_PER_SM = 4        # K2's persistent blocks per SM
 
 LAUNCHES = {"bilateral": 0, "tsdf_integrate": 0}
 LANES = {"tsdf_integrate": 0}
@@ -125,8 +124,7 @@ def build(verbose: bool = False) -> ctypes.CDLL:
         lib.tf_bilateral_launch.restype = i
         lib.tf_bilateral_launch.argtypes = [p, p, p, i, i, i, f, p]
         lib.tf_tsdf_integrate_launch.restype = i
-        lib.tf_tsdf_integrate_launch.argtypes = [p] * 13 + [
-            ctypes.POINTER(TsdfParams), i, i, i, p]
+        lib.tf_tsdf_integrate_launch.argtypes = [p] * 13 + [ctypes.POINTER(TsdfParams), i, p]
         _lib = lib
         return lib
 
@@ -220,35 +218,29 @@ def _tsdf_params(intr, cfg, sign: float, with_color: bool, n_rows: int) -> TsdfP
 
 def tsdf_integrate_cuda(sdf: torch.Tensor, weight: torch.Tensor,
                         color: torch.Tensor, ccnt: torch.Tensor,
-                        idx: torch.Tensor, active: torch.Tensor,
+                        idx: torch.Tensor, active: Optional[torch.Tensor],
                         origins: torch.Tensor, depth: torch.Tensor,
                         rgb: Optional[torch.Tensor], quality: Optional[torch.Tensor],
                         cam_to_world: torch.Tensor, sign: float, intr, cfg,
-                        with_color: bool = True, n_lanes: Optional[int] = None,
-                        blocks_per_sm: int = K2_BLOCKS_PER_SM
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+                        with_color: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2: update rows sdf/weight/ccnt [S+1, 512], color [S+1, 512, 3]
     IN PLACE at the slots `idx` [U] (int64; `active` [U] bool marks the
-    real lanes). origins [S+1, 3] is the full chunk-origin table (read by
-    slot), depth [H, W], rgb [H, W, 3] in 0..1, quality [H, W] (rgb and
-    quality are not read, and may be None, when with_color is False),
-    cam_to_world [4, 4]. Lanes from `n_lanes` on (default U) must be
-    inactive: the kernel runs over the first n_lanes only and zeroes the
-    outputs of the rest. One launch. Returns (quality [U] f32, updated
-    [U] bool)."""
+    lanes to update, None for all). origins [S+1, 3] is the full
+    chunk-origin table (read by slot), depth [H, W], rgb [H, W, 3] in
+    0..1, quality [H, W] (rgb and quality are not read, and may be None,
+    when with_color is False), cam_to_world [4, 4]. One launch of one
+    block per lane. Returns (quality [U] f32, updated [U] bool)."""
     n_rows, n_vox = sdf.shape
     if n_vox != cfg.chunk_size ** 3 or n_vox != 512:
         raise ValueError(f"rows must be [S+1, 512], got {tuple(sdf.shape)}")
     u = idx.shape[0]
-    n_lanes = u if n_lanes is None else int(n_lanes)
-    if not 0 <= n_lanes <= u:
-        raise ValueError(f"n_lanes must lie in 0..{u}, got {n_lanes}")
     _require(sdf, "sdf", torch.float32)
     _require(weight, "weight", torch.float32, (n_rows, n_vox))
     _require(color, "color", torch.float32, (n_rows, n_vox, 3))
     _require(ccnt, "color_count", torch.float32, (n_rows, n_vox))
     _require(idx, "idx", torch.int64, (u,))
-    _require(active, "active", torch.bool, (u,))
+    if active is not None:
+        _require(active, "active", torch.bool, (u,))
     _require(origins, "origins", torch.float32, (n_rows, 3))
     _require(depth, "depth", torch.float32, (intr.height, intr.width))
     if with_color:
@@ -260,7 +252,7 @@ def tsdf_integrate_cuda(sdf: torch.Tensor, weight: torch.Tensor,
              quality=quality if with_color else None, cam_to_world=cam_to_world)
     for name, t in (("sdf", sdf), ("weight", weight), ("color", color), ("color_count", ccnt)):
         if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (bulk copies)")
+            raise ValueError(f"{name} must be 16-byte aligned (float4 accesses)")
     lib = build()
     dev = sdf.device
     params = _host_const(("tsdf", intr, cfg, float(sign), bool(with_color), n_rows),
@@ -270,11 +262,11 @@ def tsdf_integrate_cuda(sdf: torch.Tensor, weight: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.tf_tsdf_integrate_launch(
         sdf.data_ptr(), weight.data_ptr(), color.data_ptr(), ccnt.data_ptr(),
-        idx.data_ptr(), active.data_ptr(), origins.data_ptr(), depth.data_ptr(),
-        rgb.data_ptr() if with_color else None, quality.data_ptr() if with_color else None,
-        cam_to_world.data_ptr(), out_q.data_ptr(), updated.data_ptr(), ctypes.byref(params),
-        n_lanes, u, blocks_per_sm, stream)
+        idx.data_ptr(), None if active is None else active.data_ptr(), origins.data_ptr(),
+        depth.data_ptr(), rgb.data_ptr() if with_color else None,
+        quality.data_ptr() if with_color else None, cam_to_world.data_ptr(),
+        out_q.data_ptr(), updated.data_ptr(), ctypes.byref(params), u, stream)
     _check(rc, "tsdf_integrate")
     LAUNCHES["tsdf_integrate"] += 1
-    LANES["tsdf_integrate"] += n_lanes
+    LANES["tsdf_integrate"] += u
     return out_q, updated

@@ -153,14 +153,17 @@ def integrate_chunks(batch: ChunkBatch, origins: torch.Tensor,
 
 
 def integrate_frame_fused_plain(batch: ChunkBatch, origins_full: torch.Tensor,
-                                idx: torch.Tensor, active: torch.Tensor,
+                                idx: torch.Tensor, active: Optional[torch.Tensor],
                                 depth, rgb, quality_map, cam_to_world,
                                 sign: float, intr: cam.Intrinsics,
                                 cfg: TSDFConfig, with_color: bool = True
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of kernel K2 on any device: gather the idx rows, run
-    integrate_chunks, write them back with index_copy_. Padding lanes all
-    name the trash row, whose content is then undefined."""
+    integrate_chunks, write them back with index_copy_. active None marks
+    every lane. Padding lanes all name the trash row, whose content is
+    then undefined."""
+    if active is None:
+        active = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
     sub, quality, updated = integrate_chunks(
         batch.rows(idx), origins_full[idx], active, depth, rgb, quality_map,
         cam_to_world, sign, intr, cfg, with_color=with_color)
@@ -170,23 +173,22 @@ def integrate_frame_fused_plain(batch: ChunkBatch, origins_full: torch.Tensor,
 
 
 def integrate_frame_fused(batch: ChunkBatch, origins_full: torch.Tensor,
-                          idx: torch.Tensor, active: torch.Tensor,
+                          idx: torch.Tensor, active: Optional[torch.Tensor],
                           depth: torch.Tensor, rgb: Optional[torch.Tensor],
                           quality_map: Optional[torch.Tensor], cam_to_world: torch.Tensor,
                           sign: float, intr: cam.Intrinsics, cfg: TSDFConfig,
-                          with_color: bool = True, n_lanes: Optional[int] = None
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+                          with_color: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Voxel update of the full slot rows [S+1, ...] IN PLACE at slots idx
-    [U] (int64, trash-padded; active [U] bool marks the real lanes).
-    rgb and quality_map may be None when with_color is False. Lanes from
-    `n_lanes` on must be inactive (the caller knows how many are real, so
-    K2 launches over those alone). Returns (per-chunk quality [U],
+    [U] (int64). active [U] bool marks the lanes to update; None marks
+    all, as when idx lists the real slots only (TSDFVolume); a padded
+    list names the trash row in its inactive lanes. rgb and quality_map
+    may be None when with_color is False. Returns (per-chunk quality [U],
     updated [U]). CUDA rows launch kernel K2 once, and nothing else; CPU
     rows take integrate_frame_fused_plain."""
     if batch.sdf.is_cuda:
         return cuda_kernels.tsdf_integrate_cuda(
             *batch, idx, active, origins_full, depth, rgb, quality_map, cam_to_world,
-            sign, intr, cfg, with_color=with_color, n_lanes=n_lanes)
+            sign, intr, cfg, with_color=with_color)
     if batch.sdf.device.type != "cpu":
         raise ValueError(f"integrate_frame_fused: unsupported device {batch.sdf.device}")
     return integrate_frame_fused_plain(batch, origins_full, idx, active, depth, rgb,
