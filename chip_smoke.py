@@ -53,9 +53,34 @@ Phases (each prints one line of numbers; any failure exits non-zero):
                 each, keyframes within 1, same origins, trajectories
                 within 1 mm
  10. profile-tracked - 20 tracked frames under torch.profiler (no gate)
+ 11. pipeline - ReconstructionPipeline (fusion/pipeline.py) on the same
+                120 hardened frames (after a 10-frame warm-up): tracking,
+                keyframe integration at the tracked poses (K2), the local
+                frames' depth-only passes (K2's F-frame mode), drift
+                reintegration, meshing, GC, then finish() (final BA,
+                reintegration at the final poses) and the exports (welded
+                PLY, trajectory.txt). Gates: ATE <= 25 mm, map RMS <= 32 mm
+                and median < 20 mm after bench.py's Umeyama alignment, at
+                least one loop-closure edge and one reintegration, K1 once
+                per frame, K2 and the F-frame mode launched
+ 12. pipeline-async - the same with the fusion thread (async_fusion=True,
+                bench.py's setting): the same gates, frames/s beside [pipeline]
+ 13. pipeline-stream - the same, synchronous, with max_resident_chunks at
+                half of [pipeline]'s final map and a 3 m streaming radius:
+                the same gates, residency within the budget plus one
+                update's chunks, chunks offloaded, vertex count within 5%
+                of [pipeline]'s
+ 14. pipeline-small - the pipeline on the tiny config (10 orbit frames),
+                GPU against CPU with the same draws
+ 15. profile-pipeline - 20 pipeline frames under torch.profiler (no gate)
+Phase 4 also checks reintegrate_frame_fused (two K2 launches) and K2's
+F-frame mode ([k2-frames]: F = 6 at +1, fresh and pre-integrated; F =
+12, -1 x 6 and +1 x 6 at poses moved 6 mm / 0.5 deg) against their plain
+versions, and times the F-frame mode alone.
 The line before the last is a JSON object with each kernel's launches
-in phases 5 and 8, its error against the plain version and its times,
-bound and share; the last line is {"ok": true, "device": {...}}.
+over the phases that drive it (5, 8, 11-13), its error against the plain
+version and its times, bound and share; the last line is
+{"ok": true, "device": {...}}.
 
 Imports nothing of jax or of the JAX package. Builds into texturefusion_torch/_build/.
 """
@@ -373,13 +398,7 @@ def phase_k2():
         pq, pu = tsdf.integrate_frame_fused_plain(pb, origins, idx, active, *frame,
                                                   with_color=with_color)
         torch.cuda.synchronize()
-        errs = {}
-        cap = cfg.capacity
-        for (field, (rtol, atol)), a, b in zip(K2_ROW_TOL.items(), kb, pb):
-            diff = (a[:cap] - b[:cap]).abs()
-            errs[field] = float(diff.max())
-            if not bool((diff <= atol + rtol * b[:cap].abs()).all()):
-                raise AssertionError(f"K2 {name}: {field} disagrees (max {errs[field]:.3e})")
+        errs = _k2_row_errors(name, kb, pb, cfg.capacity)
         q_err = float((kq - pq[:n]).abs().max())
         if with_color and not bool(((kq - pq[:n]).abs()
                                     <= K2_Q_TOL[1] + K2_Q_TOL[0] * pq[:n].abs()).all()):
@@ -410,6 +429,153 @@ def phase_k2():
                 f"{needed} B; at full rows and planes the bound is {full:.4f} ms "
                 f"(share {full / times['kernel_ms']:.3f})")
             times["full_row_bound_ms"] = full
+        del kb, pb, rows
+    worst = max(worst, _k2_reintegrate_check())
+    return {"max_abs_err": worst, **times}
+
+
+def _k2_reintegrate_check() -> float:
+    """reintegrate_frame_fused (two K2 launches: -1 at the old pose, +1 at
+    a pose moved 6 mm / 0.5 deg) against its plain version on the "wall"
+    scene, pre-integrated. Returns the largest row error."""
+    from texturefusion_torch.ops import tsdf
+    cfg, intr, rows, origins, idx, active, d, rgb, q, _, n = _k2_inputs(True, 2)
+    depths, p_old = _k2_frames(1, 5)
+    p_new = _k2_frames(1, 5, moved=True)[1]
+    kb = tsdf.ChunkBatch(*(a.clone() for a in rows))
+    pb = tsdf.ChunkBatch(*(a.clone() for a in rows))
+    kq, ku = tsdf.reintegrate_frame_fused(kb, origins, idx[:n], None, d, rgb, q, p_old[0],
+                                          p_new[0], intr, cfg)
+    pq, pu = tsdf.reintegrate_frame_fused_plain(pb, origins, idx, active, d, rgb, q, p_old[0],
+                                                p_new[0], intr, cfg)
+    errs = _k2_row_errors("reintegrate", kb, pb, cfg.capacity)
+    if not (bool((ku == pu[:n]).all()) and bool(((kq - pq[:n]).abs()
+                                                 <= K2_Q_TOL[1] + K2_Q_TOL[0] * pq[:n].abs()).all())):
+        raise AssertionError("reintegrate_frame_fused: quality or updated flags disagree")
+    log(f"[k2] reintegrate_frame_fused {n} lanes, -1 at the old pose, +1 at the new: "
+        + " ".join(f"{k}_err={v:.3e}" for k, v in errs.items())
+        + f" updated={int(ku.sum())} quality_err={float((kq - pq[:n]).abs().max()):.3e}")
+    return max(errs.values())
+
+
+def _k2_row_errors(name, got, want, cap) -> dict:
+    """Max error of each row array on [:cap] against K2_ROW_TOL; raises."""
+    errs = {}
+    for (field, (rtol, atol)), a, b in zip(K2_ROW_TOL.items(), got, want):
+        diff = (a[:cap] - b[:cap]).abs()
+        errs[field] = float(diff.max())
+        if not bool((diff <= atol + rtol * b[:cap].abs()).all()):
+            raise AssertionError(f"K2 {name}: {field} disagrees (max {errs[field]:.3e})")
+    return errs
+
+
+def _k2_frames(n_frames: int, seed: int, moved: bool = False):
+    """n_frames depth planes of the 2 m wall (noise N(0, 0.02), 5% holes)
+    and poses within ~1 cm / ~0.5 deg of the identity; `moved` draws the
+    same poses moved 6 mm / 0.5 deg further (a drift correction)."""
+    from texturefusion_torch.core import se3
+    from texturefusion_torch.core import camera as cam
+    from texturefusion_torch.config import CameraConfig
+    intr = cam.Intrinsics.from_config(CameraConfig(far_plane=6.0))
+    rng = np.random.default_rng(seed)
+    d = (2.0 + rng.normal(0, 0.02, (n_frames, intr.height, intr.width))).astype(np.float32)
+    d[rng.random(d.shape) < 0.05] = 0.0
+    xi = np.concatenate([rng.normal(0, 0.005, (n_frames, 3)),
+                         rng.normal(0, 0.004, (n_frames, 3))], axis=1).astype(np.float32)
+    poses = se3.se3_exp(torch.as_tensor(xi))
+    if moved:
+        poses = poses @ se3.se3_exp(torch.tensor([0.006, 0.0, 0.0, 0.0, 0.0087, 0.0]))
+    return torch.as_tensor(d, device="cuda"), poses.contiguous().cuda()
+
+
+def _frames_needed_bytes(before, after, origins, idx, n, depths, poses, intr, cfg) -> int:
+    """What one F-frame pass's data needs: the sdf and weight of the voxels
+    that change, read and written (16 B), each frame's distinct depth
+    pixels sampled by in-image voxels (4 B), the poses, and per lane its
+    slot, flag and origin."""
+    from texturefusion_torch.core import camera as cam
+    from texturefusion_torch.core import geometry, se3
+    rows = idx[:n]
+    changed = (before[0][rows] != after.sdf[rows]) | (before[1][rows] != after.weight[rows])
+    cent = torch.as_tensor(geometry.voxel_centroids(cfg.chunk_size, cfg.voxel_resolution),
+                           device="cuda")
+    world = (origins[rows][:, None, :] + cent[None]).reshape(-1, 3)
+    n_pix = 0
+    for f in range(depths.shape[0]):
+        uv, z = cam.project(intr, se3.transform_points(se3.inverse(poses[f]), world))
+        ur, vr = torch.round(uv[:, 0]), torch.round(uv[:, 1])
+        ok = (ur > 0) & (ur < intr.width - 1) & (vr > 0) & (vr < intr.height - 1) & (z > 0)
+        n_pix += int((vr * intr.width + ur)[ok].unique().numel())
+    return int(changed.sum()) * 16 + n_pix * 4 + poses.numel() * 4 + n * (8 + 1 + 12)
+
+
+def _frames_full_bytes(n: int, n_frames: int, h: int, w: int) -> int:
+    """The F-frame mode at full rows and planes: sdf and weight rows read
+    and written (8 KB a chunk), the F depth planes and poses read once,
+    per lane its slot, flag and origin."""
+    return 2 * n * 512 * 2 * 4 + n_frames * (h * w * 4 + 64) + n * (8 + 1 + 12)
+
+
+def phase_k2_frames():
+    """K2's F-frame mode against integrate_depths_batched_plain on the
+    "wall" scene (1008 chunks): F = 6 at +1, fresh and pre-integrated; F =
+    12, -1 x 6 at one set of poses and +1 x 6 at poses moved 6 mm / 0.5
+    deg, pre-integrated. sdf and weight within K2_ROW_TOL, colour rows
+    untouched; one integrate_depths_batched call is one device op; timed
+    alone at F = 6 and F = 12 beside its bounds."""
+    from texturefusion_torch.ops import cuda_kernels, tsdf
+    worst, times = 0.0, {}
+    for name, n_frames, pre in (("f6_fresh", 6, False), ("f6_pre", 6, True),
+                                ("f12_reintegrate", 12, True)):
+        cfg, intr, rows, origins, idx, active, *_, n = _k2_inputs(pre, 3)
+        if n_frames == 12:
+            d, p_old = _k2_frames(6, 4)
+            p_new = _k2_frames(6, 4, moved=True)[1]
+            depths, poses = torch.cat([d, d]), torch.cat([p_old, p_new])
+            signs = [-1.0] * 6 + [1.0] * 6
+        else:
+            depths, poses = _k2_frames(n_frames, 4)
+            signs = 1.0
+        kb = tsdf.ChunkBatch(*(a.clone() for a in rows))
+        pb = tsdf.ChunkBatch(*(a.clone() for a in rows))
+        args = (origins, idx[:n], None, depths, poses, signs, intr, cfg)
+        tsdf.integrate_depths_batched(kb, *args)
+        tsdf.integrate_depths_batched_plain(pb, origins, idx, active, depths, poses, signs,
+                                            intr, cfg)
+        torch.cuda.synchronize()
+        errs = _k2_row_errors(name, kb, pb, cfg.capacity)
+        if not (torch.equal(kb.color, rows[2]) and torch.equal(kb.color_count, rows[3])):
+            raise AssertionError(f"K2 F-frame {name}: colour rows changed")
+        worst = max(worst, errs["sdf"], errs["weight"])
+        n_vox = int(((kb.sdf != rows[0]) | (kb.weight != rows[1]))[idx[:n]].sum())
+        log(f"[k2-frames] {name} F={n_frames} lanes={n}: sdf_err={errs['sdf']:.3e} "
+            f"weight_err={errs['weight']:.3e} colour_untouched=True changed_voxels={n_vox}")
+        if name == "f6_fresh":
+            ops = device_ops(lambda: tsdf.integrate_depths_batched(kb, *args))
+            log(f"[k2-frames] one integrate_depths_batched call: {len(ops)} device op(s) {ops}")
+            if len(ops) != 1:
+                raise AssertionError(f"integrate_depths_batched ran {len(ops)} device ops, not 1")
+        if name != "f6_fresh":
+            needed = _frames_needed_bytes(rows, pb, origins, idx, n, depths, poses, intr, cfg)
+            sg = tsdf.frame_signs(signs, n_frames)
+            t = timing_fields(
+                lambda: cuda_kernels.tsdf_integrate_frames_cuda(
+                    kb.sdf, kb.weight, idx[:n], None, origins, depths, poses, sg, intr, cfg),
+                lambda: tsdf.integrate_depths_batched(kb, *args),
+                lambda: tsdf.integrate_depths_batched_plain(pb, origins, idx, active, depths,
+                                                            poses, signs, intr, cfg),
+                needed, {"fp32": (60 * 512 * n * n_frames, FP32_FLOPS_PER_S)})
+            full = bound_ms(_frames_full_bytes(n, n_frames, intr.height, intr.width),
+                            {"fp32": (60 * 512 * n * n_frames, FP32_FLOPS_PER_S)})[0]
+            log(f"[k2-frames] timing {name}, F={n_frames}, {n} lanes: {fmt_times(t)}; the data "
+                f"needs {needed} B; at full rows and planes the bound is {full:.4f} ms "
+                f"(share {full / t['kernel_ms']:.3f})")
+            t["full_row_bound_ms"] = full
+            if name == "f6_pre":
+                times = t
+            else:
+                times["f12"] = {k: t[k] for k in ("kernel_ms", "kernel_cold_ms", "call_ms",
+                                                  "plain_ms", "bound_ms", "full_row_bound_ms")}
         del kb, pb, rows
     return {"max_abs_err": worst, **times}
 
@@ -556,7 +722,7 @@ def phase_slice(n_frames=120):
         f"ply_bytes={ply_bytes} map_rms_mm={rms_mm:.3f} map_median_mm={med_mm:.3f} "
         f"launches={json.dumps(launches)} k2_mean_lanes={lanes:.1f} peak_mem_bytes={peak} "
         f"allocator={vol.alloc.kind}")
-    if min(launches.values()) <= 0:
+    if min(launches["bilateral"], launches["tsdf_integrate"]) <= 0:   # the slice's kernels
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     if not (len(verts) > 0 and len(v2) == len(verts) and len(f2) == len(faces)):
         raise AssertionError("empty mesh or PLY round trip failed")
@@ -642,73 +808,56 @@ def _tracked_config(small: bool):
                           tracking=TrackingConfig(blur_threshold=3.0))
 
 
-def run_tracked(config, packed, device, draw_fn=None):
-    """The tracked main path, driven as ReconstructionPipeline drives it
-    with pipelined_tracking=False: the first frame through
-    preprocess_bundle, every later frame through frame_step_tracked2 and
-    GCSLAM.update_frame; the loop keeps the current keyframe's
-    refined (depth, weight); final_ba at the end. `draw_fn(cfg, n)`, when
-    given, makes every RANSAC draw, GCSLAM's and the per-frame step's
-    (see GCSLAM). Returns (slam, stage seconds); "decisions" is
-    update_frame on frames that stayed local frames, "promote_ba"
-    update_frame on promotions, plus final_ba."""
-    from texturefusion_torch.core import camera as cam
-    from texturefusion_torch.models.reconstruction import frame_step_tracked2
-    from texturefusion_torch.ops import preprocess
-    from texturefusion_torch.slam.gcslam import GCSLAM
+def _frame_draws(draw_fn, tcfg):
+    """ReconstructionPipeline's per-frame draws from draw_fn (vs keyframe,
+    vs previous frame), or None for the seeded generators."""
+    if draw_fn is None:
+        return None
     from texturefusion_torch.slam.matching import lite_config
-    intr = cam.Intrinsics.from_config(config.camera)
-    tcfg, scale = config.tracking, config.camera.depth_scale
-    slam = GCSLAM(config, device=device, draw_fn=draw_fn)
-    stages = {"upload": 0.0, "step": 0.0, "decisions": 0.0, "promote_ba": 0.0}
-    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    return lambda i: tuple(draw_fn(c, None) for c in (tcfg, lite_config(tcfg)))
 
-    def timed(name, fn):
-        t0 = time.perf_counter()
-        out = fn()
-        sync()
-        stages[name] += time.perf_counter() - t0
-        return out
 
-    kf_state, kp_prev = {}, None
+def _pipeline(config, device, draw_fn=None, fuse=True):
+    """A ReconstructionPipeline whose RANSAC draws all come from draw_fn
+    (when given); with fuse=False its fusion cycles do nothing, which
+    leaves the pipeline's tracking half."""
+    from texturefusion_torch.fusion.pipeline import ReconstructionPipeline
+
+    class TrackingOnly(ReconstructionPipeline):
+        def fusion_cycle(self, finished_slot):
+            pass
+
+    cls = ReconstructionPipeline if fuse else TrackingOnly
+    return cls(config, device=device, draw_fn=draw_fn,
+               frame_draws=_frame_draws(draw_fn, config.tracking))
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_tracked(config, packed, device, draw_fn=None):
+    """The tracked main path: ReconstructionPipeline.process_frame with its
+    fusion cycles turned off (the first frame through preprocess_bundle,
+    every later one through frame_step_tracked2 and GCSLAM.update_frame,
+    the current keyframe's refined depth carried along), then final_ba.
+    `draw_fn(cfg, n)`, when given, makes every RANSAC draw, GCSLAM's and
+    the per-frame step's (see GCSLAM). Returns (slam, stage seconds from
+    the STOPWATCH): "step" is the frame step up to its one host read,
+    "decisions" update_frame on frames that stayed local frames,
+    "promote_ba" update_frame on promotions, plus final_ba."""
+    from texturefusion_torch.utils.stopwatch import STOPWATCH
+    pipe = _pipeline(config, device, draw_fn, fuse=False)
+    STOPWATCH.reset()
     for i, frame in enumerate(packed):
-        fr = timed("upload", lambda: torch.as_tensor(frame).to(device))
-        last = slam.last_keyframe
-        kw = {}
-        fused = None
-        if last is None:
-            bundle = timed("step", lambda: preprocess.preprocess_bundle(
-                fr, None, intr, depth_scale=scale))
-            blurred = lambda b=bundle[4]: float(b) < tcfg.blur_threshold  # noqa: E731
-        else:
-            kp_ref = slam.frames[last.frame_index].keypoints
-            kpp = kp_prev if kp_prev is not None else kp_ref
-            draws = None
-            if draw_fn is not None:
-                draws = tuple(draw_fn(c, None).to(device) for c in (tcfg, lite_config(tcfg)))
-
-            def step():
-                out = frame_step_tracked2(fr, None, kp_ref, kpp, *kf_state[last.slot],
-                                          slam.base_seed, i, intr, tcfg, scale, draws=draws)
-                return out, out[4].cpu().numpy()
-            (bundle, kp, res, res_ff, _, fd, fw), s2 = timed("step", step)
-            kp_prev = kp
-            fused = (fd, fw)
-            blurred = bool(s2[42] < tcfg.blur_threshold)
-            kw = dict(kp=kp, res=res, res_kf_slot=last.slot, stats=s2[:21], res_ff=res_ff,
-                      stats_ff=s2[21:42])
-        n_kf = len(slam.keyframes)
-        t0 = time.perf_counter()
-        f = slam.update_frame(bundle[3], bundle[0], float(i), blurred=blurred, **kw)
-        sync()
-        stages["promote_ba" if len(slam.keyframes) > n_kf and n_kf else "decisions"] += (
-            time.perf_counter() - t0)
-        if f.is_keyframe:
-            kf_state[f.keyframe_slot] = (bundle[0], (bundle[0] > 0).to(torch.float32))
-        elif f.tracking_success and fused is not None and f.keyframe_slot == last.slot:
-            kf_state[last.slot] = fused
-    timed("promote_ba", slam.final_ba)
-    return slam, stages
+        pipe.process_frame(frame, timestamp=float(i))
+    with STOPWATCH.time("final_ba"):
+        pipe.slam.final_ba()
+        _sync(device)
+    t = STOPWATCH.totals
+    return pipe.slam, {"upload": t["upload"], "step": t["preprocess"], "decisions": t["tracking"],
+                       "promote_ba": t["promotion"] + t["final_ba"]}
 
 
 def _tracking_metrics(slam, poses):
@@ -821,27 +970,244 @@ def phase_profile_tracked(frames, first=60, n=20):
     log(f"[profile-tracked] {n} frames wall={wall:.4f} s " + _device_time(prof, wall, 12, n))
 
 
+def _pipeline_config(small=False, async_fusion=False, **tsdf):
+    """[tracked]'s camera and blur gate, [slice]'s TSDF sizes, the default
+    BAConfig (dense BA: this loop's ~30 keyframes stay below
+    schur_min_keyframes) and the fusion thread on or off; `small`: the
+    tiny config."""
+    import dataclasses
+
+    from texturefusion_torch.config import ParallelConfig
+    base = _tracked_config(small)
+    if not small:
+        base = base.replace(tsdf=_slice_config(small=False).tsdf)
+    return base.replace(tsdf=dataclasses.replace(base.tsdf, **tsdf),
+                        parallel=ParallelConfig(async_fusion=async_fusion))
+
+
+def run_pipeline(config, packed, device, draw_fn=None, on_frame=None):
+    """The pipeline's main path: ReconstructionPipeline.process_frame on
+    each packed frame (with its host copy), the fusion thread joined, then
+    finish(). Returns (pipe, loop seconds, finish seconds); both clocks end
+    in a synchronize."""
+    pipe = _pipeline(config, device, draw_fn)
+    t0 = time.perf_counter()
+    for i, frame in enumerate(packed):
+        pipe.process_frame(frame, timestamp=float(i), host_packed=frame)
+        if on_frame is not None:
+            on_frame(pipe)
+    pipe._drain_fusion()
+    _sync(device)
+    loop = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pipe.finish()
+    _sync(device)
+    return pipe, loop, time.perf_counter() - t0
+
+
+def _map_error_mm(pipe, scene, gt):
+    """bench.py's map error: the mesh's vertices, moved into the
+    ground-truth frame by the trajectory's Umeyama alignment, against the
+    analytic scene (RMS and median |sdf|, mm)."""
+    from texturefusion_torch.io import tum
+    verts = pipe.mesher.full_mesh()[0]
+    rot, t = tum.align_umeyama(pipe.trajectory(), gt)
+    err = scene.sdf(torch.as_tensor((verts @ rot.T + t).astype(np.float32),
+                                    device=pipe.device)).abs().cpu().numpy().astype(np.float64)
+    return float(np.sqrt(np.mean(err ** 2)) * 1e3), float(np.median(err) * 1e3), len(verts)
+
+
+def _pipeline_report(name, pipe, loop, fin, scene, poses, launches, n_frames):
+    """Print one pipeline run's numbers, check its exports, apply the map
+    and tracking gates. Returns its metrics."""
+    from texturefusion_torch.io import ply
+    from texturefusion_torch.utils.stopwatch import STOPWATCH
+    m, traj = _tracking_metrics(pipe.slam, poses)
+    rms, med, n_raw = _map_error_mm(pipe, scene, np.stack(poses))
+    with tempfile.TemporaryDirectory() as tmp:
+        n_weld = pipe.export_mesh(os.path.join(tmp, "mesh.ply"))
+        v2 = ply.load_ply(os.path.join(tmp, "mesh.ply"))[0]
+        pipe.save_trajectory(os.path.join(tmp, "trajectory.txt"))
+        lines = open(os.path.join(tmp, "trajectory.txt")).read().strip().splitlines()
+    st = pipe.stats
+    m.update(map_rms_mm=rms, map_median_mm=med, verts=n_raw, verts_welded=n_weld,
+             reintegrations=st["reintegrations"], fps=n_frames / loop, finish_s=fin,
+             active=pipe.volume.n_active(), frozen=len(pipe.mesher.frozen))
+    stages = {k: round(v, 4) for k, v in sorted(STOPWATCH.totals.items())}
+    log(f"[{name}] {n_frames} frames in {loop:.3f} s = {n_frames / loop:.3f} frames/s, "
+        f"finish {fin:.3f} s (clocks.sm,power.draw after: "
+        f"{nvidia_smi('clocks.sm,power.draw')}); stage seconds {json.dumps(stages)} "
+        f"counts {json.dumps(dict(STOPWATCH.counts))}")
+    log(f"[{name}] ate_mm={m['ate_mm']:.3f} keyframes={m['keyframes']} edges={m['edges']} "
+        f"loop_edges={m['loop_edges']} origins={m['origins']} tracked={m['tracked']} "
+        f"reintegrations={st['reintegrations']} (reuse {st['reintegrations_reuse']}, full "
+        f"{st['reintegrations_full']}) map_rms_mm={rms:.3f} map_median_mm={med:.3f} "
+        f"active_chunks={m['active']} frozen_chunks={m['frozen']} verts={n_raw} "
+        f"verts_welded={n_weld} ply_verts={len(v2)} trajectory_lines={len(lines)} "
+        f"launches={json.dumps(launches)} peak_mem_bytes={torch.cuda.max_memory_allocated()}")
+    if not (np.isfinite(traj).all() and len(lines) == n_frames
+            and all(len(ln.split()) == 8 for ln in lines) and len(v2) == n_weld > 0):
+        raise AssertionError(f"[{name}] trajectory or PLY export failed")
+    if not (m["ate_mm"] <= ATE_MM and rms <= MAP_RMS_MM and med < MAP_MEDIAN_MM):
+        raise AssertionError(f"[{name}] gates failed: ATE {m['ate_mm']:.3f} mm, map RMS "
+                             f"{rms:.3f} mm, median {med:.3f} mm")
+    if m["loop_edges"] < 1 or st["reintegrations"] < 1:
+        raise AssertionError(f"[{name}] no loop-closure edge or no reintegration")
+    if not (launches["bilateral"] == n_frames and launches["tsdf_integrate"] > 0
+            and launches["tsdf_integrate_frames"] > 0):
+        raise AssertionError(f"[{name}] a kernel of the path did not run as it should: "
+                             f"{launches}")
+    return m
+
+
+def phase_pipeline(frames, async_fusion=False, max_resident=0, reference=None):
+    """ReconstructionPipeline on [tracked]'s hardened loop (120 VGA
+    frames), after a 10-frame warm-up through a throwaway pipeline. With
+    max_resident > 0 the map streams: far chunks (3 m) and those over the
+    budget go to the host."""
+    from texturefusion_torch.ops import cuda_kernels
+    from texturefusion_torch.utils.stopwatch import STOPWATCH
+    _, poses, packed = frames
+    name = ("pipeline-stream" if max_resident else
+            "pipeline-async" if async_fusion else "pipeline")
+    kw = dict(max_resident_chunks=max_resident, streaming_radius=3.0) if max_resident else {}
+    config = _pipeline_config(async_fusion=async_fusion, **kw)
+    if reference is None:
+        t0 = time.perf_counter()
+        run_pipeline(config, packed[:10], "cuda")[0].close()
+        log(f"[{name}] warm-up: 10 frames and finish through a throwaway pipeline in "
+            f"{time.perf_counter() - t0:.3f} s")
+    peak = [0]
+
+    def on_frame(pipe):
+        peak[0] = max(peak[0], pipe.volume.n_active())
+
+    STOPWATCH.reset()
+    cuda_kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    pipe, loop, fin = run_pipeline(config, packed, "cuda", on_frame=on_frame)
+    launches = dict(cuda_kernels.LAUNCHES)
+    scene = _bench_scene()
+    m = _pipeline_report(name, pipe, loop, fin, scene, poses, launches, len(packed))
+    pipe.close()
+    m["launches"] = launches
+    if reference is not None:
+        log(f"[{name}] beside [pipeline]: frames/s {m['fps']:.3f} vs {reference['fps']:.3f}, "
+            f"verts {m['verts']} vs {reference['verts']}, map_rms_mm {m['map_rms_mm']:.3f} vs "
+            f"{reference['map_rms_mm']:.3f}, ate_mm {m['ate_mm']:.3f} vs "
+            f"{reference['ate_mm']:.3f}")
+    if max_resident:
+        s = pipe.streamer
+        budget = max_resident + config.tsdf.max_update_chunks
+        log(f"[{name}] max_resident_chunks={max_resident} offloads={s.offloaded} "
+            f"restores={s.restored} cold={s.n_cold()} peak_resident={peak[0]} (at most "
+            f"{budget}) frozen_meshes={len(pipe.mesher.frozen)}")
+        if not (peak[0] <= budget and s.offloaded > 0):
+            raise AssertionError(f"[{name}] residency {peak[0]} over {budget} or no offload")
+        if abs(m["verts"] - reference["verts"]) > 0.05 * reference["verts"]:
+            raise AssertionError(f"[{name}] {m['verts']} vertices, [pipeline] "
+                                 f"{reference['verts']}: more than 5% apart")
+    return m
+
+
+def _bench_scene():
+    from texturefusion_torch.io import synthetic
+    return synthetic.BoxRoomScene(room_min=(-2.6, -1.5, -2.6), room_max=(2.6, 1.5, 2.6))
+
+
+def phase_profile_pipeline(frames, first=60, n=20):
+    """torch.profiler over n frames of a fresh pipeline: device busy share
+    and the device ops that take most of the time. No gate."""
+    from torch.profiler import ProfilerActivity, profile
+    _, _, packed = frames
+    config = _pipeline_config()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_pipeline(config, packed[first:first + n], "cuda")[0].close()
+        wall = time.perf_counter() - t0
+    log(f"[profile-pipeline] {n} frames + finish wall={wall:.4f} s "
+        + _device_time(prof, wall, 12, n))
+
+
+def phase_pipeline_small(n_frames=10):
+    """The pipeline on the tiny config (10 orbit frames: one keyframe and
+    its six local frames, integrated at finish), GPU against CPU
+    with the same RANSAC draws: keyframes within 1 and the same origins,
+    positions within 1 mm, chunk sets and vertex counts within 1%, and at
+    most 0.1% of the observed voxels of the common chunks with sdf more
+    than 1e-4 apart (as [small])."""
+    config = _pipeline_config(small=True)
+    poses, packed = _orbit_frames(config, n_frames)
+    runs = {dev: run_pipeline(config, packed, dev, cpu_draw_fn(config.tracking))[0]
+            for dev in ("cuda", "cpu")}
+    g, c = runs["cuda"], runs["cpu"]
+    kg, kc = len(g.slam.keyframes), len(c.slam.keyframes)
+    diff_mm = np.abs(g.trajectory()[:, :3, 3] - c.trajectory()[:, :3, 3]).max() * 1e3
+    g_of = {tuple(r): s for s, r in zip(g.volume.active_slots(),
+                                        g.volume.ids[g.volume.used].tolist())}
+    c_of = {tuple(r): s for s, r in zip(c.volume.active_slots(),
+                                        c.volume.ids[c.volume.used].tolist())}
+    common = sorted(set(g_of) & set(c_of))
+    n_diff = len(set(g_of) ^ set(c_of))
+    gi, ci = [g_of[k] for k in common], [c_of[k] for k in common]
+    seen = (g.volume.batch.weight[gi].cpu() > 0) | (c.volume.batch.weight[ci] > 0)
+    frac = float(((g.volume.batch.sdf[gi].cpu() - c.volume.batch.sdf[ci]).abs()
+                  > 1e-4)[seen].float().mean())
+    nv_g, nv_c = len(g.mesher.full_mesh()[0]), len(c.mesher.full_mesh()[0])
+    log(f"[pipeline-small] 160x120 x{n_frames} orbit frames: keyframes gpu={kg} cpu={kc} "
+        f"origins gpu={g.slam.origin_count} cpu={c.slam.origin_count} "
+        f"position_diff_mm={diff_mm:.4f} chunks gpu={len(g_of)} cpu={len(c_of)} "
+        f"differing={n_diff} observed_voxels={int(seen.sum())} sdf_frac_over_1e-4={frac:.2e} "
+        f"verts gpu={nv_g} cpu={nv_c} reintegrations gpu={g.stats['reintegrations']} "
+        f"cpu={c.stats['reintegrations']}")
+    if not (abs(kg - kc) <= SMALL_KF_DIFF and g.slam.origin_count == c.slam.origin_count
+            and diff_mm <= SMALL_TRAJ_MM and n_diff <= len(c_of) // 100 and frac <= 1e-3
+            and nv_c > 0 and abs(nv_g - nv_c) <= nv_c // 100):
+        raise AssertionError("GPU pipeline disagrees with the CPU pipeline on a small input")
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
     k1 = phase_k1()
     k2 = phase_k2()
+    k2f = phase_k2_frames()
     launches, k2_path, frames = phase_slice()
     phase_small()
     phase_profile(frames)
     tracked_launches, tracked_frames = phase_tracked()
     phase_tracked_small()
     phase_profile_tracked(tracked_frames)
+    runs = [phase_pipeline(tracked_frames)]
+    runs.append(phase_pipeline(tracked_frames, async_fusion=True, reference=runs[0]))
+    runs.append(phase_pipeline(tracked_frames, max_resident=runs[0]["active"] // 2,
+                               reference=runs[0]))
+    phase_pipeline_small()
+    phase_profile_pipeline(tracked_frames)
+
+    def total(key, *extra):
+        return sum(r["launches"][key] for r in runs) + sum(extra)
+
     kernels = [
         {"name": "bilateral", "route": "cuda",
          "source": "texturefusion_torch/csrc/bilateral.cu",
          "replaces": "texturefusion_tpu/ops/pallas_kernels.py:71",
-         "launches": launches["bilateral"] + tracked_launches["bilateral"], **k1},
+         "launches": total("bilateral", launches["bilateral"], tracked_launches["bilateral"]),
+         **k1},
         {"name": "tsdf_integrate", "route": "cuda",
          "source": "texturefusion_torch/csrc/tsdf_integrate.cu",
          "replaces": "examples/pallas_voxel_kernel.py:230",
-         "launches": launches["tsdf_integrate"], **k2, **k2_path},
+         "launches": total("tsdf_integrate", launches["tsdf_integrate"]), **k2, **k2_path},
+        {"name": "tsdf_integrate_frames", "route": "cuda",
+         "source": "texturefusion_torch/csrc/tsdf_integrate.cu",
+         "replaces": "examples/pallas_voxel_kernel.py:230",
+         "launches": total("tsdf_integrate_frames"), **k2f},
     ]
+    log(f"[launches] per phase: slice {json.dumps(launches)}, tracked "
+        f"{json.dumps(tracked_launches)}, pipeline / pipeline-async / pipeline-stream "
+        f"{json.dumps([r['launches'] for r in runs])}")
+    log(f"[total] chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s, build included")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -142,6 +142,80 @@ def test_tsdf_kernel_matches_plain(cuda_device, scene, n_active, sign, pre, with
         assert bool((kq[:n] < -1e10).any())              # partial / behind chunks flagged
 
 
+def _frames(seed, n_frames, wall, intr, device, moved=False):
+    """n_frames noisy depth planes of a wall and poses within ~1 cm /
+    ~0.5 deg of the identity; `moved` draws a second set of poses, 6 mm /
+    0.5 deg further (a drift correction)."""
+    from texturefusion_torch.core import se3
+    rng = np.random.default_rng(seed)
+    d = (wall + rng.normal(0, 0.01 * wall, (n_frames, intr.height, intr.width))).astype(np.float32)
+    d[rng.random(d.shape) < 0.05] = 0.0
+    xi = np.concatenate([rng.normal(0, 0.005, (n_frames, 3)),
+                         rng.normal(0, 0.004, (n_frames, 3))], axis=1).astype(np.float32)
+    poses = se3.se3_exp(torch.as_tensor(xi))
+    if moved:
+        poses = poses @ se3.se3_exp(torch.tensor([0.006, 0.0, 0.0, 0.0, 0.0087, 0.0]))
+    return torch.as_tensor(d, device=device), poses.contiguous().to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["wall", "wide"])
+@pytest.mark.parametrize("n_frames,pre", [(1, False), (6, False), (6, True), (12, True)])
+def test_frames_mode_matches_plain(cuda_device, scene, n_frames, pre):
+    """K2's F-frame mode against integrate_depths_batched_plain: F = 1 and
+    6 at +1; F = 12 is a drift reintegration, -1 x 6 at one set of poses
+    and +1 x 6 at poses moved 6 mm / 0.5 deg. The kernel takes the real
+    slots only; the plain version the padded list with its flags. Colour
+    rows stay as they were."""
+    args, n = _scene(3, pre, cuda_device, scene)
+    kb, origins, idx, active, _, _, _, _, intr, cfg = args
+    wall = SCENES[scene][0]
+    if n_frames == 12:
+        d, p_old = _frames(4, 6, wall, intr, cuda_device)
+        _, p_new = _frames(4, 6, wall, intr, cuda_device, moved=True)
+        depths, poses = torch.cat([d, d]), torch.cat([p_old, p_new])
+        signs = [-1.0] * 6 + [1.0] * 6
+    else:
+        depths, poses = _frames(4, n_frames, wall, intr, cuda_device)
+        signs = 1.0
+    pb = tsdf.ChunkBatch(*(a.clone() for a in kb))
+    colour = [a.clone() for a in (kb.color, kb.color_count)]
+    before = cuda_kernels.LAUNCHES["tsdf_integrate_frames"]
+    tsdf.integrate_depths_batched(kb, origins, idx[:n], None, depths, poses, signs, intr, cfg)
+    assert cuda_kernels.LAUNCHES["tsdf_integrate_frames"] == before + 1
+    tsdf.integrate_depths_batched_plain(pb, origins, idx, active, depths, poses, signs, intr,
+                                        cfg)
+    cap = cfg.capacity
+    for a, b, (rtol, atol) in zip(kb, pb, ROW_TOL):
+        torch.testing.assert_close(a[:cap], b[:cap], rtol=rtol, atol=atol)
+    assert torch.equal(kb.color, colour[0]) and torch.equal(kb.color_count, colour[1])
+    assert bool((kb.weight[idx[:n]] != pb.weight.new_tensor(0)).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["wall", "wide"])
+def test_reintegrate_kernel_matches_plain(cuda_device, scene):
+    """reintegrate_frame_fused: two K2 launches (-1 at the old pose, +1 at
+    the new) against the plain one-gather, two-update version."""
+    args, n = _scene(5, True, cuda_device, scene)
+    kb, origins, idx, active, d, rgb, q, _, intr, cfg = args
+    wall = SCENES[scene][0]
+    p_old = _frames(6, 1, wall, intr, cuda_device)[1][0]
+    p_new = _frames(6, 1, wall, intr, cuda_device, moved=True)[1][0]
+    pb = tsdf.ChunkBatch(*(a.clone() for a in kb))
+    before = cuda_kernels.LAUNCHES["tsdf_integrate"]
+    kq, ku = tsdf.reintegrate_frame_fused(kb, origins, idx[:n], None, d, rgb, q, p_old, p_new,
+                                          intr, cfg)
+    assert cuda_kernels.LAUNCHES["tsdf_integrate"] == before + 2
+    pq, pu = tsdf.reintegrate_frame_fused_plain(pb, origins, idx, active, d, rgb, q, p_old,
+                                                p_new, intr, cfg)
+    cap = cfg.capacity
+    for a, b, (rtol, atol) in zip(kb, pb, ROW_TOL):
+        torch.testing.assert_close(a[:cap], b[:cap], rtol=rtol, atol=atol)
+    torch.testing.assert_close(kq, pq[:n], rtol=1e-4, atol=1e-2)
+    assert torch.equal(ku, pu[:n]) and bool(ku.any())
+
+
 @pytest.mark.cuda
 def test_tsdf_kernel_reads_the_active_flags(cuda_device):
     """A padded slot list with its active flags: a lane whose flag is off,
@@ -219,6 +293,86 @@ def test_wrappers_refuse_cpu_and_wrong_types():
         call(quality=None)
     with pytest.raises(ValueError, match="shape"):
         call(active=active[:-1])                     # one flag a lane
+
+
+def test_frames_wrapper_refuses_cpu_and_wrong_frames():
+    (kb, origins, idx, active, d, _, _, pose, intr, cfg), _ = _scene(0, False, "cpu")
+    depths, poses = torch.stack([d, d]), torch.stack([pose, pose])
+
+    def call(depths=depths, poses=poses, signs=(1.0, 1.0), sdf=kb.sdf):
+        cuda_kernels.tsdf_integrate_frames_cuda(sdf, kb.weight, idx, active, origins, depths,
+                                                poses, signs, intr, cfg)
+
+    with pytest.raises(ValueError, match="CUDA"):
+        call()
+    with pytest.raises(ValueError, match="frames"):
+        call(signs=())
+    with pytest.raises(ValueError, match="frames"):
+        call(signs=(1.0,) * (cuda_kernels.MAX_FRAMES + 1))
+    with pytest.raises(ValueError, match="shape"):
+        call(signs=(1.0, 1.0, 1.0))                  # one pose and plane a sign
+    with pytest.raises(ValueError, match="shape"):
+        call(depths=d[None])
+    with pytest.raises(ValueError, match="float32"):
+        call(poses=poses.double())
+    with pytest.raises(ValueError, match="rows"):
+        call(sdf=kb.sdf[:, :256])
+    with pytest.raises(ValueError, match="signs"):
+        tsdf.integrate_depths_batched(kb, origins, idx, active, depths, poses, [1.0] * 3,
+                                      intr, cfg)
+
+
+def test_cpu_tensors_take_the_plain_lifecycle_passes():
+    """reintegrate_frame_fused and integrate_depths_batched on CPU rows
+    equal their plain versions and launch nothing."""
+    before = dict(cuda_kernels.LAUNCHES)
+    (kb, origins, idx, active, d, rgb, q, pose, intr, cfg), _ = _scene(1, True, "cpu")
+    pb = tsdf.ChunkBatch(*(a.clone() for a in kb))
+    moved = pose.clone()
+    moved[0, 3] = 0.01
+    got = tsdf.reintegrate_frame_fused(kb, origins, idx, active, d, rgb, q, pose, moved,
+                                       intr, cfg)
+    want = tsdf.reintegrate_frame_fused_plain(pb, origins, idx, active, d, rgb, q, pose, moved,
+                                              intr, cfg)
+    depths, poses = torch.stack([d, d]), torch.stack([pose, moved])
+    tsdf.integrate_depths_batched(kb, origins, idx, active, depths, poses, [-1.0, 1.0],
+                                  intr, cfg)
+    tsdf.integrate_depths_batched_plain(pb, origins, idx, active, depths, poses, [-1.0, 1.0],
+                                        intr, cfg)
+    for a, b in zip(list(kb) + list(got), list(pb) + list(want)):
+        assert torch.equal(a, b)
+    assert bool(got[1].any())
+    assert cuda_kernels.LAUNCHES == before
+
+
+def _c_struct_fields(name: str):
+    """(field, ctype, array length) of `struct name` in tsdf_integrate.cu."""
+    with open(os.path.join(os.path.dirname(cuda_kernels.__file__), "..", "csrc",
+                           "tsdf_integrate.cu")) as f:
+        src = f.read()
+    body = re.search(r"struct %s \{(.*?)\};" % name, src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    consts = dict((k, int(v)) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src))
+    fields = []
+    for decl in body.split(";"):
+        decl = decl.strip()
+        if decl:
+            ctype, names = decl.split(None, 1)
+            for nm in names.split(","):
+                m = re.fullmatch(r"(\w+)(?:\[(\w+)\])?", nm.strip())
+                n = m.group(2) or "0"
+                fields.append((m.group(1), ctype, int(consts.get(n, n))))
+    return fields
+
+
+def test_frame_signs_struct_matches_cuda_source():
+    ctypes_map = {"float": "c_float", "int": "c_int"}
+    want = []
+    for name, t in cuda_kernels.FrameSigns._fields_:
+        n = getattr(t, "_length_", 0)
+        want.append((name, (t._type_ if n else t).__name__, n))
+    assert [(n, ctypes_map[t], k) for n, t, k in _c_struct_fields("FrameSigns")] == want
+    assert want[1][2] == cuda_kernels.MAX_FRAMES
 
 
 def test_params_struct_matches_cuda_source():

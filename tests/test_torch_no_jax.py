@@ -1,7 +1,7 @@
 """The port runs without jax and without any module of the JAX package
-(the GT-pose slice and the tracked SLAM path, the latter through
-chip_smoke.run_tracked on CPU tensors), and chip_smoke.py refuses to run
-without a GPU.
+(the GT-pose slice, the tracked SLAM path through chip_smoke.run_tracked
+and the pipeline through chip_smoke.run_pipeline, on CPU tensors), and
+chip_smoke.py refuses to run without a GPU.
 
 Both checks run in fresh subprocesses, so the test session's own jax
 import cannot hide an import of jax by the port.
@@ -87,6 +87,29 @@ print("JAX_MODULES", bad)
 """
 
 
+PIPELINE = r"""
+import os, sys, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(2)
+import chip_smoke
+from texturefusion_torch.io import tum
+cfg = chip_smoke._pipeline_config(small=True, async_fusion=True)
+poses, packed = chip_smoke._orbit_frames(cfg, 16)   # promotions: cycles on the worker
+pipe, loop, fin = chip_smoke.run_pipeline(cfg, packed, "cpu")
+pipe.close()
+assert tum.ate_rmse(pipe.trajectory(), np.stack(poses)) < 0.02
+assert pipe.stats["keyframes"] >= 2, pipe.stats
+with tempfile.TemporaryDirectory() as tmp:
+    assert pipe.export_mesh(os.path.join(tmp, "m.ply")) > 100
+    pipe.save_trajectory(os.path.join(tmp, "t.txt"))
+    pipe.save_stats(tmp)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "texturefusion_tpu")))
+print("JAX_MODULES", bad)
+"""
+
+
 def _run(args, cwd, env_extra=None):
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
     env.pop("PYTHONSTARTUP", None)
@@ -103,6 +126,14 @@ def test_port_slice_never_imports_jax():
 
 def test_port_tracked_path_never_imports_jax():
     res = _run(["-c", TRACKED], ROOT)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "JAX_MODULES []" in res.stdout, res.stdout
+
+
+def test_port_pipeline_never_imports_jax():
+    """ReconstructionPipeline with the fusion thread, exports included,
+    through chip_smoke.run_pipeline on CPU tensors."""
+    res = _run(["-c", PIPELINE], ROOT)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "JAX_MODULES []" in res.stdout, res.stdout
 

@@ -154,6 +154,122 @@ def test_depth_only_update_takes_no_colour_planes(n_listed):
     np.testing.assert_array_equal(got[0][2], rows[2])
 
 
+def _frames(seed, n_frames, shift=0.0):
+    """n_frames noisy depth planes of the wall and poses within ~1 cm /
+    ~0.5 deg of the identity, numpy; `shift` moves every pose by that many
+    metres along x and 0.5 deg about y (a drift correction)."""
+    h, w = CONFIG.camera.height, CONFIG.camera.width
+    rng = np.random.default_rng(seed)
+    d = (2.0 + rng.normal(0, 0.02, (n_frames, h, w))).astype(np.float32)
+    d[rng.random(d.shape) < 0.05] = 0.0
+    xi = np.concatenate([rng.normal(0, 0.005, (n_frames, 3)),
+                         rng.normal(0, 0.004, (n_frames, 3))], axis=1).astype(np.float32)
+    poses = np.stack([np.asarray(jse3.se3_exp(jnp.asarray(x))) for x in xi])
+    if shift:
+        corr = np.asarray(jse3.se3_exp(jnp.asarray([shift, 0, 0, 0, 0.0087, 0], jnp.float32)))
+        poses = poses @ corr
+    return d, poses.astype(np.float32)
+
+
+def _jax_batch(rows):
+    return jtsdf.ChunkBatch(*(jnp.asarray(a) for a in rows))
+
+
+def _port_batch(rows):
+    return ttsdf.ChunkBatch(*(torch.as_tensor(a.copy()) for a in rows))
+
+
+def _jax_depths_batched(rows, origins, idx, active, d, poses, signs):
+    out = jtsdf.integrate_depths_batched(
+        _jax_batch(rows), jnp.asarray(origins), jnp.asarray(idx.astype(np.int32)),
+        jnp.asarray(active), jnp.asarray(d), jnp.asarray(poses),
+        jnp.asarray(signs, jnp.float32), jcam.Intrinsics.from_config(CONFIG.camera), CFG)
+    return [np.asarray(a) for a in out]
+
+
+def _port_depths_batched(rows, origins, idx, active, d, poses, signs):
+    batch = _port_batch(rows)
+    t = torch.as_tensor
+    ttsdf.integrate_depths_batched(batch, t(origins), t(idx), t(active), t(d), t(poses),
+                                   signs, tcam.Intrinsics.from_config(CONFIG.camera), CFG)
+    return [a.numpy() for a in batch]
+
+
+@pytest.mark.parametrize("n_frames,pre,sign", [(1, False, 1.0), (3, False, 1.0),
+                                               (3, True, 1.0), (3, True, -1.0)])
+def test_depths_batched_matches_jax(n_frames, pre, sign):
+    """Equal signs, where "any frame updated the voxel" and "the summed
+    weight is not 0" are the same test: the port's F-frame pass equals
+    JAX's integrate_depths_batched (sdf and weight 1e-5; -1 resets voxels
+    in both; colour untouched)."""
+    rows, origins, idx, active, *_ = _setup(pre, seed=3)
+    d, poses = _frames(4, n_frames)
+    signs = np.full(n_frames, sign, np.float32)
+    got = _port_depths_batched(rows, origins, idx, active, d, poses, sign)
+    want = _jax_depths_batched(rows, origins, idx, active, d, poses, signs)
+    cap = CFG.capacity
+    for g, w, name in zip(got[:2], want[:2], ROW_NAMES):
+        np.testing.assert_allclose(g[:cap], w[:cap], rtol=1e-5, atol=1e-5, err_msg=name)
+    np.testing.assert_array_equal(got[2], rows[2])
+    np.testing.assert_array_equal(got[3], rows[3])
+    assert (got[1][:cap] != rows[1][:cap]).sum() > 500
+
+
+def test_reintegrate_frame_fused_matches_jax():
+    """-1 at the old pose and +1 at the new on the same rows: rows,
+    quality and updated flags equal JAX's reintegrate_frame_fused."""
+    rows, origins, idx, active, d, rgb, quality, _ = _setup(True, seed=5)
+    _, (p_old,) = _frames(6, 1)
+    _, (p_new,) = _frames(6, 1, shift=0.006)
+    j = jnp.asarray
+    out, jq, ju = jtsdf.reintegrate_frame_fused(
+        _jax_batch(rows), j(origins), j(idx.astype(np.int32)), j(active), j(d), j(rgb),
+        j(quality), j(p_old), j(p_new), jcam.Intrinsics.from_config(CONFIG.camera), CFG)
+    batch = _port_batch(rows)
+    t = torch.as_tensor
+    tq, tu = ttsdf.reintegrate_frame_fused(
+        batch, t(origins), t(idx), t(active), t(d), t(rgb), t(quality), t(p_old), t(p_new),
+        tcam.Intrinsics.from_config(CONFIG.camera), CFG)
+    n_real = int(active.sum())
+    _compare(([a.numpy() for a in batch], tq.numpy(), tu.numpy()),
+             ([np.asarray(a) for a in out], np.asarray(jq), np.asarray(ju)), n_real, True)
+    assert tu.numpy()[:n_real].any()
+
+
+def test_mixed_signs_move_the_sdf_where_jax_leaves_it():
+    """Drift reintegration of one local frame: -1 at the old pose, +1 at a
+    pose corrected by 6 mm / 0.5 deg, on weights of 3-6 (no reset fires).
+    The port's one-pass F-frame update equals JAX's two sequential
+    integrate_depths_scan calls (1e-5). JAX's integrate_depths_batched
+    counts a voxel as touched only where the summed weight is not 0, so
+    every voxel that both poses update keeps its old sdf there (ROADMAP
+    Queue 3, fault 6); the port moves it."""
+    rows, origins, idx, active, *_ = _setup(True, seed=7)
+    rng = np.random.default_rng(8)
+    rows[1] = rng.integers(3, 7, rows[1].shape).astype(np.float32)
+    d, (p_old,) = _frames(9, 1)
+    _, (p_new,) = _frames(9, 1, shift=0.006)
+    depths, poses = np.concatenate([d, d]), np.stack([p_old, p_new])
+    ji = jcam.Intrinsics.from_config(CONFIG.camera)
+    j = jnp.asarray
+    seq = _jax_batch(rows)
+    for k, s in ((0, -1.0), (1, 1.0)):
+        seq = jtsdf.integrate_depths_scan(seq, j(origins), j(idx.astype(np.int32)), j(active),
+                                          j(depths[k:k + 1]), j(poses[k:k + 1]),
+                                          jnp.float32(s), ji, CFG)
+    seq = [np.asarray(a) for a in seq]
+    jb = _jax_depths_batched(rows, origins, idx, active, depths, poses,
+                             np.asarray([-1.0, 1.0], np.float32))
+    got = _port_depths_batched(rows, origins, idx, active, depths, poses, [-1.0, 1.0])
+    cap = CFG.capacity
+    for g, w, name in zip(got[:2], seq[:2], ROW_NAMES):
+        np.testing.assert_allclose(g[:cap], w[:cap], rtol=1e-5, atol=1e-5, err_msg=name)
+    both = (seq[1] == rows[1]) & (seq[0] != rows[0])   # weights cancel, sdf moved
+    assert both[:cap].sum() > 100
+    np.testing.assert_array_equal(jb[0][both], rows[0][both])
+    assert (np.abs(got[0][both] - rows[0][both]) > 1e-6).mean() > 0.9
+
+
 def _discovery_inputs(seed):
     rng = np.random.default_rng(seed)
     h, w = CONFIG.camera.height, CONFIG.camera.width

@@ -5,15 +5,18 @@ module paths (core/, ops/, fusion/, io/, models/, slam/, eval/) so that each
 counterpart is easy to find, and is held against it by the parity tests
 `tests/test_torch_*.py`.
 
-What runs so far: the ground-truth-pose slice of the main path (packed
-RGB-D frame → preprocess (clamp, 9×9 bilateral, normals, grazing
-refine, quality) → chunk discovery + slot allocation → TSDF voxel update
-→ incremental marching cubes → PLY), and the tracked SLAM path
-(models/reconstruction.frame_step_tracked2 → slam/gcslam.GCSLAM:
-features, two-view registration, loop closure, dense FastBA). Two
-hand-written CUDA kernels carry them on the GPU (csrc/bilateral.cu,
-csrc/tsdf_integrate.cu, built and bound by ops/cuda_kernels.py); every
-tensor on the CPU takes the plain PyTorch version of the same function.
+What runs so far: the main path but texturing, as
+fusion/pipeline.ReconstructionPipeline drives it: per frame, preprocess
+(clamp, 9×9 bilateral, normals, grazing refine, quality), features and
+registration (models/reconstruction.frame_step_tracked2) and the keyframe
+decisions, loop closure and dense FastBA (slam/gcslam.GCSLAM); per
+keyframe, a fusion cycle: drift reintegration, chunk discovery + slot
+allocation, the TSDF voxel update of the keyframe and of its local
+frames, incremental marching cubes, GC, streaming; then the PLY and the
+trajectory. Two hand-written CUDA kernels carry it on the GPU
+(csrc/bilateral.cu, csrc/tsdf_integrate.cu with its F-frame mode, built
+and bound by ops/cuda_kernels.py); every tensor on the CPU takes the
+plain PyTorch version of the same function.
 
 The package never imports jax, nor anything of the JAX package: it
 keeps its own copies of the configuration dataclasses (config.py) and of

@@ -18,6 +18,16 @@
 // whether any voxel updated. with_color = 0 is the depth-only variant.
 // The TPU kernel's near-chunk clamp is not carried: there is no window.
 //
+// A second entry point, the F-frame mode (tf_tsdf_integrate_frames_launch),
+// takes F depth-only frames, each with its pose and sign, and writes each
+// chunk's sdf and weight rows once: the voxel sums the frames' signed
+// weights and weighted distances in registers, counts as updated where any
+// frame updated it, and resets after the last frame. A keyframe's local
+// frames integrate in one launch (F up to 6), and drift reintegration of
+// them in one more (F = 12: -1 at the old poses, +1 at the new). F
+// sequential depth-only launches would instead reset a voxel between
+// frames and walk the rows F times.
+//
 // What bounds it on the H100: latency. Counted at full rows (read and
 // write sdf, weight, 3 colour floats and the count, 24 B a voxel, plus the
 // 6.1 MB of depth, rgb and quality at VGA), 1008 chunks move ~31 MB, 9.2 us
@@ -75,6 +85,15 @@ struct TsdfParams {
   int with_color;
   int n_rows;        // capacity + 1 (trash row included)
   float centroid[8]; // (k + 0.5) * voxel_resolution, rounded once from float64
+};
+
+constexpr int kMaxFrames = 64;             // frames of one F-frame launch
+
+// Per-frame signs of the F-frame mode; mirrored by FrameSigns in
+// ops/cuda_kernels.py.
+struct FrameSigns {
+  int n_frames;
+  float sign[kMaxFrames];
 };
 
 namespace {
@@ -270,7 +289,136 @@ tsdf_integrate_kernel(float* __restrict__ sdf, float* __restrict__ weight,
   }
 }
 
+// F-frame mode: depth-only frames [F, H, W] at poses [F, 4, 4] with one
+// sign each, into the sdf and weight rows of the listed chunks, in one
+// read-modify-write (texturefusion_torch/ops/tsdf.py
+// integrate_depths_batched_plain). Each frame adds a_f = w * sign_f and
+// a_f * dist_f where the voxel passes its band test; after the last frame
+// a voxel that any frame updated takes w + sum(a), (sdf * w + sum(a*dist)) /
+// (w + sum(a) + 1e-4), then the reset. Colour rows are not touched. The
+// block layout, the early row loads and the projection are K2's.
+__global__ void __launch_bounds__(kThreads)
+tsdf_integrate_frames_kernel(float* __restrict__ sdf, float* __restrict__ weight,
+                             const int64_t* __restrict__ idx,
+                             const uint8_t* __restrict__ active,   // may be null
+                             const float* __restrict__ origins,
+                             const float* __restrict__ depths,     // [F, H, W]
+                             const float* __restrict__ c2w_all,    // [F, 4, 4]
+                             const TsdfParams p, const FrameSigns fs) {
+  __shared__ float cent[8];
+  __shared__ float sgn[kMaxFrames];   // indexed by frame: a constant index of fs only
+
+  const int lane = blockIdx.x;
+  const int t = threadIdx.x;
+  const int64_t slot = idx[lane];
+  const bool live = (active == nullptr || active[lane]) && slot >= 0 && slot < p.n_rows;
+  if (!live) return;                             // block-uniform
+
+  const int64_t row4 = slot * (kVoxels / 4) + t;
+  const float4 s4 = reinterpret_cast<const float4*>(sdf)[row4];
+  const float4 w4 = reinterpret_cast<const float4*>(weight)[row4];
+  if (t == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) cent[i] = p.centroid[i];
+#pragma unroll
+    for (int i = 0; i < kMaxFrames; ++i) sgn[i] = fs.sign[i];
+  }
+  const int v0 = 4 * t;
+  const float ox = origins[slot * 3 + 0];
+  const float oy = origins[slot * 3 + 1];
+  const float oz = origins[slot * 3 + 2];
+  __syncthreads();
+  const float wy = oy + cent[(v0 >> 3) & 7];
+  const float wz = oz + cent[v0 >> 6];
+  float wx[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) wx[j] = ox + cent[(v0 + j) & 7];
+
+  float a[4] = {0.0f, 0.0f, 0.0f, 0.0f}, ad[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  bool touched[4] = {false, false, false, false};
+  const int64_t plane = (int64_t)p.width * p.height;
+  for (int f = 0; f < fs.n_frames; ++f) {
+    const float* c2w = c2w_all + 16 * f;
+    float w2c[12];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      w2c[i * 4 + 0] = c2w[0 * 4 + i];
+      w2c[i * 4 + 1] = c2w[1 * 4 + i];
+      w2c[i * 4 + 2] = c2w[2 * 4 + i];
+      w2c[i * 4 + 3] = -(c2w[0 * 4 + i] * c2w[3] + c2w[1 * 4 + i] * c2w[7] +
+                         c2w[2 * 4 + i] * c2w[11]);
+    }
+    const float w_in = p.integration_weight * sgn[f];
+    const float oz_cam = w2c[8] * ox + w2c[9] * oy + w2c[10] * oz + w2c[11];
+    const float trunc = fabsf(p.trunc_quad * oz_cam * oz_cam + p.trunc_linear * oz_cam +
+                              p.trunc_const) * p.trunc_scale;
+    const float* depth = depths + plane * f;
+    float z[4], d[4];
+    int pix[4];
+    bool in_img[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float xc = w2c[0] * wx[j] + w2c[1] * wy + w2c[2] * wz + w2c[3];
+      const float yc = w2c[4] * wx[j] + w2c[5] * wy + w2c[6] * wz + w2c[7];
+      z[j] = w2c[8] * wx[j] + w2c[9] * wy + w2c[10] * wz + w2c[11];
+      const float safe_z = fabsf(z[j]) > 1e-9f ? z[j] : 1e-9f;
+      const float ur = rintf(p.fx * xc / safe_z + p.cx);
+      const float vr = rintf(p.fy * yc / safe_z + p.cy);
+      in_img[j] = ur > 0.0f && ur < (float)(p.width - 1) && vr > 0.0f &&
+                  vr < (float)(p.height - 1) && z[j] > 0.0f;
+      pix[j] = in_img[j] ? (int)vr * p.width + (int)ur : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) d[j] = in_img[j] ? depth[pix[j]] : 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float dist = d[j] - z[j];
+      if (in_img[j] && d[j] > p.near_plane && d[j] < p.far_plane && dist > -0.03f &&
+          dist < trunc + p.res_diag) {
+        a[j] = a[j] + w_in;
+        ad[j] = ad[j] + w_in * dist;
+        touched[j] = true;
+      }
+    }
+  }
+
+  float s_old[4] = {s4.x, s4.y, s4.z, s4.w};
+  float w_old[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (touched[j]) {
+      float new_w = w_old[j] + a[j];
+      float new_sdf = (s_old[j] * w_old[j] + ad[j]) / (new_w + 1e-4f);
+      if (new_w <= p.min_weight) {
+        new_sdf = kResetSdf;
+        new_w = 0.0f;
+      }
+      s_old[j] = new_sdf;
+      w_old[j] = new_w;
+    }
+  }
+  if (touched[0] || touched[1] || touched[2] || touched[3]) {
+    reinterpret_cast<float4*>(sdf)[row4] = make_float4(s_old[0], s_old[1], s_old[2], s_old[3]);
+    reinterpret_cast<float4*>(weight)[row4] = make_float4(w_old[0], w_old[1], w_old[2], w_old[3]);
+  }
+}
+
 }  // namespace
+
+// F-frame mode: one block per lane of idx [n_lanes]; active may be null;
+// depths [n_frames, H, W], cam_to_worlds [n_frames, 4, 4], with
+// 1 <= n_frames <= kMaxFrames (the signs travel in `signs`).
+extern "C" int tf_tsdf_integrate_frames_launch(
+    float* sdf, float* weight, const int64_t* idx, const uint8_t* active, const float* origins,
+    const float* depths, const float* cam_to_worlds, const TsdfParams* params,
+    const FrameSigns* signs, int n_lanes, void* stream) {
+  if (n_lanes < 0 || signs->n_frames < 1 || signs->n_frames > kMaxFrames)
+    return (int)cudaErrorInvalidValue;
+  if (n_lanes == 0) return (int)cudaSuccess;
+  tsdf_integrate_frames_kernel<<<n_lanes, kThreads, 0, (cudaStream_t)stream>>>(
+      sdf, weight, idx, active, origins, depths, cam_to_worlds, *params, *signs);
+  return (int)cudaGetLastError();
+}
 
 // One block per lane of idx [n_lanes]; active [n_lanes] may be null.
 extern "C" int tf_tsdf_integrate_launch(

@@ -4,7 +4,9 @@ Port of texturefusion_tpu/fusion/mesher.py (ref:
 Structure/ChunkManager.cpp:232-264 RecomputeMeshes): only chunks that
 integration marked dirty are remeshed, into a mesh pool that stays on
 the volume's device; the host reads pool rows on demand (export).
-Counts are read back synchronously after each remesh.
+Counts are read back synchronously after each remesh. Chunks that a
+ChunkStreamer offloads keep their meshes on the host (`freeze`), so the
+export still holds them.
 """
 
 from __future__ import annotations
@@ -33,6 +35,10 @@ class IncrementalMesher:
         self.pool = mc.make_mesh_pool(cap, self.p_cap, self.t_cap, volume.device)
         self.vcount = np.zeros(cap + 1, np.int32)   # host mirrors
         self.tcount = np.zeros(cap + 1, np.int32)
+        # chunk id -> host mesh of an OFFLOADED chunk (streaming): its slot
+        # was recycled, but its surface still exports
+        self.frozen: Dict[Tuple[int, int, int], tuple] = {}
+        self.last_remeshed: set = set()
         self._host_cache: Dict[int, tuple] = {}
         self._cache_valid = False
         self._warned_overflow = False
@@ -69,6 +75,7 @@ class IncrementalMesher:
         dirty = sorted(vol.dirty_mesh)
         if max_chunks:
             dirty = dirty[:max_chunks]
+        self.last_remeshed = set(dirty)
         budget = vol.config.mesh.max_mesh_chunks
         for start in range(0, len(dirty), budget):
             slots = np.asarray(dirty[start:start + budget], np.int64)
@@ -111,6 +118,13 @@ class IncrementalMesher:
             self._cache_valid = True
         return self._host_cache
 
+    def freeze(self, slots) -> None:
+        """Keep the meshes of offloaded chunks under their chunk ids (the
+        streamer recycles their slots), then drop the slots' pool rows."""
+        for s, m in self._fetch_rows(np.atleast_1d(slots)).items():
+            self.frozen[tuple(self.volume.ids[s].tolist())] = m
+        self.drop(slots)
+
     def drop(self, slots) -> None:
         slots = np.atleast_1d(slots).astype(np.int64)
         if len(slots) == 0:
@@ -123,13 +137,17 @@ class IncrementalMesher:
         self._cache_valid = False
 
     def full_mesh(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-        """All chunk meshes concatenated in slot order:
+        """All chunk meshes concatenated, the resident ones in slot order,
+        then the frozen ones of offloaded chunks in chunk-id order (a
+        chunk restored since is exported from its new slot):
         (verts, faces, colors, normals)."""
         vs, fs, cs, ns = [], [], [], []
         base = 0
         meshes = self.meshes
-        for slot in sorted(meshes):
-            v, f, c, n = meshes[slot]
+        parts = [meshes[s] for s in sorted(meshes)] + [
+            self.frozen[cid] for cid in sorted(self.frozen)
+            if self.volume.slot_of.get(cid) is None]
+        for v, f, c, n in parts:
             vs.append(v)
             fs.append(f + base)
             cs.append(c)

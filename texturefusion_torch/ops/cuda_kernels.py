@@ -5,6 +5,9 @@ The two TPU kernels of the JAX package have Hopper counterparts here:
   K1  csrc/bilateral.cu        replaces ops/pallas_kernels.py bilateral_filter_pallas
   K2  csrc/tsdf_integrate.cu   replaces examples/pallas_voxel_kernel.py integrate_rows_pallas
 
+K2 has two entry points: one frame with colour or depth only, ±1
+(tsdf_integrate_cuda), and its F-frame mode, F depth-only frames with a
+sign each in one pass over the rows (tsdf_integrate_frames_cuda).
 Both are compiled on first use by nvcc into one shared library with a
 plain C interface (texturefusion_torch/_build/, named by a hash of the
 sources and flags so an edited source rebuilds) and bound with ctypes:
@@ -16,10 +19,10 @@ Each launch function returns cudaGetLastError() and the wrapper raises
 if it is not 0. The wrappers check device, dtype, shape and contiguity,
 allocate their outputs with torch.empty and never synchronise.
 
-`LAUNCHES` counts kernel launches per kernel; each wrapper adds one
-right after its launch and nowhere else, so a run can show that its main
-path went through the kernels. `LANES` sums the lanes K2 was launched
-over.
+`LAUNCHES` counts kernel launches per kernel (K2's F-frame mode under
+its own key); each wrapper adds one right after its launch and nowhere
+else, so a run can show that its main path went through the kernels.
+`LANES` sums the lanes each mode of K2 was launched over.
 """
 
 from __future__ import annotations
@@ -44,8 +47,10 @@ SOURCES = {"bilateral.cu": (), "tsdf_integrate.cu": ("-fmad=false",)}
 
 MAX_RADIUS = 8              # K1 is instantiated for radius 0..MAX_RADIUS
 
-LAUNCHES = {"bilateral": 0, "tsdf_integrate": 0}
-LANES = {"tsdf_integrate": 0}
+MAX_FRAMES = 64             # frames of one launch of K2's F-frame mode
+
+LAUNCHES = {"bilateral": 0, "tsdf_integrate": 0, "tsdf_integrate_frames": 0}
+LANES = {"tsdf_integrate": 0, "tsdf_integrate_frames": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -74,6 +79,12 @@ class TsdfParams(ctypes.Structure):
             "integration_weight", "min_weight", "color_saturation", "sign")] + [
         ("with_color", ctypes.c_int), ("n_rows", ctypes.c_int),
         ("centroid", ctypes.c_float * 8)]
+
+
+class FrameSigns(ctypes.Structure):
+    """Mirror of `FrameSigns` in csrc/tsdf_integrate.cu."""
+
+    _fields_ = [("n_frames", ctypes.c_int), ("sign", ctypes.c_float * MAX_FRAMES)]
 
 
 def _compile(srcs, path: str, verbose: bool) -> None:
@@ -125,6 +136,9 @@ def build(verbose: bool = False) -> ctypes.CDLL:
         lib.tf_bilateral_launch.argtypes = [p, p, p, i, i, i, f, p]
         lib.tf_tsdf_integrate_launch.restype = i
         lib.tf_tsdf_integrate_launch.argtypes = [p] * 13 + [ctypes.POINTER(TsdfParams), i, p]
+        lib.tf_tsdf_integrate_frames_launch.restype = i
+        lib.tf_tsdf_integrate_frames_launch.argtypes = [p] * 7 + [
+            ctypes.POINTER(TsdfParams), ctypes.POINTER(FrameSigns), i, p]
         _lib = lib
         return lib
 
@@ -216,6 +230,29 @@ def _tsdf_params(intr, cfg, sign: float, with_color: bool, n_rows: int) -> TsdfP
         centroid=(ctypes.c_float * 8)(*centroid.tolist()))
 
 
+def _aligned(**tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (float4 accesses)")
+
+
+def _require_rows(cfg, sdf, weight, idx, active, origins) -> Tuple[int, int]:
+    """K2's row arguments, both modes: sdf and weight [S+1, 512] f32
+    (16-byte aligned, checked after the device), idx [U] int64, active
+    [U] bool or None, origins [S+1, 3]. Returns (S+1, U)."""
+    n_rows, n_vox = sdf.shape
+    if n_vox != cfg.chunk_size ** 3 or n_vox != 512:
+        raise ValueError(f"rows must be [S+1, 512], got {tuple(sdf.shape)}")
+    u = idx.shape[0]
+    _require(sdf, "sdf", torch.float32)
+    _require(weight, "weight", torch.float32, (n_rows, n_vox))
+    _require(idx, "idx", torch.int64, (u,))
+    if active is not None:
+        _require(active, "active", torch.bool, (u,))
+    _require(origins, "origins", torch.float32, (n_rows, 3))
+    return n_rows, u
+
+
 def tsdf_integrate_cuda(sdf: torch.Tensor, weight: torch.Tensor,
                         color: torch.Tensor, ccnt: torch.Tensor,
                         idx: torch.Tensor, active: Optional[torch.Tensor],
@@ -230,18 +267,9 @@ def tsdf_integrate_cuda(sdf: torch.Tensor, weight: torch.Tensor,
     0..1, quality [H, W] (rgb and quality are not read, and may be None,
     when with_color is False), cam_to_world [4, 4]. One launch of one
     block per lane. Returns (quality [U] f32, updated [U] bool)."""
-    n_rows, n_vox = sdf.shape
-    if n_vox != cfg.chunk_size ** 3 or n_vox != 512:
-        raise ValueError(f"rows must be [S+1, 512], got {tuple(sdf.shape)}")
-    u = idx.shape[0]
-    _require(sdf, "sdf", torch.float32)
-    _require(weight, "weight", torch.float32, (n_rows, n_vox))
-    _require(color, "color", torch.float32, (n_rows, n_vox, 3))
-    _require(ccnt, "color_count", torch.float32, (n_rows, n_vox))
-    _require(idx, "idx", torch.int64, (u,))
-    if active is not None:
-        _require(active, "active", torch.bool, (u,))
-    _require(origins, "origins", torch.float32, (n_rows, 3))
+    n_rows, u = _require_rows(cfg, sdf, weight, idx, active, origins)
+    _require(color, "color", torch.float32, (n_rows, 512, 3))
+    _require(ccnt, "color_count", torch.float32, (n_rows, 512))
     _require(depth, "depth", torch.float32, (intr.height, intr.width))
     if with_color:
         _require(rgb, "rgb", torch.float32, (intr.height, intr.width, 3))
@@ -250,9 +278,7 @@ def tsdf_integrate_cuda(sdf: torch.Tensor, weight: torch.Tensor,
     _on_card(sdf=sdf, weight=weight, color=color, color_count=ccnt, idx=idx, active=active,
              origins=origins, depth=depth, rgb=rgb if with_color else None,
              quality=quality if with_color else None, cam_to_world=cam_to_world)
-    for name, t in (("sdf", sdf), ("weight", weight), ("color", color), ("color_count", ccnt)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (float4 accesses)")
+    _aligned(sdf=sdf, weight=weight, color=color, color_count=ccnt)
     lib = build()
     dev = sdf.device
     params = _host_const(("tsdf", intr, cfg, float(sign), bool(with_color), n_rows),
@@ -270,3 +296,36 @@ def tsdf_integrate_cuda(sdf: torch.Tensor, weight: torch.Tensor,
     LAUNCHES["tsdf_integrate"] += 1
     LANES["tsdf_integrate"] += u
     return out_q, updated
+
+
+def tsdf_integrate_frames_cuda(sdf: torch.Tensor, weight: torch.Tensor,
+                               idx: torch.Tensor, active: Optional[torch.Tensor],
+                               origins: torch.Tensor, depths: torch.Tensor,
+                               cam_to_worlds: torch.Tensor, signs, intr, cfg) -> None:
+    """K2's F-frame mode: depth-only frames depths [F, H, W] at
+    cam_to_worlds [F, 4, 4], with `signs` F host floats (1 <= F <=
+    MAX_FRAMES), into rows sdf/weight [S+1, 512] IN PLACE at the slots
+    `idx` [U] (int64; `active` [U] bool or None as in tsdf_integrate_cuda).
+    One launch of one block per lane; colour rows are not touched."""
+    n_rows, u = _require_rows(cfg, sdf, weight, idx, active, origins)
+    n_frames = len(signs)
+    if not 1 <= n_frames <= MAX_FRAMES:
+        raise ValueError(f"the F-frame mode takes 1..{MAX_FRAMES} frames, got {n_frames}")
+    _require(depths, "depths", torch.float32, (n_frames, intr.height, intr.width))
+    _require(cam_to_worlds, "cam_to_worlds", torch.float32, (n_frames, 4, 4))
+    _on_card(sdf=sdf, weight=weight, idx=idx, active=active, origins=origins, depths=depths,
+             cam_to_worlds=cam_to_worlds)
+    _aligned(sdf=sdf, weight=weight)
+    lib = build()
+    params = _host_const(("tsdf", intr, cfg, 1.0, False, n_rows),
+                         lambda: _tsdf_params(intr, cfg, 1.0, False, n_rows))
+    fs = _host_const(("signs", tuple(signs)), lambda: FrameSigns(
+        n_frames=n_frames, sign=(ctypes.c_float * MAX_FRAMES)(*signs)))
+    rc = lib.tf_tsdf_integrate_frames_launch(
+        sdf.data_ptr(), weight.data_ptr(), idx.data_ptr(),
+        None if active is None else active.data_ptr(), origins.data_ptr(), depths.data_ptr(),
+        cam_to_worlds.data_ptr(), ctypes.byref(params), ctypes.byref(fs), u,
+        torch.cuda.current_stream(sdf.device).cuda_stream)
+    _check(rc, "tsdf_integrate_frames")
+    LAUNCHES["tsdf_integrate_frames"] += 1
+    LANES["tsdf_integrate_frames"] += u

@@ -9,8 +9,11 @@ of kernel K2 (csrc/tsdf_integrate.cu). `integrate_frame_fused` updates
 the full slot rows IN PLACE: on CUDA tensors through one launch of K2,
 which takes the frame's planes, the origins table and the pose as they
 are; on CPU tensors through `integrate_frame_fused_plain` (gather →
-integrate_chunks → index_copy_). Semantics kept from the reference's AVX
-path:
+integrate_chunks → index_copy_). `reintegrate_frame_fused` (drift
+reintegration: -1 at the old pose, +1 at the new) is two K2 launches on
+the same rows, and `integrate_depths_batched` (a keyframe's depth-only
+local frames) one launch of K2's F-frame mode; each has a `_plain`
+version. Semantics kept from the reference's AVX path:
 
   * truncation once per chunk, at the chunk origin's camera depth
   * strict-interior pixel validity (0 < u < W-1, 0 < v < H-1), the pixel
@@ -78,6 +81,33 @@ def pack_image(depth: torch.Tensor, rgb: torch.Tensor,
                      dim=-1).contiguous()
 
 
+def _voxel_world(origins: torch.Tensor, cfg: TSDFConfig) -> torch.Tensor:
+    """World centroids [U, V, 3] of the voxels of chunks at `origins` [U, 3]."""
+    cent = torch.as_tensor(geometry.voxel_centroids(cfg.chunk_size, cfg.voxel_resolution),
+                           device=origins.device)
+    return origins[:, None, :] + cent[None, :, :]
+
+
+def _project_voxels(world: torch.Tensor, origins: torch.Tensor, cam_to_world: torch.Tensor,
+                    intr: cam.Intrinsics, cfg: TSDFConfig):
+    """One frame's view of the voxels: camera depth z [U, V], the
+    strict-interior mask [U, V], the flat pixel index (0 outside) [U, V]
+    and the truncation at each chunk origin's camera depth [U]."""
+    u_chunks, v_voxels = world.shape[:2]
+    world_to_cam = se3.inverse(cam_to_world)
+    pts = se3.transform_points(world_to_cam, world.reshape(-1, 3)
+                               ).reshape(u_chunks, v_voxels, 3)
+    z_vox = pts[..., 2]
+    uv, _ = cam.project(intr, pts)
+    ur = torch.round(uv[..., 0])
+    vr = torch.round(uv[..., 1])
+    in_img = ((ur > 0) & (ur < intr.width - 1) & (vr > 0)
+              & (vr < intr.height - 1) & (z_vox > 0))
+    flat = torch.where(in_img, vr * intr.width + ur, 0.0).long()
+    origin_cam = se3.transform_points(world_to_cam, origins[:, None, :])[:, 0, :]
+    return z_vox, in_img, flat, truncation_distance(origin_cam[..., 2], cfg)
+
+
 def integrate_chunks(batch: ChunkBatch, origins: torch.Tensor,
                      active: torch.Tensor, depth: torch.Tensor,
                      rgb: Optional[torch.Tensor], quality_map: Optional[torch.Tensor],
@@ -90,32 +120,18 @@ def integrate_chunks(batch: ChunkBatch, origins: torch.Tensor,
     unread, and may be None, when with_color is False), cam_to_world
     [4, 4], sign ±1. Returns (new batch, per-chunk quality [U], per-chunk
     updated flag [U])."""
-    u_chunks, v_voxels = batch.sdf.shape
+    u_chunks = batch.sdf.shape[0]
     dev = batch.sdf.device
     res_diag = float(np.sqrt(3.0)) * cfg.voxel_resolution
 
-    cent = torch.as_tensor(geometry.voxel_centroids(cfg.chunk_size,
-                                                    cfg.voxel_resolution), device=dev)
-    world = origins[:, None, :] + cent[None, :, :]                       # [U,V,3]
-    world_to_cam = se3.inverse(cam_to_world)
-    pts = se3.transform_points(world_to_cam, world.reshape(-1, 3)
-                               ).reshape(u_chunks, v_voxels, 3)
-    z_vox = pts[..., 2]
-    uv, _ = cam.project(intr, pts)
-    ur = torch.round(uv[..., 0])
-    vr = torch.round(uv[..., 1])
-    in_img = ((ur > 0) & (ur < intr.width - 1) & (vr > 0)
-              & (vr < intr.height - 1) & (z_vox > 0))
-    flat = torch.where(in_img, vr * intr.width + ur, 0.0).long()
-
+    world = _voxel_world(origins, cfg)
+    z_vox, in_img, flat, trunc = _project_voxels(world, origins, cam_to_world, intr, cfg)
     image = (pack_image(depth, rgb, quality_map) if with_color
              else depth[..., None]).reshape(-1, 5 if with_color else 1)
     g = image[flat]                                                      # [U,V,C]
     d = torch.where(in_img, g[..., 0], 0.0)
     surface_dist = d - z_vox
 
-    origin_cam = se3.transform_points(world_to_cam, origins[:, None, :])[:, 0, :]
-    trunc = truncation_distance(origin_cam[..., 2], cfg)                 # [U]
     depth_ok = (d > intr.near) & (d < intr.far)
     band = (surface_dist > -0.03) & (surface_dist < trunc[:, None] + res_diag)
     upd = in_img & depth_ok & band & active[:, None]
@@ -185,15 +201,142 @@ def integrate_frame_fused(batch: ChunkBatch, origins_full: torch.Tensor,
     may be None when with_color is False. Returns (per-chunk quality [U],
     updated [U]). CUDA rows launch kernel K2 once, and nothing else; CPU
     rows take integrate_frame_fused_plain."""
-    if batch.sdf.is_cuda:
+    if _check_device(batch, "integrate_frame_fused"):
         return cuda_kernels.tsdf_integrate_cuda(
             *batch, idx, active, origins_full, depth, rgb, quality_map, cam_to_world,
             sign, intr, cfg, with_color=with_color)
-    if batch.sdf.device.type != "cpu":
-        raise ValueError(f"integrate_frame_fused: unsupported device {batch.sdf.device}")
     return integrate_frame_fused_plain(batch, origins_full, idx, active, depth, rgb,
                                        quality_map, cam_to_world, sign, intr, cfg,
                                        with_color=with_color)
+
+
+def _check_device(batch: ChunkBatch, name: str) -> bool:
+    """True for CUDA rows; False for CPU rows; raises on any other device."""
+    if batch.sdf.is_cuda:
+        return True
+    if batch.sdf.device.type != "cpu":
+        raise ValueError(f"{name}: unsupported device {batch.sdf.device}")
+    return False
+
+
+def reintegrate_frame_fused_plain(batch: ChunkBatch, origins_full: torch.Tensor,
+                                  idx: torch.Tensor, active: Optional[torch.Tensor],
+                                  depth, rgb, quality_map, pose_old, pose_new,
+                                  intr: cam.Intrinsics, cfg: TSDFConfig,
+                                  with_color: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of reintegrate_frame_fused: one gather of the idx
+    rows, the -1 update at pose_old, the +1 update at pose_new, one
+    index_copy_ back. Returns the second update's (quality, updated)."""
+    if active is None:
+        active = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
+    origins = origins_full[idx]
+    sub, _, _ = integrate_chunks(batch.rows(idx), origins, active, depth, rgb, quality_map,
+                                 pose_old, -1.0, intr, cfg, with_color=with_color)
+    sub, quality, updated = integrate_chunks(sub, origins, active, depth, rgb, quality_map,
+                                             pose_new, 1.0, intr, cfg, with_color=with_color)
+    for full, part in zip(batch, sub):
+        full.index_copy_(0, idx, part)
+    return quality, updated
+
+
+def reintegrate_frame_fused(batch: ChunkBatch, origins_full: torch.Tensor,
+                            idx: torch.Tensor, active: Optional[torch.Tensor],
+                            depth: torch.Tensor, rgb: Optional[torch.Tensor],
+                            quality_map: Optional[torch.Tensor], pose_old: torch.Tensor,
+                            pose_new: torch.Tensor, intr: cam.Intrinsics, cfg: TSDFConfig,
+                            with_color: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """De-integrate at pose_old, then re-integrate at pose_new, on the
+    same rows IN PLACE (ref: ReIntegrateKeyframe MobileFusion.cpp:114-221
+    runs both passes back to back over the recorded chunk set). Returns
+    the re-integration's per-chunk (quality [U], updated [U]); the
+    de-integration's observations are retracted by the caller. CUDA rows
+    launch K2 twice on the same slots, which computes what one gather and
+    two sequential updates compute; CPU rows take the plain version."""
+    if _check_device(batch, "reintegrate_frame_fused"):
+        cuda_kernels.tsdf_integrate_cuda(*batch, idx, active, origins_full, depth, rgb,
+                                         quality_map, pose_old, -1.0, intr, cfg,
+                                         with_color=with_color)
+        return cuda_kernels.tsdf_integrate_cuda(*batch, idx, active, origins_full, depth, rgb,
+                                                quality_map, pose_new, 1.0, intr, cfg,
+                                                with_color=with_color)
+    return reintegrate_frame_fused_plain(batch, origins_full, idx, active, depth, rgb,
+                                         quality_map, pose_old, pose_new, intr, cfg,
+                                         with_color=with_color)
+
+
+def frame_signs(signs, n_frames: int) -> Tuple[float, ...]:
+    """A scalar sign, or one per frame, as a tuple of n_frames floats."""
+    if np.ndim(signs) == 0:
+        return (float(signs),) * n_frames
+    out = tuple(float(s) for s in np.asarray(signs, np.float64).reshape(-1))
+    if len(out) != n_frames:
+        raise ValueError(f"{len(out)} signs for {n_frames} frames")
+    return out
+
+
+def integrate_depths_batched_plain(batch: ChunkBatch, origins_full: torch.Tensor,
+                                   idx: torch.Tensor, active: Optional[torch.Tensor],
+                                   depths: torch.Tensor, cam_to_worlds: torch.Tensor,
+                                   signs, intr: cam.Intrinsics, cfg: TSDFConfig) -> None:
+    """Plain version of the F-frame mode of K2, IN PLACE on the idx rows'
+    sdf and weight. Per voxel, each frame f (in order) adds a_f = w·s_f
+    and a_f·dist_f where it updates (the band test of integrate_chunks);
+    then one read-modify-write: where ANY frame updated the voxel,
+    w' = w + Σa, sdf' = (sdf·w + Σa·dist) / (w' + 1e-4), and w' ≤
+    min_weight resets the voxel to (999, 0). Colour rows are untouched."""
+    if active is None:
+        active = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
+    n_frames = depths.shape[0]
+    signs = frame_signs(signs, n_frames)
+    res_diag = float(np.sqrt(3.0)) * cfg.voxel_resolution
+    origins = origins_full[idx]
+    world = _voxel_world(origins, cfg)
+    sdf, weight = batch.sdf[idx], batch.weight[idx]
+    a = torch.zeros_like(sdf)
+    ad = torch.zeros_like(sdf)
+    touched = torch.zeros(sdf.shape, dtype=torch.bool, device=sdf.device)
+    for f in range(n_frames):
+        z_vox, in_img, flat, trunc = _project_voxels(world, origins, cam_to_worlds[f],
+                                                     intr, cfg)
+        d = torch.where(in_img, depths[f].reshape(-1)[flat], 0.0)
+        surface_dist = d - z_vox
+        upd = (in_img & (d > intr.near) & (d < intr.far) & (surface_dist > -0.03)
+               & (surface_dist < trunc[:, None] + res_diag) & active[:, None])
+        a_f = torch.where(upd, cfg.integration_weight * signs[f], 0.0)
+        a = a + a_f
+        ad = ad + a_f * surface_dist
+        touched = touched | upd
+    new_w = weight + a
+    new_sdf = (sdf * weight + ad) / (new_w + 1e-4)
+    new_sdf = torch.where(touched, new_sdf, sdf)
+    new_w = torch.where(touched, new_w, weight)
+    dead = touched & (new_w <= cfg.min_weight)
+    batch.sdf.index_copy_(0, idx, torch.where(dead, RESET_SDF, new_sdf))
+    batch.weight.index_copy_(0, idx, torch.where(dead, 0.0, new_w))
+
+
+def integrate_depths_batched(batch: ChunkBatch, origins_full: torch.Tensor,
+                             idx: torch.Tensor, active: Optional[torch.Tensor],
+                             depths: torch.Tensor, cam_to_worlds: torch.Tensor,
+                             signs, intr: cam.Intrinsics, cfg: TSDFConfig) -> None:
+    """Depth-only integration of F frames (depths [F, H, W], cam_to_worlds
+    [F, 4, 4]) into the idx rows IN PLACE, in one pass over the rows:
+    the running average commutes, s = (s0·w0 + Σ a_f·d_f) / (w0 + Σ a_f),
+    so each voxel sums its frames' terms and is written once (ref:
+    MobileFusion.cpp:187-203 integrates a keyframe's local frames one by
+    one). `signs` is a scalar or one per frame (drift reintegration
+    stacks the old-pose frames at -1 and the new-pose frames at +1). A
+    voxel counts as updated where any frame updated it, so frames whose
+    weights cancel still move its sdf; the weight reset (w ≤ min_weight)
+    applies once, after all frames. CUDA rows launch the F-frame mode of
+    K2 once, and nothing else; CPU rows take the plain version."""
+    if _check_device(batch, "integrate_depths_batched"):
+        cuda_kernels.tsdf_integrate_frames_cuda(
+            batch.sdf, batch.weight, idx, active, origins_full, depths, cam_to_worlds,
+            frame_signs(signs, depths.shape[0]), intr, cfg)
+        return
+    integrate_depths_batched_plain(batch, origins_full, idx, active, depths, cam_to_worlds,
+                                   signs, intr, cfg)
 
 
 def candidate_chunk_coords(depth: torch.Tensor, cam_to_world: torch.Tensor,
