@@ -70,15 +70,25 @@ Phases (each prints one line of numbers; any failure exits non-zero):
                 the same gates, residency within the budget plus one
                 update's chunks, chunks offloaded, vertex count within 5%
                 of [pipeline]'s
- 14. pipeline-small - the pipeline on the tiny config (10 orbit frames),
-                GPU against CPU with the same draws
- 15. profile-pipeline - 20 pipeline frames under torch.profiler (no gate)
+ 14. pipeline-textured - TexturedPipeline, synchronous, on the same 120
+                frames with the default TextureConfig (13824² atlas, 96-px
+                patches, 16 labels, 12 ICM sweeps, 384 projections a cycle),
+                then export_textured: [pipeline]'s gates, ATE within 0.01 mm
+                and vertices within 0.1% of [pipeline]'s (texturing writes
+                no TSDF row), the atlas not full, at least half the
+                meshed chunks patched and not wrong, the OBJ/MTL/PNG
+                consistent; prints the texture stages, why the wrong chunks
+                are wrong, and the colour error against the scene's colour
+                (voxel, raw atlas and exported colours)
+ 15. pipeline-small - TexturedPipeline on the tiny config (10 orbit frames),
+                GPU against CPU with the same draws, geometry and texture
+ 16. profile-pipeline - 20 pipeline frames under torch.profiler (no gate)
 Phase 4 also checks reintegrate_frame_fused (two K2 launches) and K2's
 F-frame mode ([k2-frames]: F = 6 at +1, fresh and pre-integrated; F =
 12, -1 x 6 and +1 x 6 at poses moved 6 mm / 0.5 deg) against their plain
 versions, and times the F-frame mode alone.
 The line before the last is a JSON object with each kernel's launches
-over the phases that drive it (5, 8, 11-13), its error against the plain
+over the phases that drive it (5, 8, 11-14), its error against the plain
 version and its times, bound and share; the last line is
 {"ok": true, "device": {...}}.
 
@@ -103,6 +113,10 @@ K2_Q_TOL = (1e-4, 1e-2)
 MAP_MEDIAN_MM = 20.0      # below the 2 cm voxel (examples/demo_synthetic.py rule)
 MAP_RMS_MM = 32.0         # the frozen map gate of tests/test_bench_regression.py
 ATE_MM = 25.0             # the frozen ATE gate of tests/test_bench_regression.py
+TEX_ATE_MM = 0.01         # [pipeline-textured]: ATE and vertices beside [pipeline]'s
+TEX_VERTS_FRAC = 0.001
+# [pipeline-textured]: meshed chunks patched and not wrong
+TEX_PATCHED_FRAC = 0.5
 SMALL_KF_DIFF = 1         # [tracked-small]: keyframe counts GPU vs CPU
 SMALL_MIN_KF = 4          # [tracked-small]: keyframes each device must promote
 SMALL_TRAJ_MM = 1.0       # [tracked-small]: largest frame-position difference GPU vs CPU
@@ -218,10 +232,14 @@ def device_ops(fn) -> list:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):      # a trace that caught no device event at all is traced again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ops:
+            break
+    return ops
 
 
 def phase_device():
@@ -817,17 +835,17 @@ def _frame_draws(draw_fn, tcfg):
     return lambda i: tuple(draw_fn(c, None) for c in (tcfg, lite_config(tcfg)))
 
 
-def _pipeline(config, device, draw_fn=None, fuse=True):
-    """A ReconstructionPipeline whose RANSAC draws all come from draw_fn
-    (when given); with fuse=False its fusion cycles do nothing, which
-    leaves the pipeline's tracking half."""
-    from texturefusion_torch.fusion.pipeline import ReconstructionPipeline
+def _pipeline(config, device, draw_fn=None, fuse=True, textured=False):
+    """A ReconstructionPipeline (TexturedPipeline with `textured`) whose
+    RANSAC draws all come from draw_fn (when given); with fuse=False its
+    fusion cycles do nothing, which leaves the pipeline's tracking half."""
+    from texturefusion_torch.fusion.pipeline import ReconstructionPipeline, TexturedPipeline
 
     class TrackingOnly(ReconstructionPipeline):
         def fusion_cycle(self, finished_slot):
             pass
 
-    cls = ReconstructionPipeline if fuse else TrackingOnly
+    cls = TexturedPipeline if textured else ReconstructionPipeline if fuse else TrackingOnly
     return cls(config, device=device, draw_fn=draw_fn,
                frame_draws=_frame_draws(draw_fn, config.tracking))
 
@@ -985,12 +1003,12 @@ def _pipeline_config(small=False, async_fusion=False, **tsdf):
                         parallel=ParallelConfig(async_fusion=async_fusion))
 
 
-def run_pipeline(config, packed, device, draw_fn=None, on_frame=None):
-    """The pipeline's main path: ReconstructionPipeline.process_frame on
-    each packed frame (with its host copy), the fusion thread joined, then
-    finish(). Returns (pipe, loop seconds, finish seconds); both clocks end
-    in a synchronize."""
-    pipe = _pipeline(config, device, draw_fn)
+def run_pipeline(config, packed, device, draw_fn=None, on_frame=None, textured=False):
+    """The pipeline's main path: ReconstructionPipeline (TexturedPipeline
+    with `textured`) .process_frame on each packed frame (with its host
+    copy), the fusion thread joined, then finish(). Returns (pipe, loop
+    seconds, finish seconds); both clocks end in a synchronize."""
+    pipe = _pipeline(config, device, draw_fn, textured=textured)
     t0 = time.perf_counter()
     for i, frame in enumerate(packed):
         pipe.process_frame(frame, timestamp=float(i), host_packed=frame)
@@ -1060,21 +1078,24 @@ def _pipeline_report(name, pipe, loop, fin, scene, poses, launches, n_frames):
     return m
 
 
-def phase_pipeline(frames, async_fusion=False, max_resident=0, reference=None):
+def phase_pipeline(frames, async_fusion=False, max_resident=0, reference=None,
+                   textured=False):
     """ReconstructionPipeline on [tracked]'s hardened loop (120 VGA
     frames), after a 10-frame warm-up through a throwaway pipeline. With
     max_resident > 0 the map streams: far chunks (3 m) and those over the
-    budget go to the host."""
+    budget go to the host. With `textured`, TexturedPipeline and its
+    export (the warm-up also textures, to load the texture stage's
+    kernels and cuSOLVER)."""
     from texturefusion_torch.ops import cuda_kernels
     from texturefusion_torch.utils.stopwatch import STOPWATCH
     _, poses, packed = frames
-    name = ("pipeline-stream" if max_resident else
-            "pipeline-async" if async_fusion else "pipeline")
+    name = ("pipeline-stream" if max_resident else "pipeline-async" if async_fusion
+            else "pipeline-textured" if textured else "pipeline")
     kw = dict(max_resident_chunks=max_resident, streaming_radius=3.0) if max_resident else {}
     config = _pipeline_config(async_fusion=async_fusion, **kw)
-    if reference is None:
+    if reference is None or textured:
         t0 = time.perf_counter()
-        run_pipeline(config, packed[:10], "cuda")[0].close()
+        run_pipeline(config, packed[:10], "cuda", textured=textured)[0].close()
         log(f"[{name}] warm-up: 10 frames and finish through a throwaway pipeline in "
             f"{time.perf_counter() - t0:.3f} s")
     peak = [0]
@@ -1085,10 +1106,13 @@ def phase_pipeline(frames, async_fusion=False, max_resident=0, reference=None):
     STOPWATCH.reset()
     cuda_kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    pipe, loop, fin = run_pipeline(config, packed, "cuda", on_frame=on_frame)
+    pipe, loop, fin = run_pipeline(config, packed, "cuda", on_frame=on_frame,
+                                   textured=textured)
     launches = dict(cuda_kernels.LAUNCHES)
     scene = _bench_scene()
     m = _pipeline_report(name, pipe, loop, fin, scene, poses, launches, len(packed))
+    if textured:
+        _textured_report(name, pipe, scene, poses, m, reference)
     pipe.close()
     m["launches"] = launches
     if reference is not None:
@@ -1108,6 +1132,164 @@ def phase_pipeline(frames, async_fusion=False, max_resident=0, reference=None):
             raise AssertionError(f"[{name}] {m['verts']} vertices, [pipeline] "
                                  f"{reference['verts']}: more than 5% apart")
     return m
+
+
+def _textured_vertices(pipe, obj_path):
+    """The exported vertices, chunk by chunk in export order: positions,
+    voxel colours, raw atlas samples (before the bake: the corrected
+    sample less ChunkTexture.color_adjust), exported colours (the OBJ's v
+    records) and each vertex's keyframe label."""
+    tm, meshes = pipe.texture, pipe.mesher.meshes
+    cols = np.asarray([ln.split()[4:7] for ln in open(obj_path) if ln.startswith("v ")],
+                      np.float64)
+    pos, vox, raw, labels = [], [], [], []
+    for s in sorted(tm.chunk_tex):
+        tex = tm.chunk_tex[s]
+        if tex.atlas_uv is None or s not in meshes:
+            continue
+        v, _, c, _ = meshes[s]
+        k = min(len(v), len(tex.atlas_uv))
+        pos.append(v[:k])
+        vox.append(c[:k])
+        raw.append(tm._sample_atlas(tex.atlas_uv[:k]) - tex.color_adjust)
+        labels.append(np.full(k, tex.label))
+    return (np.concatenate(pos), np.concatenate(vox), np.concatenate(raw), cols,
+            np.concatenate(labels))
+
+
+def _texture_audit(pipe) -> dict:
+    """Why meshed chunks end up wrong. Counts the meshed chunks with an
+    observation, with a positive one left (integration gives a chunk that
+    some of its voxels leave the image -1e11, as the reference does, and
+    poisoning sets -1e11 too), the wrong ones, and those some integrated
+    keyframe saw whole (every voxel inside the image at the pose it was
+    integrated at). Then runs the texture cycle's wrong-mapping tests
+    (texture/patch.py) on every (chunk, keyframe) pair of a whole view,
+    with the keyframe's stored images and current pose: how many chunks
+    have a whole view that passes, and of the pairs that fail, how many
+    fail mostly by occlusion, depth or colour, and the share of their
+    occluded vertices whose depth taps touch a hole (depth 0)."""
+    from texturefusion_torch.core import camera as cam
+    from texturefusion_torch.core import se3
+    from texturefusion_torch.ops import tsdf
+    from texturefusion_torch.texture.patch import _bilinear_packed, _unpack, wrong_mapping_tests
+    tm, vol, intr, cfg, dev = pipe.texture, pipe.volume, pipe.intr, pipe.texture.cfg, pipe.device
+    meshed = np.asarray(sorted(pipe.mesher.meshes), np.int64)
+    q, mask = vol.obs_arrays()
+    out = {"meshed": len(meshed), "with_observation": int(mask[meshed].any(1).sum()),
+           "with_positive_observation": int(((q > 0) & mask)[meshed].any(1).sum()),
+           "wrong": sum(tm.chunk_tex[s].wrong for s in meshed if s in tm.chunk_tex)}
+    idx = torch.as_tensor(meshed, device=dev)
+    origins, pool = vol.origins[idx], pipe.mesher.pool
+    world = tsdf._voxel_world(origins, vol.cfg)
+    verts, vcol = pool.verts[idx], _unpack(pool.col_packed[idx]) / 255.0
+    valid = torch.arange(verts.shape[1], device=dev)[None] < pool.vcount[idx][:, None]
+    seen = torch.zeros(len(meshed), dtype=torch.bool, device=dev)
+    passes = torch.zeros_like(seen)
+    fails = {"occluded": 0, "depth": 0, "colour": 0, "no_vertex_in_view": 0}
+    occ_n = occ_hole = 0
+    for kf, st in sorted(pipe.kf_states.items()):
+        if st.integrated_pose is None or kf not in tm.kf_stack.present:
+            continue
+        pose = torch.as_tensor(st.integrated_pose, dtype=torch.float32, device=dev)
+        whole = tsdf._project_voxels(world, origins, pose, intr, vol.cfg)[1].all(1)
+        if not bool(whole.any()):
+            continue
+        w2c = se3.inverse(torch.as_tensor(tm.kf_stack.poses[kf], device=dev))
+        uv, z = cam.project(intr, verts @ w2c[:3, :3].T + w2c[:3, 3])
+        ok = valid & cam.in_image(intr, uv, margin=1.0) & (z > intr.near)
+        row = torch.full((len(meshed),), kf, device=dev)
+        tex, d, d_ok = _bilinear_packed(tm.kf_stack.rgb_packed, tm.kf_stack.depth, row, uv)
+        # > 0 where a tap is a hole: the sampler averages the map's non-zero taps
+        hole = _bilinear_packed(tm.kf_stack.rgb_packed, (tm.kf_stack.depth == 0).float(),
+                                row, uv)[1] > 0
+        tests = wrong_mapping_tests(tex, d, d_ok, z, vcol, intr, cfg) & ok    # [3, M, P]
+        n_ok = ok.sum(1)
+        wrong = (tests.any(0).sum(1) / torch.clamp(n_ok, min=1) > cfg.wrong_mapping_frac) \
+            | (n_ok == 0)
+        seen |= whole
+        passes |= whole & ~wrong
+        failing = whole & wrong
+        fails["no_vertex_in_view"] += int((failing & (n_ok == 0)).sum())
+        top = torch.argmax(tests.sum(2), 0)
+        for i, name in enumerate(("occluded", "depth", "colour")):
+            fails[name] += int((failing & (n_ok > 0) & (top == i)).sum())
+        occ = tests[0] & failing[:, None]
+        occ_n += int(occ.sum())
+        occ_hole += int((occ & hole).sum())
+    out.update(seen_whole=int(seen.sum()), seen_whole_and_passes=int(passes.sum()),
+               failing_whole_views_mostly=fails,
+               occluded_next_to_a_hole=round(occ_hole / max(occ_n, 1), 4))
+    return out
+
+
+def _textured_report(name, pipe, scene, poses, m, reference):
+    """[pipeline-textured]: the export, the texture stages, the colour
+    error, and the gates beside [pipeline] (`reference`)."""
+    from texturefusion_torch.io import png, tum
+    from texturefusion_torch.utils.stopwatch import STOPWATCH
+    tm = pipe.texture
+    meshed = set(pipe.mesher.meshes)
+    patched = {s for s in meshed if s in tm.atlas.patches}
+    wrong = {s for s in meshed if s in tm.chunk_tex and tm.chunk_tex[s].wrong}
+    good = patched - wrong
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        obj = pipe.export_textured(tmp)
+        export_s = time.perf_counter() - t0
+        files = {ext: os.path.join(tmp, f"model.{ext}") for ext in ("obj", "mtl", "png")}
+        sizes = {ext: os.path.getsize(p) for ext, p in files.items() if os.path.exists(p)}
+        lines = open(obj).read().splitlines()
+        n_v = sum(ln.startswith("v ") for ln in lines)
+        n_vt = sum(ln.startswith("vt ") for ln in lines)
+        faces = np.asarray([[int(x.split("/")[0]) for x in ln.split()[1:]]
+                            for ln in lines if ln.startswith("f ")], np.int64)
+        img = png.read_png(files["png"]) if "png" in sizes else None
+        pos, vox, raw, cols, labels = _textured_vertices(pipe, obj)
+    # colour error at the aligned vertex positions against the scene's
+    # colour (rendered unshaded), over every value of every vertex
+    rot, t = tum.align_umeyama(pipe.trajectory(), np.stack(poses))
+    truth = scene.color(torch.as_tensor((pos @ rot.T + t).astype(np.float32),
+                                        device=pipe.device)).cpu().numpy().astype(np.float64)
+    frame_of = np.asarray([k.frame_index for k in pipe.slam.keyframes])
+    lab_frame = frame_of[np.clip(labels, 0, len(frame_of) - 1)]
+    exposed = (lab_frame >= EXPOSURE_FRAMES[0]) & (lab_frame < EXPOSURE_FRAMES[1])
+    errors = {}
+    for what, c in (("voxel", vox), ("atlas_raw", raw), ("exported", cols)):
+        d = np.abs(c - truth) * 255.0
+        errors[what] = {"median": float(np.median(d)), "mean": float(d.mean()),
+                        "exposure_median": float(np.median(d[exposed])) if exposed.any() else None,
+                        "exposure_mean": float(d[exposed].mean()) if exposed.any() else None}
+    stages = {k: [round(v, 4), STOPWATCH.counts[k]] for k, v in sorted(STOPWATCH.totals.items())
+              if k.startswith("tex")}
+    log(f"[{name}] texture stages (seconds, calls) {json.dumps(stages)}; export_textured "
+        f"{export_s:.3f} s, files {json.dumps(sizes)}, v={n_v} vt={n_vt} f={len(faces)} "
+        f"png={None if img is None else list(img.shape)} used_rows={tm.atlas.used_rows()}")
+    log(f"[{name}] frames/s {m['fps']:.3f} vs [pipeline] {reference['fps']:.3f}, finish "
+        f"{m['finish_s']:.3f} s vs {reference['finish_s']:.3f} s, ate_mm {m['ate_mm']:.4f} vs "
+        f"{reference['ate_mm']:.4f}, verts {m['verts']} vs {reference['verts']}; meshed="
+        f"{len(meshed)} patched={len(patched)} ({len(patched) / max(len(meshed), 1):.3f}) "
+        f"wrong={len(wrong)} ({len(wrong) / max(len(meshed), 1):.3f}) patched_not_wrong="
+        f"{len(good)} ({len(good) / max(len(meshed), 1):.3f}) patches="
+        f"{len(tm.atlas.patches)} overflowed={tm.atlas.overflowed} kf_stack_rows="
+        f"{tm.kf_stack.cap} peak_mem_bytes={torch.cuda.max_memory_allocated()}")
+    log(f"[{name}] texture audit: {json.dumps(_texture_audit(pipe))}")
+    log(f"[{name}] colour error vs scene.color, uint8 levels, {len(pos)} vertices "
+        f"({int(exposed.sum())} labelled with a keyframe of frames {EXPOSURE_FRAMES[0]}-"
+        f"{EXPOSURE_FRAMES[1] - 1}): {json.dumps(errors)}")
+    m.update(texture_s=STOPWATCH.totals["texture"], texture_final_s=STOPWATCH.totals[
+        "texture_final"], export_s=export_s, colour_errors=errors)
+    if abs(m["ate_mm"] - reference["ate_mm"]) > TEX_ATE_MM or \
+            abs(m["verts"] - reference["verts"]) > TEX_VERTS_FRAC * reference["verts"]:
+        raise AssertionError(f"[{name}] the map or trajectory moved against [pipeline]")
+    if tm.atlas.overflowed or len(good) < TEX_PATCHED_FRAC * len(meshed):
+        raise AssertionError(f"[{name}] atlas overflowed or only {len(good)} of "
+                             f"{len(meshed)} meshed chunks patched and not wrong")
+    if not (set(sizes) == {"obj", "mtl", "png"} and n_v == n_vt == len(pos) > 0
+            and len(faces) > 0 and faces.min() >= 1 and faces.max() <= n_v
+            and np.isfinite(cols).all() and cols.min() >= 0.0 and cols.max() <= 1.0
+            and img is not None and img.shape == (tm.atlas.used_rows(), tm.atlas.size, 3)):
+        raise AssertionError(f"[{name}] textured export inconsistent")
 
 
 def _bench_scene():
@@ -1130,15 +1312,17 @@ def phase_profile_pipeline(frames, first=60, n=20):
 
 
 def phase_pipeline_small(n_frames=10):
-    """The pipeline on the tiny config (10 orbit frames: one keyframe and
-    its six local frames, integrated at finish), GPU against CPU
-    with the same RANSAC draws: keyframes within 1 and the same origins,
-    positions within 1 mm, chunk sets and vertex counts within 1%, and at
-    most 0.1% of the observed voxels of the common chunks with sdf more
-    than 1e-4 apart (as [small])."""
+    """TexturedPipeline on the tiny config (10 orbit frames: one keyframe
+    and its six local frames, integrated and textured at finish), GPU
+    against CPU with the same RANSAC draws: keyframes within 1 and the
+    same origins, positions within 1 mm, chunk sets and vertex counts
+    within 1%, and at most 0.1% of the observed voxels of the common
+    chunks with sdf more than 1e-4 apart (as [small]); then the texture
+    (_texture_compare)."""
     config = _pipeline_config(small=True)
     poses, packed = _orbit_frames(config, n_frames)
-    runs = {dev: run_pipeline(config, packed, dev, cpu_draw_fn(config.tracking))[0]
+    runs = {dev: run_pipeline(config, packed, dev, cpu_draw_fn(config.tracking),
+                              textured=True)[0]
             for dev in ("cuda", "cpu")}
     g, c = runs["cuda"], runs["cpu"]
     kg, kc = len(g.slam.keyframes), len(c.slam.keyframes)
@@ -1164,6 +1348,46 @@ def phase_pipeline_small(n_frames=10):
             and diff_mm <= SMALL_TRAJ_MM and n_diff <= len(c_of) // 100 and frac <= 1e-3
             and nv_c > 0 and abs(nv_g - nv_c) <= nv_c // 100):
         raise AssertionError("GPU pipeline disagrees with the CPU pipeline on a small input")
+    _texture_compare(g, c)
+
+
+def _texture_compare(g, c):
+    """The GPU's texture state against the CPU's, by chunk id: labels equal
+    on ≥ 99% of the chunks both have; patched chunk sets within 1%; uv16
+    within 1 on ≥ 99% of the valid vertices of the common patched chunks
+    whose meshes agree; their atlas tiles within 2 levels on ≥ 99% of the
+    values."""
+    def by_id(p):
+        ids = p.volume.ids
+        return {tuple(ids[s].tolist()): (s, t) for s, t in p.texture.chunk_tex.items()}
+
+    gt, ct = by_id(g), by_id(c)
+    common = sorted(set(gt) & set(ct))
+    labels_same = float(np.mean([gt[k][1].label == ct[k][1].label for k in common]))
+    gp = {k for k, (s, _) in gt.items() if s in g.texture.atlas.patches}
+    cp = {k for k, (s, _) in ct.items() if s in c.texture.atlas.patches}
+    uv_ok, tile_ok = [], []
+    for k in sorted(gp & cp):
+        (gs, gx), (cs, cx) = gt[k], ct[k]
+        if g.mesher.vcount[gs] == c.mesher.vcount[cs]:
+            valid = cx.uv_valid & gx.uv_valid
+            uv_ok.append((np.abs(gx.uv16.astype(np.int64) - cx.uv16).max(-1) <= 1)[valid])
+        tiles = [_atlas_tile(p.texture.atlas, p.texture.atlas.patches[s]).astype(np.int64)
+                 for p, s in ((g, gs), (c, cs))]
+        tile_ok.append((np.abs(tiles[0] - tiles[1]) <= 2).ravel())
+    uv_frac = float(np.mean(np.concatenate(uv_ok))) if uv_ok else 0.0
+    tile_frac = float(np.mean(np.concatenate(tile_ok))) if tile_ok else 0.0
+    log(f"[pipeline-small] texture: chunks gpu={len(gt)} cpu={len(ct)} common={len(common)} "
+        f"labels_equal={labels_same:.4f} patched gpu={len(gp)} cpu={len(cp)} "
+        f"differing={len(gp ^ cp)} uv16_within_1={uv_frac:.4f} tiles_within_2={tile_frac:.4f}")
+    if not (common and labels_same >= 0.99 and len(gp ^ cp) <= len(cp) // 100
+            and len(cp) > 0 and uv_frac >= 0.99 and tile_frac >= 0.99):
+        raise AssertionError("GPU texture state disagrees with the CPU's on a small input")
+
+
+def _atlas_tile(atlas, rec):
+    ox, oy = atlas._slot_origin(rec.slot_index)
+    return atlas.image[oy:oy + atlas.patch_size, ox:ox + atlas.patch_size]
 
 
 def main() -> int:
@@ -1183,6 +1407,7 @@ def main() -> int:
     runs.append(phase_pipeline(tracked_frames, async_fusion=True, reference=runs[0]))
     runs.append(phase_pipeline(tracked_frames, max_resident=runs[0]["active"] // 2,
                                reference=runs[0]))
+    runs.append(phase_pipeline(tracked_frames, reference=runs[0], textured=True))
     phase_pipeline_small()
     phase_profile_pipeline(tracked_frames)
 
@@ -1205,7 +1430,8 @@ def main() -> int:
          "launches": total("tsdf_integrate_frames"), **k2f},
     ]
     log(f"[launches] per phase: slice {json.dumps(launches)}, tracked "
-        f"{json.dumps(tracked_launches)}, pipeline / pipeline-async / pipeline-stream "
+        f"{json.dumps(tracked_launches)}, pipeline / pipeline-async / pipeline-stream / "
+        f"pipeline-textured "
         f"{json.dumps([r['launches'] for r in runs])}")
     log(f"[total] chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s, build included")
     print(smi)

@@ -21,6 +21,7 @@ import torch
 from texturefusion_torch.config import CameraConfig, PipelineConfig, TSDFConfig, \
     tiny_test_config
 from texturefusion_torch.core import camera as cam
+from texturefusion_torch.fusion.pipeline import TexturedPipeline
 from texturefusion_torch.ops import cuda_kernels, preprocess, tsdf
 
 torch.set_num_threads(2)
@@ -256,6 +257,108 @@ def test_slice_gpu_matches_cpu(cuda_device):
     torch.testing.assert_close(vols[1].batch.weight[s].cpu(), vols[0].batch.weight[s])
 
 
+def texture_cycle_inputs(seed, s=32, p=64, k=4, h=60, w=80, n=24, holes=0.0):
+    """A random mesh pool (S slots, P vertices), a K-keyframe stack at
+    h×w and a random problem over n of the slots. Each keyframe sees a
+    plane at 2 m in a uniform colour with noise; a chunk's vertices lie
+    on the plane (one in three chunks 1.5 m behind it: depth-wrong and
+    occluded) with colours near that keyframe's (one in four far off:
+    colour-wrong), inside or partly outside the view; `holes` of the
+    depth pixels are 0 (the JAX package samples depth next to a hole
+    otherwise, ROADMAP Queue 3 fault 10). Packed colours are
+    uint32, as the JAX package holds them; `intr` is the Intrinsics
+    fields. Shared with tests/test_torch_texture.py."""
+    rng = np.random.default_rng(seed)
+    intr = (70.0, 70.0, 39.5, 29.5, w, h, 0.01, 6.0)
+    base = rng.integers(40, 200, (k, 3))
+    img = np.clip(base[:, None, None, :] + rng.integers(-6, 7, (k, h, w, 3)), 0, 255)
+    rgbp = (img[..., 0] | (img[..., 1] << 8) | (img[..., 2] << 16)).astype(np.uint32)
+    depth = (2.0 + rng.normal(0, 0.01, (k, h, w))).astype(np.float32)
+    depth[rng.random(depth.shape) < holes] = 0.0
+    poses = np.tile(np.eye(4, dtype=np.float32), (k, 1, 1))
+    poses[:, :3, 3] = rng.normal(0, 0.02, (k, 3))
+    slot_idx = np.sort(rng.permutation(s)[:n]).astype(np.int64)
+    kf_of_slot = rng.integers(0, k, s + 1)
+    xy = rng.uniform(-1.4, 1.4, (s + 1, 1, 2)) + rng.normal(0, 0.15, (s + 1, p, 2))
+    z = np.where(rng.random((s + 1, 1)) < 1 / 3, 3.5, 2.0) + rng.normal(0, 0.005, (s + 1, p))
+    verts = np.concatenate([xy, z[..., None]], -1).astype(np.float32)
+    far = rng.random(s + 1) < 0.25
+    col = np.where(far[:, None, None], 255 - base[kf_of_slot][:, None, :],
+                   base[kf_of_slot][:, None, :] + rng.integers(-8, 9, (s + 1, p, 3)))
+    col = np.clip(col, 0, 255)
+    colpk = (col[..., 0] | (col[..., 1] << 8) | (col[..., 2] << 16)).astype(np.uint32)
+    vcount = rng.integers(0, p + 1, s + 1).astype(np.int32)
+    vcount[rng.random(s + 1) < 0.1] = 0
+    tcount = np.where(vcount > 0, rng.integers(1, 40, s + 1), 0).astype(np.int32)
+    l = 4
+    label_kf = np.full((n, l), -1, np.int32)
+    unary = np.full((n, l), 1e9, np.float32)
+    for i, sl in enumerate(slot_idx):
+        m = rng.integers(1, l + 1)
+        label_kf[i, :m] = np.concatenate([[kf_of_slot[sl]],
+                                          rng.permutation([q for q in range(k)
+                                                           if q != kf_of_slot[sl]])])[:m]
+        unary[i, :m] = np.sort(rng.random(m))
+    nbrs = np.full((n, 6), n, np.int32)
+    for i in range(n - 1):
+        nbrs[i, 0], nbrs[i + 1, 1] = i + 1, i
+    arrs = dict(unary=unary, label_kf=label_kf, neighbors=nbrs,
+                parity=(np.arange(n) % 2).astype(np.int32), init_label=np.zeros(n, np.int32),
+                n_valid=rng.random(n) < 0.9)
+    labels = np.where(rng.random(s + 1) < 0.5, rng.integers(0, k, s + 1), -1).astype(np.int32)
+    # moments of 20 random colour pairs per slot: well-conditioned clusters
+    tex_c, vox_c = rng.uniform(0.2, 0.8, (2, s + 1, 20, 3))
+    stats = np.concatenate([
+        np.full((s + 1, 1), 20.0), tex_c.sum(1), vox_c.sum(1),
+        np.einsum("spc,spd->scd", tex_c, tex_c).reshape(-1, 9),
+        np.einsum("spc,spd->scd", vox_c, vox_c).reshape(-1, 9)], axis=1).astype(np.float32)
+    pool = (verts, colpk, vcount, tcount)
+    return (arrs, slot_idx, labels, stats, rng.random(n) < 0.3, pool, rgbp, depth, poses,
+            intr)
+
+
+def port_texture_cycle(inputs, budget, device):
+    """texture_cycle_incremental of the port on texture_cycle_inputs, on
+    `device`: (outputs, labels_dev, stats_dev) as numpy."""
+    from texturefusion_torch.config import TextureConfig
+    from texturefusion_torch.texture import patch
+    from texturefusion_torch.utils import convert
+    arrs, slot_idx, labels, stats, remeshed, pool, rgbp, depth, poses, intr = inputs
+    tlabels, tstats = convert.texture_rows_from_numpy(labels, stats, device=device)
+    stack = convert.kf_stack_from_numpy(rgbp, depth, poses, device=device)
+    tpool = convert.mesh_pool_from_numpy(pool[0], pool[1], pool[1],
+                                         np.zeros((len(pool[0]), 1, 3)), pool[2], pool[3],
+                                         device=device)
+    out = patch.texture_cycle_incremental(
+        convert.mrf_problem_from_numpy(**arrs, device=device),
+        torch.as_tensor(slot_idx, device=device), tlabels, tstats, torch.full_like(tlabels, -1),
+        torch.as_tensor(remeshed, device=device), tpool.verts, tpool.col_packed, tpool.vcount,
+        tpool.tcount, stack.rgb_packed, stack.depth, torch.as_tensor(stack.poses, device=device),
+        1, cam.Intrinsics(*intr), TextureConfig(), 12, budget)
+    return [a.cpu().numpy() for a in out], tlabels.cpu().numpy(), tstats.cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,budget", [(0, 16), (1, 64)])
+def test_texture_cycle_gpu_matches_cpu(cuda_device, seed, budget):
+    """One texture cycle (ICM, projection, wrong mapping, moments, the
+    per-keyframe transfers through cuSOLVER's eigh) on the card against
+    the CPU: the same rows, labels and flags, uv16 within 1, moments and
+    transfers within 1e-4 (index_add_ sums in another order on the card)."""
+    inputs = texture_cycle_inputs(seed, holes=0.03)
+    g, gl, gs = port_texture_cycle(inputs, budget, cuda_device)
+    c, cl, cs = port_texture_cycle(inputs, budget, "cpu")
+    m = min(int(c[2]), budget)
+    assert m >= 5 and int(g[2]) == int(c[2])
+    for i in (0, 1, 4, 5, 6, 7):        # rows, keyframes, validity, bboxes, wrong
+        np.testing.assert_array_equal(g[i][:m], c[i][:m])
+    assert np.abs(g[3][:m].astype(np.int64) - c[3][:m])[c[4][:m]].max() <= 1
+    np.testing.assert_array_equal(gl, cl)
+    np.testing.assert_allclose(gs, cs, rtol=1e-5, atol=1e-4)
+    for i in (8, 9, 10):
+        np.testing.assert_allclose(g[i], c[i], atol=1e-4)
+
+
 def test_wrappers_refuse_cpu_and_wrong_types():
     with pytest.raises(ValueError, match="CUDA"):
         cuda_kernels.bilateral_cuda(torch.zeros(8, 8))
@@ -415,6 +518,7 @@ def test_entry_points_default_to_the_card():
     from texturefusion_torch.io import synthetic
     from texturefusion_torch.ops import marching_cubes
     from texturefusion_torch.slam import fastba, gcslam, loopclosure, promote
+    from texturefusion_torch.texture import kfstack, manager, mrf
     from texturefusion_torch.utils import convert
 
     def default(fn):
@@ -423,11 +527,14 @@ def test_entry_points_default_to_the_card():
     for fn in (TSDFVolume, gcslam.GCSLAM, synthetic.render_sequence,
                convert.volume_state_from_numpy, convert.keypoints_from_numpy,
                convert.edges_from_numpy, convert.poses_from_numpy,
-               convert.descriptor_db_from_numpy, convert.mesh_pool_from_numpy):
+               convert.descriptor_db_from_numpy, convert.mesh_pool_from_numpy,
+               TexturedPipeline, manager.TextureManager, convert.mrf_problem_from_numpy,
+               convert.kf_stack_from_numpy, convert.texture_rows_from_numpy):
         assert default(fn) == "cuda", fn
     for fn in (se3.identity, camera.pixel_grid, tsdf.make_empty_batch,
                marching_cubes.make_mesh_pool, promote.KeypointDB,
-               loopclosure.KeyframeDescriptorDB, fastba.make_edges):
+               loopclosure.KeyframeDescriptorDB, fastba.make_edges,
+               kfstack.KeyframeStack, mrf.ViewSelector):
         assert default(fn) is inspect.Parameter.empty, fn
     if not torch.cuda.is_available():
         with pytest.raises((AssertionError, RuntimeError)):

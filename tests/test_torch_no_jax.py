@@ -1,7 +1,8 @@
 """The port runs without jax and without any module of the JAX package
 (the GT-pose slice, the tracked SLAM path through chip_smoke.run_tracked
-and the pipeline through chip_smoke.run_pipeline, on CPU tensors), and
-chip_smoke.py refuses to run without a GPU.
+and the pipeline through chip_smoke.run_pipeline, on CPU tensors; the
+textured pipeline and its export also without cv2 or PIL, which the
+card's machine lacks), and chip_smoke.py refuses to run without a GPU.
 
 Both checks run in fresh subprocesses, so the test session's own jax
 import cannot hide an import of jax by the port.
@@ -110,6 +111,32 @@ print("JAX_MODULES", bad)
 """
 
 
+TEXTURED = r"""
+import os, sys, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(2)
+import chip_smoke
+from texturefusion_torch.io import png
+cfg = chip_smoke._pipeline_config(small=True, async_fusion=True)
+poses, packed = chip_smoke._orbit_frames(cfg, 11)   # three keyframes: cycles on the worker
+pipe, loop, fin = chip_smoke.run_pipeline(cfg, packed, "cpu", textured=True)
+pipe.close()
+tm = pipe.texture
+assert len(tm.atlas.patches) > 20 and not tm.atlas.overflowed, len(tm.atlas.patches)
+with tempfile.TemporaryDirectory() as tmp:
+    obj = pipe.export_textured(tmp)
+    lines = open(obj).read().splitlines()
+    n_v = sum(ln.startswith("v ") for ln in lines)
+    assert n_v == sum(ln.startswith("vt ") for ln in lines) > 100
+    assert png.read_png(os.path.join(tmp, "model.png")).shape[1] == tm.atlas.size
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "cv2", "PIL") or m.startswith(("jax.", "jaxlib", "texturefusion_tpu",
+                                                            "cv2.", "PIL.")))
+print("JAX_MODULES", bad)
+"""
+
+
 def _run(args, cwd, env_extra=None):
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
     env.pop("PYTHONSTARTUP", None)
@@ -134,6 +161,15 @@ def test_port_pipeline_never_imports_jax():
     """ReconstructionPipeline with the fusion thread, exports included,
     through chip_smoke.run_pipeline on CPU tensors."""
     res = _run(["-c", PIPELINE], ROOT)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "JAX_MODULES []" in res.stdout, res.stdout
+
+
+def test_port_textured_pipeline_never_imports_jax_or_image_libraries():
+    """TexturedPipeline with the fusion thread and export_textured, through
+    chip_smoke.run_pipeline on CPU tensors: no jax, JAX package, cv2 or
+    PIL module loads."""
+    res = _run(["-c", TEXTURED], ROOT)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "JAX_MODULES []" in res.stdout, res.stdout
 

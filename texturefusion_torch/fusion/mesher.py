@@ -6,17 +6,21 @@ integration marked dirty are remeshed, into a mesh pool that stays on
 the volume's device; the host reads pool rows on demand (export).
 Counts are read back synchronously after each remesh. Chunks that a
 ChunkStreamer offloads keep their meshes on the host (`freeze`), so the
-export still holds them.
+export still holds them. `chunk_adjacency_arrays` gives the texture
+stage its chunk graph; `on_drop` hears of every slot whose mesh is
+dropped (GC, streaming), so per-slot state kept elsewhere is released
+before the slot is recycled.
 """
 
 from __future__ import annotations
 
 import warnings
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from texturefusion_torch.core import geometry
 from texturefusion_torch.fusion.chunkmap import TSDFVolume
 from texturefusion_torch.ops import marching_cubes as mc
 
@@ -42,6 +46,8 @@ class IncrementalMesher:
         self._host_cache: Dict[int, tuple] = {}
         self._cache_valid = False
         self._warned_overflow = False
+        # called with the slots (int64 array) of every drop
+        self.on_drop: Optional[Callable[[np.ndarray], None]] = None
 
     def _neighbor_slots(self, slots: np.ndarray) -> np.ndarray:
         """[U, 8] slots of self + 7 positive-corner neighbours, trash
@@ -135,6 +141,31 @@ class IncrementalMesher:
         self.pool.vcount[idx] = 0
         self.pool.tcount[idx] = 0
         self._cache_valid = False
+        if self.on_drop is not None:
+            self.on_drop(slots)
+
+    def chunk_adjacency_arrays(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(meshed_slots [S], nbr_slots [S, 6]): the 6-neighbour slots that
+        also have meshes, -1 where absent (the texture MRF's chunk graph,
+        ref: TexMap.cpp:50-61 update_chunkgraph), from one lookup of all
+        meshed chunks × 6 offsets."""
+        vol = self.volume
+        cap = vol.cfg.capacity
+        meshed = np.nonzero(self.tcount[:-1] > 0)[0]
+        if len(meshed) == 0:
+            return meshed, np.zeros((0, 6), np.int64)
+        nbrs = geometry.neighbor_offsets_6()
+        nb = (vol.ids[meshed][:, None, :] + nbrs[None]).reshape(-1, 3)
+        res = vol.lookup(nb).reshape(len(meshed), len(nbrs))
+        is_meshed = np.zeros(cap + 1, bool)
+        is_meshed[meshed] = True
+        ok = (res >= 0) & is_meshed[np.clip(res, 0, cap)]
+        return meshed, np.where(ok, res, -1)
+
+    def chunk_adjacency(self) -> Dict[int, np.ndarray]:
+        """Dict view of chunk_adjacency_arrays: slot → meshed neighbour slots."""
+        meshed, nbr = self.chunk_adjacency_arrays()
+        return {int(s): row[row >= 0] for s, row in zip(meshed.tolist(), nbr)}
 
     def full_mesh(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """All chunk meshes concatenated, the resident ones in slot order,

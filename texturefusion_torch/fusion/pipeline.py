@@ -19,9 +19,12 @@ the keyframe before it:
   2. integration of the finished keyframe (origin 0 only; a fresh
      discovery at its current pose) and of its local frames, depth only;
   3. incremental meshing;
-  4. (texture hook) and GC of empty chunks;
+  4. the texture stage (TexturedPipeline) and GC of empty chunks;
   5. the keyframe device budget, and chunk streaming when
      tsdf.max_resident_chunks > 0.
+
+TexturedPipeline adds the texture stage (texture/manager.py) to each
+cycle and to finish(), and the textured OBJ/MTL/PNG export.
 
 With parallel.async_fusion the cycles run in order on one worker thread
 with its own CUDA stream (the reference's map thread,
@@ -35,10 +38,12 @@ current poses).
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import dataclasses
 import os
 import time
+import types
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -53,6 +58,7 @@ from texturefusion_torch.fusion.streaming import ChunkStreamer
 from texturefusion_torch.models.reconstruction import frame_step_tracked2
 from texturefusion_torch.ops import preprocess
 from texturefusion_torch.slam.gcslam import GCSLAM
+from texturefusion_torch.texture.manager import TextureManager
 from texturefusion_torch.utils.stopwatch import STOPWATCH
 
 
@@ -449,10 +455,10 @@ class ReconstructionPipeline:
             self.stats["reintegrations"] += 1
 
     def _texture_cycle(self) -> None:
-        """Hook for the texture stage of each fusion cycle (ROADMAP item 11)."""
+        """Hook for the texture stage of each fusion cycle (TexturedPipeline)."""
 
     def _texture_final(self) -> None:
-        """Hook for a texture catch-up pass at the end of finish()."""
+        """Hook for the texture catch-up at the end of finish() (TexturedPipeline)."""
 
     # --------------------------------------------------------------- export
 
@@ -513,3 +519,72 @@ class ReconstructionPipeline:
             f.write(f"chunks_created {self.volume.chunks_created} "
                     f"active {self.volume.n_active()} "
                     f"meshed {len(self.mesher.meshes)}\n")
+
+
+class TexturedPipeline(ReconstructionPipeline):
+    """The pipeline with online texturing, the reference's whole
+    TextureFusion behaviour (ref: MobileFusion.cpp:356-384, the texture
+    stages of tsdfFusion). Each fusion cycle runs one texture cycle after
+    meshing (STOPWATCH "texture"); finish() re-selects and patches every
+    meshed chunk against the final observations and poses
+    ("texture_final")."""
+
+    def __init__(self, config: PipelineConfig, device="cuda",
+                 draw_fn: Optional[Callable] = None,
+                 frame_draws: Optional[Callable[[int], Tuple[torch.Tensor, torch.Tensor]]] = None):
+        super().__init__(config, device=device, draw_fn=draw_fn, frame_draws=frame_draws)
+        self.texture = TextureManager(config, device=self.device)
+        self.mesher.on_drop = self.texture.release
+        # per submitted cycle, in order: the newest keyframe and each
+        # keyframe's (rgb, depth, BA pose) as they were at submission.
+        # Tracking replaces the newest keyframe's depth as it refines it,
+        # on its own stream, and a later promotion's BA moves the poses;
+        # the cycle reads the tensors covered by its event and the poses
+        # a synchronous cycle would read.
+        self._cycle_inputs = collections.deque()
+
+    def _keyframe_inputs(self) -> dict:
+        return {s: (st.rgb, st.depth, self.slam.keyframe_pose(s))
+                for s, st in list(self.kf_states.items())}
+
+    def _submit_fusion(self, slot: int) -> None:
+        self._cycle_inputs.append((len(self.slam.keyframes) - 1, self._keyframe_inputs()))
+        super()._submit_fusion(slot)
+
+    def _tex_states(self, inputs: Optional[dict] = None) -> dict:
+        """Keyframe slot → BA pose, rgb and depth tensors and the host rgb
+        for the atlas blits; `inputs` from a submission, else current."""
+        states = {}
+        for slot, (rgb, depth, pose) in (inputs or self._keyframe_inputs()).items():
+            self._on_fusion_stream(rgb, depth)
+            states[slot] = types.SimpleNamespace(pose=pose, rgb=rgb, depth=depth,
+                                                 rgb_host=self.kf_states[slot].rgb_np)
+        return states
+
+    def _texture_cycle(self) -> None:
+        newest, inputs = (self._cycle_inputs.popleft() if self._cycle_inputs
+                          else (len(self.slam.keyframes) - 1, None))
+        if newest < 0:
+            return
+        with STOPWATCH.time("texture"):
+            self.texture.update(self.volume, self.mesher, self._tex_states(inputs),
+                                newest_kf=newest, remeshed=self.mesher.last_remeshed)
+
+    def _texture_final(self) -> None:
+        """Catch-up: every meshed chunk selected and patched again against
+        the final observations and BA poses, in budget-limited passes."""
+        if not self.slam.keyframes:
+            return
+        want = set(np.nonzero(self.mesher.tcount[:-1] > 0)[0].tolist())
+        with STOPWATCH.time("texture_final"):
+            for _ in range(16):
+                self.texture.update(self.volume, self.mesher, self._tex_states(),
+                                    newest_kf=len(self.slam.keyframes) - 1, remeshed=want)
+                want = set()
+                if not self.texture._carry or self.texture.atlas.overflowed:
+                    break   # caught up, or no atlas space left to place work
+
+    def export_textured(self, out_dir: str, name: str = "model") -> str:
+        """OBJ + MTL + PNG of the textured resident chunks."""
+        self._drain_fusion()
+        return self.texture.export_textured(self.mesher, out_dir, name)

@@ -88,3 +88,38 @@ def mesh_pool_from_numpy(verts: np.ndarray, col_packed: np.ndarray,
         verts=torch.tensor(np.asarray(verts, np.float32), device=device),
         col_packed=i32(col_packed), nrm_packed=i32(nrm_packed), tris=i32(tris),
         vcount=i32(vcount), tcount=i32(tcount))
+
+
+def mrf_problem_from_numpy(unary, label_kf, neighbors, parity, init_label, n_valid,
+                           device="cuda"):
+    """A port MRFProblem from a JAX MRFProblem's arrays (indices as int64)."""
+    from texturefusion_torch.texture.mrf import MRFProblem
+
+    def t(a, dtype):
+        return torch.tensor(np.asarray(a).astype(dtype), device=device)
+
+    return MRFProblem(unary=t(unary, np.float32), label_kf=t(label_kf, np.int32),
+                      neighbors=t(neighbors, np.int64), parity=t(parity, np.int32),
+                      init_label=t(init_label, np.int64), n_valid=t(n_valid, bool))
+
+
+def kf_stack_from_numpy(rgb_packed: np.ndarray, depth: np.ndarray, poses: np.ndarray,
+                        device="cuda"):
+    """A port KeyframeStack holding a JAX stack's rows: packed rgb [K, H, W]
+    (uint32, stored as int32 with the same bits: 24 are used), depth
+    [K, H, W] f32 and host poses [K, 4, 4]; every row counts as written."""
+    from texturefusion_torch.texture.kfstack import KeyframeStack
+    k, h, w = np.shape(rgb_packed)
+    stack = KeyframeStack(h, w, initial=k, device=device)
+    stack.rgb_packed.copy_(torch.tensor(np.asarray(rgb_packed).astype(np.int32)))
+    stack.depth.copy_(torch.tensor(np.asarray(depth, np.float32)))
+    stack.poses = np.array(poses, np.float32)
+    stack.present = set(range(k))
+    return stack
+
+
+def texture_rows_from_numpy(labels: np.ndarray, stats: np.ndarray, device="cuda"):
+    """The texture manager's per-slot device rows from a JAX manager's:
+    (labels_dev [S+1] int32, stats_dev [S+1, STATS_W] f32)."""
+    return (torch.tensor(np.asarray(labels, np.int32), device=device),
+            torch.tensor(np.asarray(stats, np.float32), device=device))
