@@ -97,6 +97,7 @@ Imports nothing of jax or of the JAX package. Builds into texturefusion_torch/_b
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -117,6 +118,7 @@ TEX_ATE_MM = 0.01         # [pipeline-textured]: ATE and vertices beside [pipeli
 TEX_VERTS_FRAC = 0.001
 # [pipeline-textured]: meshed chunks patched and not wrong
 TEX_PATCHED_FRAC = 0.5
+BA_MIN_KEYFRAMES = 16     # bench.py's schur_min_keyframes: [tracked] and [pipeline*] BA past it
 SMALL_KF_DIFF = 1         # [tracked-small]: keyframe counts GPU vs CPU
 SMALL_MIN_KF = 4          # [tracked-small]: keyframes each device must promote
 SMALL_TRAJ_MM = 1.0       # [tracked-small]: largest frame-position difference GPU vs CPU
@@ -127,8 +129,16 @@ EXPOSURE_GAIN = 1.55
 EXPOSURE_FRAMES = (60, 95)
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): the bounds
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
+FP32_FLOPS_PER_S = 67e12      # K1 (built with fused multiply-adds): an FFMA is 2 operations
 EXP_PER_SM_CLOCK = 16         # MUFU.EX2 results a clock per SM (the FP32 pipe: 128)
+# K2 and its F-frame mode are built with -fmad=false: their bound counts the
+# SASS instructions of the built kernels (cuobjdump), fp32 ones at the FP32
+# pipe's issue rate and conversions and MUFU at theirs (CUDA C Programming
+# Guide, throughput of native arithmetic instructions, compute capability 9.0)
+FP32_PER_SM_CLOCK = 128
+XU_PER_SM_CLOCK = 16
+SASS_FP32 = {"FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX", "FSET", "FCHK", "FSWZADD"}
+SASS_XU = {"MUFU", "F2I", "I2F", "F2F", "FRND"}
 # K1 fp32 operations per tap: subtract, square, spatial product,
 # multiply-add (2), weight add; and one exp
 K1_FLOPS_PER_TAP = 6
@@ -190,11 +200,125 @@ def kernel_times(launch, n: int = 100, n_cold: int = 20):
     return warm, float(np.median(cold))
 
 
-def exp_per_s() -> float:
-    """The exp unit's peak: SMs x EXP_PER_SM_CLOCK x the card's maximum
-    SM clock (nvidia-smi clocks.max.sm)."""
+def sm_rate(per_clock: int) -> float:
+    """A unit's peak a second: SMs x per_clock x the card's maximum SM clock
+    (nvidia-smi clocks.max.sm)."""
     mhz = float(nvidia_smi("clocks.max.sm").split()[0])
-    return torch.cuda.get_device_properties(0).multi_processor_count * EXP_PER_SM_CLOCK * mhz * 1e6
+    return torch.cuda.get_device_properties(0).multi_processor_count * per_clock * mhz * 1e6
+
+
+def exp_per_s() -> float:
+    """The exp unit's peak (K1's bound)."""
+    return sm_rate(EXP_PER_SM_CLOCK)
+
+
+_SASS_FUNC = re.compile(r"^\s*Function : (\S+)")
+_SASS_INSTR = re.compile(r"/\*([0-9a-f]+)\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)([.A-Z0-9_]*)"
+                         r"\s*([^;]*);")
+
+
+def sass_functions(text: str) -> dict:
+    """cuobjdump -sass output -> {mangled name: [(address, opcode, opcode with
+    modifiers, operands)]}."""
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = _SASS_FUNC.match(line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = _SASS_INSTR.search(line)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(2), m.group(2) + m.group(3), m.group(4)))
+    return funcs
+
+
+def _sass_target(ins):
+    m = re.search(r"0x([0-9a-f]+)", ins[3])
+    return int(m.group(1), 16) if m else None
+
+
+def sass_regions(instrs) -> dict:
+    """A kernel's code in three regions, by its branches: "main" (before its
+    first called subroutine, the slow path of a division), "loop" (the
+    widest backward branch's span) and "cond" (the widest forward branch's
+    span outside the loop, not around it: K2's colour block, the F-frame
+    mode's per-frame staging)."""
+    calls = [_sass_target(i) for i in instrs if i[1] == "CALL"]
+    end = min(calls) if calls else instrs[-1][0] + 1
+    main = [i for i in instrs if i[0] < end]
+    branches = [(i[0], t) for i in main if i[1] == "BRA" and (t := _sass_target(i)) is not None]
+    loops = [(t, a) for a, t in branches if t < a]
+    lo, hi = max(loops, key=lambda r: r[1] - r[0]) if loops else (end, end)
+    conds = [(a, t) for a, t in branches if t > a and not (lo <= a <= hi or lo <= t <= hi
+                                                           or (a < lo and hi < t))]
+    c_lo, c_hi = max(conds, key=lambda r: r[1] - r[0]) if conds else (end, end)
+    return {"main": main, "loop": [i for i in main if lo <= i[0] <= hi],
+            "cond": [i for i in main if c_lo < i[0] < c_hi]}
+
+
+def sass_op_counts(instrs) -> dict:
+    """Instructions in all, fp32-pipe ones, conversions and MUFU ("xu"), and
+    MUFU.RCP (one a division)."""
+    c = {"all": 0, "fp32": 0, "xu": 0, "rcp": 0}
+    for _, base, full, _ in instrs:
+        c["all"] += 1
+        c["fp32"] += base in SASS_FP32
+        c["xu"] += base in SASS_XU
+        c["rcp"] += full == "MUFU.RCP"
+    return c
+
+
+SASS = {}    # per kernel: {region: op counts} of the built library (phase_build)
+
+
+def _k2_ops(n_threads: int, n_colour_threads: int) -> dict:
+    """K2's operations from its SASS: every live thread (4 voxels) runs its
+    main code outside the colour block; the threads with a voxel in the
+    colour band also run that block."""
+    c = SASS["tsdf_integrate"]
+    return {u: (n_threads * (c["main"][u] - c["cond"][u]) + n_colour_threads * c["cond"][u],
+                sm_rate(rate)) for u, rate in (("fp32", FP32_PER_SM_CLOCK),
+                                               ("xu", XU_PER_SM_CLOCK))}
+
+
+def frames_ops(n_frames: int, n_lanes: int) -> dict:
+    """The F-frame mode's operations from its SASS: each voxel of each lane
+    runs the frame loop's code once a frame (the loop body holds two
+    MUFU.RCP a voxel and a frame: its projection's divisions), each thread
+    the code around the loop, and one thread a frame the staging."""
+    from texturefusion_torch.ops import cuda_kernels
+    c = SASS["tsdf_integrate_frames"]
+    v = cuda_kernels.FRAMES_TILE[0]
+    per_vf = {u: c["loop"][u] / (c["loop"]["rcp"] / 2) for u in ("fp32", "xu")}
+    rest = {u: c["main"][u] - c["loop"][u] - c["cond"][u] for u in ("fp32", "xu")}
+    return {u: (n_lanes * (n_frames * 512 * per_vf[u] + 512 // v * rest[u]
+                           + n_frames * c["cond"][u]), sm_rate(rate))
+            for u, rate in (("fp32", FP32_PER_SM_CLOCK), ("xu", XU_PER_SM_CLOCK))}
+
+
+def phase_sass():
+    """Count the built K2 and F-frame kernels' SASS instructions by region
+    (cuobjdump -sass on the library): the operations of their bounds."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from texturefusion_torch.ops import cuda_kernels
+    lib = cuda_kernels.build()
+    tool = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
+    text = subprocess.run([tool if os.path.exists(tool) else "cuobjdump", "-sass", lib._name],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    funcs = sass_functions(text)
+    v, g = cuda_kernels.FRAMES_TILE
+    for key, pattern in (("tsdf_integrate", "21tsdf_integrate_kernel"),
+                         ("tsdf_integrate_frames", f"tsdf_integrate_frames_kernelILi{v}ELi{g}E")):
+        names = [n for n in funcs if pattern in n]
+        if len(names) != 1:
+            raise AssertionError(f"{len(names)} SASS functions match {pattern}")
+        SASS[key] = {r: sass_op_counts(ins) for r, ins in sass_regions(funcs[names[0]]).items()}
+    c = SASS["tsdf_integrate_frames"]
+    vf = c["loop"]["rcp"] / 2
+    log(f"[sass] K2 per thread (4 voxels): {json.dumps(SASS['tsdf_integrate'])}; F-frame mode "
+        f"(tile {v}x{g}) {json.dumps(c)}: a voxel and a frame {c['loop']['fp32'] / vf:.2f} fp32, "
+        f"{c['loop']['xu'] / vf:.2f} conversions and MUFU, {c['loop']['all'] / vf:.2f} in all")
 
 
 def bound_ms(n_bytes: float, ops: dict):
@@ -372,12 +496,13 @@ def _k2_bytes(n: int, with_color: bool, h: int, w: int) -> int:
     return 2 * n * row_floats * 4 + h * w * 4 * (5 if with_color else 1) + n * (8 + 1 + 12)
 
 
-def _k2_needed_bytes(before, after, origins, idx, n, pose, intr, cfg) -> int:
-    """What this frame's data needs: the rows of the voxels that change,
-    read and written (sdf and weight 16 B; colour and count 32 B), the
-    distinct depth pixels the in-image voxels sample (4 B) and the
-    distinct rgb and quality pixels the changed colour voxels sample
-    (16 B), and per lane its slot, flag and origin."""
+def _k2_needed(before, after, origins, idx, n, pose, intr, cfg):
+    """What this frame's data needs: the bytes (the rows of the voxels that
+    change, read and written: sdf and weight 16 B, colour and count 32 B;
+    the distinct depth pixels the in-image voxels sample, 4 B; the
+    distinct rgb and quality pixels the changed colour voxels sample, 16
+    B; per lane its slot, flag and origin) and the operations of _k2_ops
+    (every lane's 128 threads; those with a changed colour voxel)."""
     from texturefusion_torch.core import camera as cam
     from texturefusion_torch.core import geometry, se3
     rows = idx[:n]
@@ -393,8 +518,9 @@ def _k2_needed_bytes(before, after, origins, idx, n, pose, intr, cfg) -> int:
     pix = (vr * intr.width + ur).long()
     n_pix = int(pix[in_img].unique().numel())
     n_cpix = int(pix[cupd.reshape(-1) & in_img].unique().numel())
-    return (int(upd.sum()) * 16 + int(cupd.sum()) * 32 + n_pix * 4 + n_cpix * 16
-            + n * (8 + 1 + 12))
+    n_bytes = (int(upd.sum()) * 16 + int(cupd.sum()) * 32 + n_pix * 4 + n_cpix * 16
+               + n * (8 + 1 + 12))
+    return n_bytes, _k2_ops(128 * n, int(cupd.reshape(n, 128, 4).any(-1).sum()))
 
 
 def phase_k2():
@@ -435,13 +561,13 @@ def phase_k2():
             log(f"[k2] one integrate_frame_fused call: {len(ops)} device op(s) {ops}")
             if len(ops) != 1:
                 raise AssertionError(f"integrate_frame_fused ran {len(ops)} device ops, not 1")
-            needed = _k2_needed_bytes(rows, pb, origins, idx, n, pose, intr, cfg)
+            needed, ops = _k2_needed(rows, pb, origins, idx, n, pose, intr, cfg)
             times = timing_fields(lambda: cuda_kernels.tsdf_integrate_cuda(
                                       *kb, idx[:n], None, origins, *frame),
                                   lambda: tsdf.integrate_frame_fused(kb, *args),
                                   lambda: tsdf.integrate_frame_fused_plain(
                                       pb, origins, idx, active, *frame),
-                                  needed, {"fp32": (60 * 512 * n, FP32_FLOPS_PER_S)})
+                                  needed, ops)
             full = _k2_full_bound_ms(n, intr.height, intr.width)
             log(f"[k2] timing plus_fresh, {n} lanes: {fmt_times(times)}; the data needs "
                 f"{needed} B; at full rows and planes the bound is {full:.4f} ms "
@@ -582,9 +708,9 @@ def phase_k2_frames():
                 lambda: tsdf.integrate_depths_batched(kb, *args),
                 lambda: tsdf.integrate_depths_batched_plain(pb, origins, idx, active, depths,
                                                             poses, signs, intr, cfg),
-                needed, {"fp32": (60 * 512 * n * n_frames, FP32_FLOPS_PER_S)})
+                needed, frames_ops(n_frames, n))
             full = bound_ms(_frames_full_bytes(n, n_frames, intr.height, intr.width),
-                            {"fp32": (60 * 512 * n * n_frames, FP32_FLOPS_PER_S)})[0]
+                            frames_ops(n_frames, n))[0]
             log(f"[k2-frames] timing {name}, F={n_frames}, {n} lanes: {fmt_times(t)}; the data "
                 f"needs {needed} B; at full rows and planes the bound is {full:.4f} ms "
                 f"(share {full / t['kernel_ms']:.3f})")
@@ -599,8 +725,9 @@ def phase_k2_frames():
 
 
 def _k2_full_bound_ms(n: int, h: int, w: int) -> float:
-    """K2's bound at full rows and planes for n chunks of an h x w frame."""
-    return bound_ms(_k2_bytes(n, True, h, w), {"fp32": (60 * 512 * n, FP32_FLOPS_PER_S)})[0]
+    """K2's bound at full rows and planes for n chunks of an h x w frame
+    (every thread in the colour band)."""
+    return bound_ms(_k2_bytes(n, True, h, w), _k2_ops(128 * n, 128 * n))[0]
 
 
 def k2_width_times(width: int, tsdf_integrate=None, seed: int = 1):
@@ -619,6 +746,88 @@ def k2_width_times(width: int, tsdf_integrate=None, seed: int = 1):
             return cuda_kernels.tsdf_integrate_cuda(*rows, slots, None, *frame)
     return kernel_times(lambda: tsdf_integrate(rows, slots, origins, d, rgb, q, pose, 1.0,
                                                intr, cfg))
+
+
+_WIDE_ROWS = {}     # the "wide" scene's inputs, made once per seed
+
+
+def frames_case(n_frames: int, width: int, mixed: bool, seed: int = 1):
+    """One of the main path's F-frame shapes: `width` chunks drawn at random
+    from the "wide" scene (pre-integrated; its rows made once per seed and
+    shared by every case) and n_frames depth planes of its wall; with
+    `mixed`, a drift reintegration (the first half of the frames at -1,
+    the same planes at +1 at poses moved 6 mm / 0.5 deg), else a
+    local-frame pass at +1. Returns (cfg, intr, rows, origins, slots,
+    depths, poses, signs)."""
+    if seed not in _WIDE_ROWS:
+        _WIDE_ROWS[seed] = _k2_inputs(True, seed, "wide")
+    cfg, intr, rows, origins, idx, *_, n = _WIDE_ROWS[seed]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    slots = idx[:n][torch.randperm(n, generator=gen, device="cuda")[:width]].contiguous()
+    if mixed:
+        d, p_old = _k2_frames(n_frames // 2, seed)
+        depths = torch.cat([d, d])
+        poses = torch.cat([p_old, _k2_frames(n_frames // 2, seed, moved=True)[1]])
+        signs = (-1.0,) * (n_frames // 2) + (1.0,) * (n_frames // 2)
+    else:
+        depths, poses = _k2_frames(n_frames, seed)
+        signs = (1.0,) * n_frames
+    return cfg, intr, rows, origins, slots, depths, poses, signs
+
+
+def frames_width_times(n_frames: int, width: int, mixed: bool, seed: int = 1,
+                       integrate_frames=None):
+    """K2's F-frame mode alone (kernel_times: warm, cold ms) on
+    frames_case(n_frames, width, mixed, seed). `integrate_frames(sdf,
+    weight, slots, origins, depths, poses, signs, intr, cfg)` launches the
+    kernel once; by default cuda_kernels.tsdf_integrate_frames_cuda on the
+    slots alone."""
+    from texturefusion_torch.ops import cuda_kernels
+    cfg, intr, rows, origins, slots, depths, poses, signs = frames_case(n_frames, width, mixed,
+                                                                        seed)
+    if integrate_frames is None:
+        def integrate_frames(sdf, weight, slots, *args):
+            cuda_kernels.tsdf_integrate_frames_cuda(sdf, weight, slots, None, *args)
+    return kernel_times(lambda: integrate_frames(rows[0], rows[1], slots, origins, depths,
+                                                 poses, signs, intr, cfg))
+
+
+def _frames_case_bound_ms(n_frames: int, width: int, mixed: bool, seed: int = 1) -> float:
+    """The bound of one frames_case: the bytes its data needs (the plain
+    version run on a copy of its rows) against frames_ops."""
+    from texturefusion_torch.ops import tsdf
+    cfg, intr, rows, origins, slots, depths, poses, signs = frames_case(n_frames, width, mixed,
+                                                                        seed)
+    before = [rows[0][slots], rows[1][slots]]
+    after = tsdf.ChunkBatch(before[0].clone(), before[1].clone(), None, None)
+    lanes = torch.arange(width, device="cuda")
+    tsdf.integrate_depths_batched_plain(after, origins[slots], lanes, None, depths, poses,
+                                        signs, intr, cfg)
+    needed = _frames_needed_bytes(before, after, origins[slots], lanes, width, depths, poses,
+                                  intr, cfg)
+    return bound_ms(needed, frames_ops(n_frames, width))[0]
+
+
+def phase_k2_frames_path(shapes):
+    """The F-frame mode alone at every (F, lanes) one [pipeline] run
+    launched it at: the time a pipeline spends in it (launches x warm
+    time), the mean time a launch, and the same sum of the bounds."""
+    total_warm = total_cold = total_bound = 0.0
+    per = {}
+    for (f, w, mixed), c in sorted(shapes.items()):
+        warm, cold = frames_width_times(f, w, mixed)
+        per[f"{f}x{w}{'r' if mixed else ''}"] = round(warm, 5)
+        total_warm += c * warm
+        total_cold += c * cold
+        total_bound += c * _frames_case_bound_ms(f, w, mixed)
+    n = sum(shapes.values())
+    log(f"[k2-frames-path] {n} launches of [pipeline] at their shapes: in all "
+        f"{total_warm:.4f} ms warm, {total_cold:.4f} ms cold, bound {total_bound:.4f} ms (share "
+        f"{total_bound / total_warm:.3f}); a launch {total_warm / n:.4f} ms warm, "
+        f"{total_cold / n:.4f} ms cold; warm ms by FxLanes (r: reintegration) {json.dumps(per)}")
+    return {"path_launches": n, "path_total_ms": total_warm, "path_total_cold_ms": total_cold,
+            "path_total_bound_ms": total_bound, "path_share": total_bound / total_warm,
+            "path_mean_ms": total_warm / n, "path_mean_cold_ms": total_cold / n}
 
 
 def _slice_config(small: bool):
@@ -816,14 +1025,16 @@ def phase_small():
 
 
 def _tracked_config(small: bool):
-    from texturefusion_torch.config import CameraConfig, PipelineConfig, TrackingConfig
+    from texturefusion_torch.config import BAConfig, CameraConfig, PipelineConfig, TrackingConfig
     if small:
         from texturefusion_torch.config import tiny_test_config
         return tiny_test_config()
-    # bench.py's camera and blur gate; the default BAConfig keeps this
-    # loop's keyframe count below schur_min_keyframes (dense BA)
+    # bench.py's camera, blur gate and BA setting (bench.py:171): BA from
+    # schur_min_keyframes on is the JAX package's Schur BA, on one device
+    # the dense solve
     return PipelineConfig(camera=CameraConfig(far_plane=6.0, d0=-0.03, d1=0.005),
-                          tracking=TrackingConfig(blur_threshold=3.0))
+                          tracking=TrackingConfig(blur_threshold=3.0),
+                          ba=BAConfig(schur_min_keyframes=BA_MIN_KEYFRAMES))
 
 
 def _frame_draws(draw_fn, tcfg):
@@ -887,6 +1098,7 @@ def _tracking_metrics(slam, poses):
     truth = loop_closure.ground_truth_pairs(gt[[k.frame_index for k in slam.keyframes]])
     return {"ate_mm": tum.ate_rmse(traj, gt) * 1e3, "keyframes": len(slam.keyframes),
             "edges": slam.n_edges, "loop_edges": len(det), "origins": slam.origin_count,
+            "ba_keyframes": slam.ba_keyframes,
             "tracked": sum(f.tracking_success for f in slam.frames),
             "blurred": [f.index for f in slam.frames if f.blurred],
             "lc": loop_closure.precision_recall(det, truth)}, traj
@@ -917,6 +1129,7 @@ def phase_tracked(n_frames=120):
         f"(clocks.sm,power.draw after: {nvidia_smi('clocks.sm,power.draw')}) "
         + " ".join(f"{k} {v:.3f} s" for k, v in stages.items()))
     log(f"[tracked] ate_mm={m['ate_mm']:.3f} keyframes={m['keyframes']} edges={m['edges']} "
+        f"ba_keyframes={m['ba_keyframes']} (schur_min_keyframes={config.ba.schur_min_keyframes}) "
         f"loop_edges={m['loop_edges']} origins={m['origins']} tracked={m['tracked']} "
         f"blurred={m['blurred']} loop_closure={json.dumps(m['lc'])} "
         f"launches={json.dumps(launches)}")
@@ -926,6 +1139,9 @@ def phase_tracked(n_frames=120):
         raise AssertionError(f"ATE {m['ate_mm']:.3f} mm above {ATE_MM} mm")
     if m["loop_edges"] < 1:
         raise AssertionError("no loop-closure edge")
+    if m["ba_keyframes"] < BA_MIN_KEYFRAMES:
+        raise AssertionError(f"BA ran over at most {m['ba_keyframes']} keyframes, not past "
+                             f"{BA_MIN_KEYFRAMES}")
     if launches["bilateral"] != n_frames:
         raise AssertionError(f"K1 launched {launches['bilateral']} times for {n_frames} frames")
     return launches, (config, poses, packed)
@@ -1035,7 +1251,32 @@ def _map_error_mm(pipe, scene, gt):
     return float(np.sqrt(np.mean(err ** 2)) * 1e3), float(np.median(err) * 1e3), len(verts)
 
 
-def _pipeline_report(name, pipe, loop, fin, scene, poses, launches, n_frames):
+def frame_shapes_summary(shapes) -> dict:
+    """The F-frame mode's launches ({(F, lanes, mixed signs): count}, as
+    cuda_kernels.FRAME_SHAPES counts them): the launches, their frames and
+    lanes, the mean width of local-frame passes (one sign) and of drift
+    reintegrations (-1 and +1), and the (F, lanes) histogram."""
+    def mean_lanes(mixed):
+        n = sum(c for (_, _, m), c in shapes.items() if m == mixed)
+        return sum(w * c for (_, w, m), c in shapes.items() if m == mixed) / max(n, 1), n
+
+    local, n_local = mean_lanes(False)
+    reint, n_reint = mean_lanes(True)
+    hist = {}
+    for (f, w, _), c in sorted(shapes.items()):
+        hist[f"{f}x{w}"] = hist.get(f"{f}x{w}", 0) + c
+    frames = {}
+    for (f, _, _), c in shapes.items():
+        frames[f] = frames.get(f, 0) + c
+    return {"launches": sum(shapes.values()), "frames": dict(sorted(frames.items())),
+            "local_passes": n_local, "local_mean_lanes": round(local, 1),
+            "reintegrations": n_reint, "reintegration_mean_lanes": round(reint, 1),
+            "lanes_min_max": [min((w for _, w, _ in shapes), default=0),
+                              max((w for _, w, _ in shapes), default=0)],
+            "FxLanes": hist}
+
+
+def _pipeline_report(name, pipe, loop, fin, scene, poses, launches, n_frames, shapes):
     """Print one pipeline run's numbers, check its exports, apply the map
     and tracking gates. Returns its metrics."""
     from texturefusion_torch.io import ply
@@ -1057,7 +1298,8 @@ def _pipeline_report(name, pipe, loop, fin, scene, poses, launches, n_frames):
         f"{nvidia_smi('clocks.sm,power.draw')}); stage seconds {json.dumps(stages)} "
         f"counts {json.dumps(dict(STOPWATCH.counts))}")
     log(f"[{name}] ate_mm={m['ate_mm']:.3f} keyframes={m['keyframes']} edges={m['edges']} "
-        f"loop_edges={m['loop_edges']} origins={m['origins']} tracked={m['tracked']} "
+        f"ba_keyframes={m['ba_keyframes']} loop_edges={m['loop_edges']} origins={m['origins']} "
+        f"tracked={m['tracked']} "
         f"reintegrations={st['reintegrations']} (reuse {st['reintegrations_reuse']}, full "
         f"{st['reintegrations_full']}) map_rms_mm={rms:.3f} map_median_mm={med:.3f} "
         f"active_chunks={m['active']} frozen_chunks={m['frozen']} verts={n_raw} "
@@ -1069,8 +1311,12 @@ def _pipeline_report(name, pipe, loop, fin, scene, poses, launches, n_frames):
     if not (m["ate_mm"] <= ATE_MM and rms <= MAP_RMS_MM and med < MAP_MEDIAN_MM):
         raise AssertionError(f"[{name}] gates failed: ATE {m['ate_mm']:.3f} mm, map RMS "
                              f"{rms:.3f} mm, median {med:.3f} mm")
+    m["frame_shapes"] = shapes
+    log(f"[{name}] F-frame mode shapes: {json.dumps(frame_shapes_summary(shapes))}")
     if m["loop_edges"] < 1 or st["reintegrations"] < 1:
         raise AssertionError(f"[{name}] no loop-closure edge or no reintegration")
+    if m["ba_keyframes"] < BA_MIN_KEYFRAMES:
+        raise AssertionError(f"[{name}] BA ran over at most {m['ba_keyframes']} keyframes")
     if not (launches["bilateral"] == n_frames and launches["tsdf_integrate"] > 0
             and launches["tsdf_integrate_frames"] > 0):
         raise AssertionError(f"[{name}] a kernel of the path did not run as it should: "
@@ -1109,8 +1355,9 @@ def phase_pipeline(frames, async_fusion=False, max_resident=0, reference=None,
     pipe, loop, fin = run_pipeline(config, packed, "cuda", on_frame=on_frame,
                                    textured=textured)
     launches = dict(cuda_kernels.LAUNCHES)
+    shapes = dict(cuda_kernels.FRAME_SHAPES)
     scene = _bench_scene()
-    m = _pipeline_report(name, pipe, loop, fin, scene, poses, launches, len(packed))
+    m = _pipeline_report(name, pipe, loop, fin, scene, poses, launches, len(packed), shapes)
     if textured:
         _textured_report(name, pipe, scene, poses, m, reference)
     pipe.close()
@@ -1394,6 +1641,7 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
+    phase_sass()
     k1 = phase_k1()
     k2 = phase_k2()
     k2f = phase_k2_frames()
@@ -1404,6 +1652,7 @@ def main() -> int:
     phase_tracked_small()
     phase_profile_tracked(tracked_frames)
     runs = [phase_pipeline(tracked_frames)]
+    k2f.update(phase_k2_frames_path(runs[0]["frame_shapes"]))
     runs.append(phase_pipeline(tracked_frames, async_fusion=True, reference=runs[0]))
     runs.append(phase_pipeline(tracked_frames, max_resident=runs[0]["active"] // 2,
                                reference=runs[0]))

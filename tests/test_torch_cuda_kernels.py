@@ -38,13 +38,15 @@ ROW_TOL = ((1e-5, 1e-5), (1e-6, 1e-6), (1e-4, 1e-3), (1e-6, 1e-6))
 # clamped chunks this near); chunks from z = -0.4 m to 0.8 m and wider than
 # the view before a wall at 0.6 m (behind the camera and partly outside it);
 # 2048 chunks from z = -1.6 m to 4.4 m around a wall at 2 m, the default
-# config's whole update budget
+# config's whole update budget; 72 chunks from z = 1.2 m to 2.4 m around a
+# wall at 2 m, most in view (scenes of more than 16 chunks take WIDE_TSDF)
 SCENES = {
     "wall": (2.0, [(x, y, 4) for x in range(-2, 2) for y in range(-1, 2)]),
     "near": (0.4, [(x, y, z) for x in range(-1, 1) for y in range(-1, 1) for z in (0, 1)]),
     "behind": (0.6, [(x, y, z) for x in (-3, -1, 0, 2) for y in (-1,) for z in (-1, 0, 1)]),
     "wide": (2.0, [(x, y, z) for x in range(-8, 8) for y in range(-8, 8)
                    for z in range(-4, 12, 2)]),
+    "block": (2.0, [(x, y, z) for x in range(-3, 3) for y in range(-2, 2) for z in (3, 4, 5)]),
 }
 WIDE_TSDF = TSDFConfig(voxel_resolution=0.05, capacity=4096, max_update_chunks=2048)
 
@@ -59,10 +61,10 @@ def cuda_device():
 def _scene(seed, pre_integrated, device, scene="wall", n_active=None):
     """Rows, the origins table, idx/active (n_active real lanes first, then
     the trash slot), depth/rgb/quality planes and an identity pose."""
-    cfg = WIDE_TSDF if scene == "wide" else CONFIG.tsdf
+    wall, ids = SCENES[scene]
+    cfg = CONFIG.tsdf if len(ids) <= CONFIG.tsdf.max_update_chunks else WIDE_TSDF
     intr = cam.Intrinsics.from_config(CONFIG.camera)
     s1, v, u = cfg.capacity + 1, 512, cfg.max_update_chunks
-    wall, ids = SCENES[scene]
     rng = np.random.default_rng(seed)
     d = (wall + rng.normal(0, 0.01 * wall, (intr.height, intr.width))).astype(np.float32)
     d[rng.random(d.shape) < 0.05] = 0.0
@@ -191,6 +193,43 @@ def test_frames_mode_matches_plain(cuda_device, scene, n_frames, pre):
         torch.testing.assert_close(a[:cap], b[:cap], rtol=rtol, atol=atol)
     assert torch.equal(kb.color, colour[0]) and torch.equal(kb.color_count, colour[1])
     assert bool((kb.weight[idx[:n]] != pb.weight.new_tensor(0)).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", cuda_kernels.FRAMES_TILES)
+@pytest.mark.parametrize("n_frames", [1, 5, 6, 7, 12, cuda_kernels.MAX_FRAMES])
+@pytest.mark.parametrize("mixed,flags", [(False, False), (True, True)])
+def test_frames_tiles_match_plain(cuda_device, monkeypatch, tile, n_frames, mixed, flags):
+    """Every instantiated tile (voxels a thread, frames a group) of the
+    F-frame mode against integrate_depths_batched_plain on 37 lanes of the
+    "block" scene, pre-integrated: frame counts that fill, split and
+    overrun a group, up to MAX_FRAMES; signs all +1, or alternating -1 /
+    +1 (the voxels that fall to w <= min_weight reset); the real slots
+    alone, or the padded list with its active flags and one real lane
+    turned off."""
+    monkeypatch.setattr(cuda_kernels, "FRAMES_TILE", tile)
+    args, n = _scene(7, True, cuda_device, "block", n_active=37)
+    kb, origins, idx, active, _, _, _, _, intr, cfg = args
+    depths, poses = _frames(8, n_frames, SCENES["block"][0], intr, cuda_device)
+    signs = [(-1.0) ** (f + 1) for f in range(n_frames)] if mixed else 1.0
+    if flags:
+        active[4] = False
+        k_idx, k_active = idx, active
+    else:
+        k_idx, k_active = idx[:n], None
+    pb = tsdf.ChunkBatch(*(a.clone() for a in kb))
+    w0 = kb.weight.clone()
+    before = cuda_kernels.LAUNCHES["tsdf_integrate_frames"]
+    tsdf.integrate_depths_batched(kb, origins, k_idx, k_active, depths, poses, signs, intr, cfg)
+    assert cuda_kernels.LAUNCHES["tsdf_integrate_frames"] == before + 1
+    tsdf.integrate_depths_batched_plain(pb, origins, idx, active, depths, poses, signs, intr,
+                                        cfg)
+    cap = cfg.capacity
+    for a, b, (rtol, atol) in zip(kb, pb, ROW_TOL):
+        torch.testing.assert_close(a[:cap], b[:cap], rtol=rtol, atol=atol)
+    assert bool((kb.weight != w0).any())
+    if flags:
+        assert torch.equal(kb.weight[idx[4]], w0[idx[4]])     # the lane turned off
 
 
 @pytest.mark.cuda
@@ -396,6 +435,16 @@ def test_wrappers_refuse_cpu_and_wrong_types():
         call(quality=None)
     with pytest.raises(ValueError, match="shape"):
         call(active=active[:-1])                     # one flag a lane
+
+
+def test_frames_tiles_are_instantiated():
+    """The F-frame tiles the wrapper may launch are those the CUDA source
+    instantiates, and the default is one of them."""
+    with open(os.path.join(os.path.dirname(cuda_kernels.__file__), "..", "csrc",
+                           "tsdf_integrate.cu")) as f:
+        cases = re.findall(r"TF_FRAMES_CASE\((\d), (\d)\)", f.read())
+    assert sorted((int(v), int(g)) for v, g in cases) == sorted(cuda_kernels.FRAMES_TILES)
+    assert cuda_kernels.FRAMES_TILE in cuda_kernels.FRAMES_TILES
 
 
 def test_frames_wrapper_refuses_cpu_and_wrong_frames():

@@ -111,6 +111,41 @@ def test_optimize_matches_jax(noise, seed, rounds, iters):
             np.testing.assert_allclose(tout.numpy()[k], gt[k], atol=2e-3)
 
 
+@pytest.mark.parametrize("rounds,corrupt", [(1, False), (3, True)])
+def test_optimize_matches_one_device_schur_ba(rounds, corrupt):
+    """The port's dense optimize against the JAX package's BA past
+    schur_min_keyframes: ba_rounds on a 1-device mesh with use_schur, as
+    its GCSLAM runs it, on test_parallel's 32-keyframe chain with three
+    loop edges, 4 iterations a round. Three rounds prune between rounds:
+    the first loop edge is corrupted so that an outlier is pruned and the
+    errors stay above the float32 noise floor, where pruning would decide
+    on noise. Tolerances of test_parallel.py::test_schur_gn_matches_dense:
+    the first error rtol 1e-4, every later one within 3e-5 of the first;
+    poses rtol 2e-3, atol 2e-4; then the same edge mask."""
+    from test_parallel import _make_chain_graph
+    from texturefusion_tpu.parallel import ba as pba
+    from texturefusion_tpu.parallel.mesh import make_mesh
+    poses, edges, active, _, n_kf = _make_chain_graph()
+    if corrupt:
+        s_pq = np.asarray(edges.s_pq).copy()
+        s_pq[n_kf - 1] -= 50.0 * np.eye(3, dtype=np.float32)
+        edges = edges._replace(s_pq=jnp.asarray(s_pq))
+    cfg = BAConfig(gn_rounds=rounds, gn_iterations_per_round=4)
+    e_bucket = int(edges.s_w.shape[0])
+    jout, jvalid, jerrs = pba.ba_rounds(poses, edges, n_kf, active, cfg, make_mesh(1),
+                                        e_bucket, True, cfg.schur_separator_budget)
+    _, (tp, te, ta) = _both(np.asarray(poses), edges, np.asarray(active))
+    tout, tedges, terrs = tba.optimize(tp, te, n_kf, ta, cfg)
+    jerrs, terrs = np.asarray(jerrs), terrs.numpy()
+    assert terrs.shape == jerrs.shape == (rounds, 2)
+    np.testing.assert_allclose(terrs[0, 0], jerrs[0, 0], rtol=1e-4)
+    assert (np.abs(terrs - jerrs).reshape(-1)[1:] < 3e-5 * jerrs[0, 0]).all()
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=2e-3, atol=2e-4)
+    np.testing.assert_array_equal(tedges.valid.numpy(), np.asarray(jvalid))
+    if corrupt:
+        assert not tedges.valid[n_kf - 1] and tedges.valid[:n_kf - 1].all()   # odometry kept
+
+
 def test_prune_outlier_edges_matches_jax(graph):
     poses, edges, active, _ = graph
     s_pq = np.asarray(edges.s_pq).copy()

@@ -289,15 +289,48 @@ tsdf_integrate_kernel(float* __restrict__ sdf, float* __restrict__ weight,
   }
 }
 
+// V floats of a row, x-adjacent voxels, in one load or store.
+__device__ __forceinline__ void load_v(const float* src, float (&o)[1]) { o[0] = *src; }
+__device__ __forceinline__ void load_v(const float* src, float (&o)[2]) {
+  const float2 v = *reinterpret_cast<const float2*>(src);
+  o[0] = v.x;
+  o[1] = v.y;
+}
+__device__ __forceinline__ void load_v(const float* src, float (&o)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(src);
+  o[0] = v.x;
+  o[1] = v.y;
+  o[2] = v.z;
+  o[3] = v.w;
+}
+__device__ __forceinline__ void store_v(float* dst, const float (&v)[1]) { *dst = v[0]; }
+__device__ __forceinline__ void store_v(float* dst, const float (&v)[2]) {
+  *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+}
+__device__ __forceinline__ void store_v(float* dst, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
 // F-frame mode: depth-only frames [F, H, W] at poses [F, 4, 4] with one
 // sign each, into the sdf and weight rows of the listed chunks, in one
 // read-modify-write (texturefusion_torch/ops/tsdf.py
 // integrate_depths_batched_plain). Each frame adds a_f = w * sign_f and
 // a_f * dist_f where the voxel passes its band test; after the last frame
 // a voxel that any frame updated takes w + sum(a), (sdf * w + sum(a*dist)) /
-// (w + sum(a) + 1e-4), then the reset. Colour rows are not touched. The
-// block layout, the early row loads and the projection are K2's.
-__global__ void __launch_bounds__(kThreads)
+// (w + sum(a) + 1e-4), then the reset. Colour rows are not touched.
+//
+// One block of 512 / V threads per listed chunk, V x-adjacent voxels a
+// thread. Before the frames, thread f < F inverts frame f's pose and
+// computes its w * sign and its band limit (truncation at the chunk
+// origin + res_diag) into shared memory, with K2's arithmetic, so no pose
+// load or inverse sits in the frame loop. The frames then go in groups of
+// G (a compile-time count, so the group is unrolled): every voxel of the
+// group's frames is projected and every depth gather issued, through the
+// read-only path, before the first is used; the sums then take the frames
+// in order, as the plain version does. The last group skips its missing
+// frames by block-uniform tests.
+template <int V, int G>
+__global__ void __launch_bounds__(kVoxels / V)
 tsdf_integrate_frames_kernel(float* __restrict__ sdf, float* __restrict__ weight,
                              const int64_t* __restrict__ idx,
                              const uint8_t* __restrict__ active,   // may be null
@@ -305,40 +338,35 @@ tsdf_integrate_frames_kernel(float* __restrict__ sdf, float* __restrict__ weight
                              const float* __restrict__ depths,     // [F, H, W]
                              const float* __restrict__ c2w_all,    // [F, 4, 4]
                              const TsdfParams p, const FrameSigns fs) {
+  static_assert(kVoxels / V >= kMaxFrames, "one thread a frame stages the poses");
+  __shared__ float4 frame_rows[kMaxFrames][4];   // w2c rows 0-2; (w * sign, band, -, -)
   __shared__ float cent[8];
-  __shared__ float sgn[kMaxFrames];   // indexed by frame: a constant index of fs only
 
   const int lane = blockIdx.x;
   const int t = threadIdx.x;
   const int64_t slot = idx[lane];
   const bool live = (active == nullptr || active[lane]) && slot >= 0 && slot < p.n_rows;
   if (!live) return;                             // block-uniform
+  const int n_frames = fs.n_frames;
 
-  const int64_t row4 = slot * (kVoxels / 4) + t;
-  const float4 s4 = reinterpret_cast<const float4*>(sdf)[row4];
-  const float4 w4 = reinterpret_cast<const float4*>(weight)[row4];
-  if (t == 0) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) cent[i] = p.centroid[i];
-#pragma unroll
-    for (int i = 0; i < kMaxFrames; ++i) sgn[i] = fs.sign[i];
-  }
-  const int v0 = 4 * t;
+  // the rows first: nothing below decides whether they are needed
+  const int v0 = V * t;                          // this thread's V voxels
+  float* const sdf_row = sdf + slot * kVoxels + v0;
+  float* const w_row = weight + slot * kVoxels + v0;
+  float s_old[V], w_old[V];
+  load_v(sdf_row, s_old);
+  load_v(w_row, w_old);
+
   const float ox = origins[slot * 3 + 0];
   const float oy = origins[slot * 3 + 1];
   const float oz = origins[slot * 3 + 2];
-  __syncthreads();
-  const float wy = oy + cent[(v0 >> 3) & 7];
-  const float wz = oz + cent[v0 >> 6];
-  float wx[4];
+  if (t == 0) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) wx[j] = ox + cent[(v0 + j) & 7];
-
-  float a[4] = {0.0f, 0.0f, 0.0f, 0.0f}, ad[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  bool touched[4] = {false, false, false, false};
-  const int64_t plane = (int64_t)p.width * p.height;
-  for (int f = 0; f < fs.n_frames; ++f) {
-    const float* c2w = c2w_all + 16 * f;
+    for (int i = 0; i < 8; ++i) cent[i] = p.centroid[i];
+  }
+  if (t < n_frames) {
+    // world -> camera of frame t, as K2: Rt then -(Rt t) summed x + y + z
+    const float* c2w = c2w_all + 16 * t;
     float w2c[12];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
@@ -348,44 +376,94 @@ tsdf_integrate_frames_kernel(float* __restrict__ sdf, float* __restrict__ weight
       w2c[i * 4 + 3] = -(c2w[0 * 4 + i] * c2w[3] + c2w[1 * 4 + i] * c2w[7] +
                          c2w[2 * 4 + i] * c2w[11]);
     }
-    const float w_in = p.integration_weight * sgn[f];
+    float sign = 0.0f;                           // fs.sign[t], by constant indices only
+#pragma unroll
+    for (int i = 0; i < kMaxFrames; ++i) sign = i == t ? fs.sign[i] : sign;
     const float oz_cam = w2c[8] * ox + w2c[9] * oy + w2c[10] * oz + w2c[11];
     const float trunc = fabsf(p.trunc_quad * oz_cam * oz_cam + p.trunc_linear * oz_cam +
                               p.trunc_const) * p.trunc_scale;
-    const float* depth = depths + plane * f;
-    float z[4], d[4];
-    int pix[4];
-    bool in_img[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float xc = w2c[0] * wx[j] + w2c[1] * wy + w2c[2] * wz + w2c[3];
-      const float yc = w2c[4] * wx[j] + w2c[5] * wy + w2c[6] * wz + w2c[7];
-      z[j] = w2c[8] * wx[j] + w2c[9] * wy + w2c[10] * wz + w2c[11];
-      const float safe_z = fabsf(z[j]) > 1e-9f ? z[j] : 1e-9f;
-      const float ur = rintf(p.fx * xc / safe_z + p.cx);
-      const float vr = rintf(p.fy * yc / safe_z + p.cy);
-      in_img[j] = ur > 0.0f && ur < (float)(p.width - 1) && vr > 0.0f &&
-                  vr < (float)(p.height - 1) && z[j] > 0.0f;
-      pix[j] = in_img[j] ? (int)vr * p.width + (int)ur : 0;
+    for (int i = 0; i < 3; ++i)
+      frame_rows[t][i] = make_float4(w2c[i * 4], w2c[i * 4 + 1], w2c[i * 4 + 2], w2c[i * 4 + 3]);
+    frame_rows[t][3] = make_float4(p.integration_weight * sign, trunc + p.res_diag, 0.0f, 0.0f);
+  }
+  __syncthreads();                               // cent and frame_rows are filled
+
+  const float wy = oy + cent[(v0 >> 3) & 7];
+  const float wz = oz + cent[v0 >> 6];
+  float wx[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) wx[j] = ox + cent[(v0 + j) & 7];
+  const float u_max = (float)(p.width - 1), v_max = (float)(p.height - 1);
+  const float width = (float)p.width;
+  const int64_t plane = (int64_t)p.width * p.height;
+
+  float a[V], ad[V];
+  bool touched[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    a[j] = 0.0f;
+    ad[j] = 0.0f;
+    touched[j] = false;
+  }
+  for (int f0 = 0; f0 < n_frames; f0 += G) {
+    float z[G][V], d[G][V];
+    int pix[G][V];
+    bool in_img[G][V];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (f0 + g >= n_frames) {                  // block-uniform: the last group's gap
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          z[g][j] = 0.0f;
+          in_img[g][j] = false;
+          pix[g][j] = 0;
+        }
+        continue;
+      }
+      const float4 r0 = frame_rows[f0 + g][0];
+      const float4 r1 = frame_rows[f0 + g][1];
+      const float4 r2 = frame_rows[f0 + g][2];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        // (r0*x + r1*y + r2*z) + t, in this order
+        const float xc = r0.x * wx[j] + r0.y * wy + r0.z * wz + r0.w;
+        const float yc = r1.x * wx[j] + r1.y * wy + r1.z * wz + r1.w;
+        z[g][j] = r2.x * wx[j] + r2.y * wy + r2.z * wz + r2.w;
+        const float safe_z = fabsf(z[g][j]) > 1e-9f ? z[g][j] : 1e-9f;
+        const float ur = rintf(p.fx * xc / safe_z + p.cx);   // half to even
+        const float vr = rintf(p.fy * yc / safe_z + p.cy);
+        in_img[g][j] = ur > 0.0f && ur < u_max && vr > 0.0f && vr < v_max && z[g][j] > 0.0f;
+        // vr * width + ur is exact in float: the plain version's flat index
+        pix[g][j] = in_img[g][j] ? (int)(vr * width + ur) : 0;
+      }
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) d[j] = in_img[j] ? depth[pix[j]] : 0.0f;
+    for (int g = 0; g < G; ++g) {
+      const float* depth = depths + plane * (f0 + g);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float dist = d[j] - z[j];
-      if (in_img[j] && d[j] > p.near_plane && d[j] < p.far_plane && dist > -0.03f &&
-          dist < trunc + p.res_diag) {
-        a[j] = a[j] + w_in;
-        ad[j] = ad[j] + w_in * dist;
-        touched[j] = true;
+      for (int j = 0; j < V; ++j) d[g][j] = in_img[g][j] ? __ldg(depth + pix[g][j]) : 0.0f;
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (f0 + g >= n_frames) break;             // block-uniform
+      const float4 wb = frame_rows[f0 + g][3];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float dist = d[g][j] - z[g][j];
+        if (in_img[g][j] && d[g][j] > p.near_plane && d[g][j] < p.far_plane && dist > -0.03f &&
+            dist < wb.y) {
+          a[j] = a[j] + wb.x;
+          ad[j] = ad[j] + wb.x * dist;
+          touched[j] = true;
+        }
       }
     }
   }
 
-  float s_old[4] = {s4.x, s4.y, s4.z, s4.w};
-  float w_old[4] = {w4.x, w4.y, w4.z, w4.w};
+  bool any = false;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < V; ++j) {
     if (touched[j]) {
       float new_w = w_old[j] + a[j];
       float new_sdf = (s_old[j] * w_old[j] + ad[j]) / (new_w + 1e-4f);
@@ -395,29 +473,49 @@ tsdf_integrate_frames_kernel(float* __restrict__ sdf, float* __restrict__ weight
       }
       s_old[j] = new_sdf;
       w_old[j] = new_w;
+      any = true;
     }
   }
-  if (touched[0] || touched[1] || touched[2] || touched[3]) {
-    reinterpret_cast<float4*>(sdf)[row4] = make_float4(s_old[0], s_old[1], s_old[2], s_old[3]);
-    reinterpret_cast<float4*>(weight)[row4] = make_float4(w_old[0], w_old[1], w_old[2], w_old[3]);
+  if (any) {
+    store_v(sdf_row, s_old);
+    store_v(w_row, w_old);
   }
+}
+
+template <int V, int G>
+int launch_frames(float* sdf, float* weight, const int64_t* idx, const uint8_t* active,
+                  const float* origins, const float* depths, const float* cam_to_worlds,
+                  const TsdfParams& params, const FrameSigns& signs, int n_lanes,
+                  cudaStream_t stream) {
+  tsdf_integrate_frames_kernel<V, G><<<n_lanes, kVoxels / V, 0, stream>>>(
+      sdf, weight, idx, active, origins, depths, cam_to_worlds, params, signs);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// F-frame mode: one block per lane of idx [n_lanes]; active may be null;
-// depths [n_frames, H, W], cam_to_worlds [n_frames, 4, 4], with
-// 1 <= n_frames <= kMaxFrames (the signs travel in `signs`).
+// F-frame mode: one block of 512 / voxels_per_thread threads per lane of
+// idx [n_lanes]; active may be null; depths [n_frames, H, W], cam_to_worlds
+// [n_frames, 4, 4], with 1 <= n_frames <= kMaxFrames (the signs travel in
+// `signs`); frames in groups of `group`. (voxels_per_thread, group) is one
+// of (1|2|4, 1|2|3|4).
 extern "C" int tf_tsdf_integrate_frames_launch(
     float* sdf, float* weight, const int64_t* idx, const uint8_t* active, const float* origins,
     const float* depths, const float* cam_to_worlds, const TsdfParams* params,
-    const FrameSigns* signs, int n_lanes, void* stream) {
+    const FrameSigns* signs, int n_lanes, int voxels_per_thread, int group, void* stream) {
   if (n_lanes < 0 || signs->n_frames < 1 || signs->n_frames > kMaxFrames)
     return (int)cudaErrorInvalidValue;
   if (n_lanes == 0) return (int)cudaSuccess;
-  tsdf_integrate_frames_kernel<<<n_lanes, kThreads, 0, (cudaStream_t)stream>>>(
-      sdf, weight, idx, active, origins, depths, cam_to_worlds, *params, *signs);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+#define TF_FRAMES_CASE(V, G)                                                               \
+  if (voxels_per_thread == V && group == G)                                                \
+    return launch_frames<V, G>(sdf, weight, idx, active, origins, depths, cam_to_worlds,   \
+                               *params, *signs, n_lanes, s);
+  TF_FRAMES_CASE(1, 1) TF_FRAMES_CASE(1, 2) TF_FRAMES_CASE(1, 3) TF_FRAMES_CASE(1, 4)
+  TF_FRAMES_CASE(2, 1) TF_FRAMES_CASE(2, 2) TF_FRAMES_CASE(2, 3) TF_FRAMES_CASE(2, 4)
+  TF_FRAMES_CASE(4, 1) TF_FRAMES_CASE(4, 2) TF_FRAMES_CASE(4, 3) TF_FRAMES_CASE(4, 4)
+#undef TF_FRAMES_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 // One block per lane of idx [n_lanes]; active [n_lanes] may be null.

@@ -22,11 +22,14 @@ allocate their outputs with torch.empty and never synchronise.
 `LAUNCHES` counts kernel launches per kernel (K2's F-frame mode under
 its own key); each wrapper adds one right after its launch and nowhere
 else, so a run can show that its main path went through the kernels.
-`LANES` sums the lanes each mode of K2 was launched over.
+`LANES` sums the lanes each mode of K2 was launched over, and
+`FRAME_SHAPES` counts the F-frame mode's launches by (frames, lanes,
+whether the signs mix -1 and +1: a drift reintegration).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -48,9 +51,14 @@ SOURCES = {"bilateral.cu": (), "tsdf_integrate.cu": ("-fmad=false",)}
 MAX_RADIUS = 8              # K1 is instantiated for radius 0..MAX_RADIUS
 
 MAX_FRAMES = 64             # frames of one launch of K2's F-frame mode
+# (voxels a thread, frames a group) of the F-frame mode: the instantiated
+# tiles, and the one its wrapper launches
+FRAMES_TILES = tuple((v, g) for v in (1, 2, 4) for g in (1, 2, 3, 4))
+FRAMES_TILE = (2, 1)
 
 LAUNCHES = {"bilateral": 0, "tsdf_integrate": 0, "tsdf_integrate_frames": 0}
 LANES = {"tsdf_integrate": 0, "tsdf_integrate_frames": 0}
+FRAME_SHAPES: collections.Counter = collections.Counter()
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -60,6 +68,7 @@ def reset_launch_counts() -> None:
     for counts in (LAUNCHES, LANES):
         for k in counts:
             counts[k] = 0
+    FRAME_SHAPES.clear()
 
 
 def _nvcc() -> str:
@@ -138,7 +147,7 @@ def build(verbose: bool = False) -> ctypes.CDLL:
         lib.tf_tsdf_integrate_launch.argtypes = [p] * 13 + [ctypes.POINTER(TsdfParams), i, p]
         lib.tf_tsdf_integrate_frames_launch.restype = i
         lib.tf_tsdf_integrate_frames_launch.argtypes = [p] * 7 + [
-            ctypes.POINTER(TsdfParams), ctypes.POINTER(FrameSigns), i, p]
+            ctypes.POINTER(TsdfParams), ctypes.POINTER(FrameSigns), i, i, i, p]
         _lib = lib
         return lib
 
@@ -306,7 +315,9 @@ def tsdf_integrate_frames_cuda(sdf: torch.Tensor, weight: torch.Tensor,
     cam_to_worlds [F, 4, 4], with `signs` F host floats (1 <= F <=
     MAX_FRAMES), into rows sdf/weight [S+1, 512] IN PLACE at the slots
     `idx` [U] (int64; `active` [U] bool or None as in tsdf_integrate_cuda).
-    One launch of one block per lane; colour rows are not touched."""
+    One launch of one block of 512 / V threads per lane, where (V, G) =
+    FRAMES_TILE: V voxels a thread, frames in groups of G; colour rows are
+    not touched."""
     n_rows, u = _require_rows(cfg, sdf, weight, idx, active, origins)
     n_frames = len(signs)
     if not 1 <= n_frames <= MAX_FRAMES:
@@ -324,8 +335,9 @@ def tsdf_integrate_frames_cuda(sdf: torch.Tensor, weight: torch.Tensor,
     rc = lib.tf_tsdf_integrate_frames_launch(
         sdf.data_ptr(), weight.data_ptr(), idx.data_ptr(),
         None if active is None else active.data_ptr(), origins.data_ptr(), depths.data_ptr(),
-        cam_to_worlds.data_ptr(), ctypes.byref(params), ctypes.byref(fs), u,
+        cam_to_worlds.data_ptr(), ctypes.byref(params), ctypes.byref(fs), u, *FRAMES_TILE,
         torch.cuda.current_stream(sdf.device).cuda_stream)
     _check(rc, "tsdf_integrate_frames")
     LAUNCHES["tsdf_integrate_frames"] += 1
     LANES["tsdf_integrate_frames"] += u
+    FRAME_SHAPES[(n_frames, u, min(signs) < 0 < max(signs))] += 1

@@ -18,8 +18,8 @@ carried: deferred promotion (`defer_promote` is ignored: promotion is
 synchronous), the pipelined tracker's stale-reference path, async pose
 fetches and the BA bucket floors (BA runs at the true keyframe and edge
 counts). The branches that are not ported raise NotImplementedError:
-a `res_kf_slot` that is not the last keyframe, and the Schur or
-multi-device BA.
+a `res_kf_slot` that is not the last keyframe, and multi-device BA. On
+one device the JAX package's Schur BA is the dense solve (`_run_ba`).
 
 Random draws: every registration takes Gumbel draws from `draw_fn(cfg,
 n)` ([R, H, 4, K], or [n, R, H, 4, K] for n candidates). By default they
@@ -99,6 +99,7 @@ class GCSLAM:
         self._gen = torch.Generator(device=self.device).manual_seed(42)
         self._draw_fn = draw_fn or self._generator_draws
         self.last_ba_errors: List[np.ndarray] = []
+        self.ba_keyframes = 0        # the most keyframes a BA has run over
         self._kf_depth = None        # last keyframe depth/normals, for ICP only
         self._kf_normals = None
         self._prev_kp = None         # previous frame's keypoints: f2f fallback
@@ -178,24 +179,26 @@ class GCSLAM:
     def _run_ba(self) -> None:
         """FastBA over all keyframes (ref: optimizeKeyFrameMap
         MultiViewGeometry.cpp:1209-1217, at every new keyframe), dense,
-        at the true keyframe and edge counts."""
+        at the true keyframe and edge counts, on one device at any keyframe
+        count. From `schur_min_keyframes` on, the JAX package runs the
+        keyframe-partitioned Schur BA (parallel/ba.py) on a 1-device mesh;
+        there one block holds every keyframe, no edge crosses a block, the
+        separator set is empty and its step is the dense −H⁻¹b with the
+        same pin, damping, non-finite guard, rollback and pruning as
+        fastba.optimize. Several devices raise NotImplementedError."""
         n_kf = len(self.keyframes)
         if n_kf < 2 or self.n_edges < 1:
             return
         n_dev = self.config.parallel.n_devices
         if n_dev and n_dev > 1:
             raise NotImplementedError(
-                "edge-sharded multi-device BA is not ported yet (ROADMAP Queue 1 item 13)")
-        if n_kf >= self.config.ba.schur_min_keyframes:
-            raise NotImplementedError(
-                f"{n_kf} keyframes reach schur_min_keyframes="
-                f"{self.config.ba.schur_min_keyframes}: the Schur-complement BA is not "
-                "ported yet (ROADMAP Queue 1 item 13)")
+                "edge-sharded multi-device BA is not ported yet (ROADMAP Queue 1 item 6)")
         poses = torch.as_tensor(self.poses[:n_kf], device=self.device)
         active = torch.ones(n_kf, dtype=torch.bool, device=self.device)
         new_poses, edges, errs = fastba.optimize(poses, self.edges.head(self.n_edges), n_kf,
                                                  active, self.config.ba)
         self.last_ba_errors = list(errs.cpu().numpy())
+        self.ba_keyframes = max(self.ba_keyframes, n_kf)
         self.poses[:n_kf] = new_poses.cpu().numpy()
         self.edges.valid[:self.n_edges] = edges.valid
 
