@@ -6,7 +6,9 @@
 Phases (each prints one line of numbers; any failure exits non-zero):
   1. device   - requires CUDA; prints the card's name and power limit
   2. build    - compiles both hand-written kernels with nvcc (sm_90a),
-                one process per source, all at once
+                one process per source, all at once; [sass] counts the
+                built K2 and F-frame kernels' instructions (cuobjdump),
+                the operations of their bounds
   3. K1       - bilateral kernel vs its plain PyTorch version on a
                 480x640 depth image with holes and a depth step (radius
                 4, timed), and at radius 1 and 8 and on 479x641 and
@@ -44,8 +46,9 @@ Phases (each prints one line of numbers; any failure exits non-zero):
                 preprocess (K1), features, registration against the last
                 keyframe and the previous frame, keyframe-depth fusion
                 (frame_step_tracked2), GCSLAM decisions, promotion probes,
-                BA, final BA. Gates: ATE <= 25 mm, at least one
-                loop-closure edge, K1 launched once per frame
+                BA with bench.py's schur_min_keyframes = 16, final BA.
+                Gates: ATE <= 25 mm, at least one loop-closure edge, BA
+                over at least 16 keyframes, K1 launched once per frame
   9. tracked-small - the tracked path on the tiny config (160x120, 30
                 orbit frames: promotions, loop-closure probes, BA and the
                 final BA) on the GPU and on the CPU with the same RANSAC
@@ -61,8 +64,11 @@ Phases (each prints one line of numbers; any failure exits non-zero):
                 reintegration at the final poses) and the exports (welded
                 PLY, trajectory.txt). Gates: ATE <= 25 mm, map RMS <= 32 mm
                 and median < 20 mm after bench.py's Umeyama alignment, at
-                least one loop-closure edge and one reintegration, K1 once
-                per frame, K2 and the F-frame mode launched
+                least one loop-closure edge and one reintegration, BA
+                over at least 16 keyframes, K1 once per frame, K2 and the
+                F-frame mode launched; prints the F-frame mode's launch
+                shapes (frames, lanes), and [k2-frames-path] times it
+                alone at each of them
  12. pipeline-async - the same with the fusion thread (async_fusion=True,
                 bench.py's setting): the same gates, frames/s beside [pipeline]
  13. pipeline-stream - the same, synchronous, with max_resident_chunks at
@@ -84,8 +90,9 @@ Phases (each prints one line of numbers; any failure exits non-zero):
                 GPU against CPU with the same draws, geometry and texture
  16. profile-pipeline - 20 pipeline frames under torch.profiler (no gate)
 Phase 4 also checks reintegrate_frame_fused (two K2 launches) and K2's
-F-frame mode ([k2-frames]: F = 6 at +1, fresh and pre-integrated; F =
-12, -1 x 6 and +1 x 6 at poses moved 6 mm / 0.5 deg) against their plain
+F-frame mode ([k2-frames]: F = 6 at +1, fresh and pre-integrated; F = 3
+at +1; F = 6 and 12 as a drift reintegration, half the frames at -1, the
+other half at +1 at poses moved 6 mm / 0.5 deg) against their plain
 versions, and times the F-frame mode alone.
 The line before the last is a JSON object with each kernel's launches
 over the phases that drive it (5, 8, 11-14), its error against the plain
@@ -240,19 +247,23 @@ def _sass_target(ins):
 def sass_regions(instrs) -> dict:
     """A kernel's code in three regions, by its branches: "main" (before its
     first called subroutine, the slow path of a division), "loop" (the
-    widest backward branch's span) and "cond" (the widest forward branch's
-    span outside the loop, not around it: K2's colour block, the F-frame
-    mode's per-frame staging)."""
+    spans of its backward branches: a loop and the remainder of its
+    unrolling) and "cond" (the widest forward branch's span outside the
+    loops, not around one: K2's colour block, the F-frame mode's per-frame
+    staging)."""
     calls = [_sass_target(i) for i in instrs if i[1] == "CALL"]
     end = min(calls) if calls else instrs[-1][0] + 1
     main = [i for i in instrs if i[0] < end]
     branches = [(i[0], t) for i in main if i[1] == "BRA" and (t := _sass_target(i)) is not None]
     loops = [(t, a) for a, t in branches if t < a]
-    lo, hi = max(loops, key=lambda r: r[1] - r[0]) if loops else (end, end)
-    conds = [(a, t) for a, t in branches if t > a and not (lo <= a <= hi or lo <= t <= hi
-                                                           or (a < lo and hi < t))]
+
+    def in_loop(x):
+        return any(lo <= x <= hi for lo, hi in loops)
+
+    conds = [(a, t) for a, t in branches if t > a and not (
+        in_loop(a) or in_loop(t) or any(a < lo and hi < t for lo, hi in loops))]
     c_lo, c_hi = max(conds, key=lambda r: r[1] - r[0]) if conds else (end, end)
-    return {"main": main, "loop": [i for i in main if lo <= i[0] <= hi],
+    return {"main": main, "loop": [i for i in main if in_loop(i[0])],
             "cond": [i for i in main if c_lo < i[0] < c_hi]}
 
 
@@ -285,14 +296,15 @@ def frames_ops(n_frames: int, n_lanes: int) -> dict:
     """The F-frame mode's operations from its SASS: each voxel of each lane
     runs the frame loop's code once a frame (the loop body holds two
     MUFU.RCP a voxel and a frame: its projection's divisions), each thread
-    the code around the loop, and one thread a frame the staging."""
+    the code around the loop, and one thread a frame of each block the
+    staging."""
     from texturefusion_torch.ops import cuda_kernels
     c = SASS["tsdf_integrate_frames"]
-    v = cuda_kernels.FRAMES_TILE[0]
+    v, parts = cuda_kernels.FRAMES_TILE
     per_vf = {u: c["loop"][u] / (c["loop"]["rcp"] / 2) for u in ("fp32", "xu")}
     rest = {u: c["main"][u] - c["loop"][u] - c["cond"][u] for u in ("fp32", "xu")}
     return {u: (n_lanes * (n_frames * 512 * per_vf[u] + 512 // v * rest[u]
-                           + n_frames * c["cond"][u]), sm_rate(rate))
+                           + n_frames * parts * c["cond"][u]), sm_rate(rate))
             for u, rate in (("fp32", FP32_PER_SM_CLOCK), ("xu", XU_PER_SM_CLOCK))}
 
 
@@ -307,9 +319,10 @@ def phase_sass():
     text = subprocess.run([tool if os.path.exists(tool) else "cuobjdump", "-sass", lib._name],
                           capture_output=True, text=True, timeout=300, check=True).stdout
     funcs = sass_functions(text)
-    v, g = cuda_kernels.FRAMES_TILE
+    v, parts = cuda_kernels.FRAMES_TILE
     for key, pattern in (("tsdf_integrate", "21tsdf_integrate_kernel"),
-                         ("tsdf_integrate_frames", f"tsdf_integrate_frames_kernelILi{v}ELi{g}E")):
+                         ("tsdf_integrate_frames",
+                          f"tsdf_integrate_frames_kernelILi{v}ELi{parts}E")):
         names = [n for n in funcs if pattern in n]
         if len(names) != 1:
             raise AssertionError(f"{len(names)} SASS functions match {pattern}")
@@ -317,7 +330,7 @@ def phase_sass():
     c = SASS["tsdf_integrate_frames"]
     vf = c["loop"]["rcp"] / 2
     log(f"[sass] K2 per thread (4 voxels): {json.dumps(SASS['tsdf_integrate'])}; F-frame mode "
-        f"(tile {v}x{g}) {json.dumps(c)}: a voxel and a frame {c['loop']['fp32'] / vf:.2f} fp32, "
+        f"(tile {v}x{parts}) {json.dumps(c)}: a voxel and a frame {c['loop']['fp32'] / vf:.2f} fp32, "
         f"{c['loop']['xu'] / vf:.2f} conversions and MUFU, {c['loop']['all'] / vf:.2f} in all")
 
 
@@ -663,20 +676,24 @@ def _frames_full_bytes(n: int, n_frames: int, h: int, w: int) -> int:
 def phase_k2_frames():
     """K2's F-frame mode against integrate_depths_batched_plain on the
     "wall" scene (1008 chunks): F = 6 at +1, fresh and pre-integrated; F =
-    12, -1 x 6 at one set of poses and +1 x 6 at poses moved 6 mm / 0.5
-    deg, pre-integrated. sdf and weight within K2_ROW_TOL, colour rows
-    untouched; one integrate_depths_batched call is one device op; timed
-    alone at F = 6 and F = 12 beside its bounds."""
+    3 at +1 and F = 6 as -1 x 3, +1 x 3 (the shapes of the main path's
+    local-frame passes and reintegrations) and F = 12, -1 x 6 at one set
+    of poses and +1 x 6 at poses moved 6 mm / 0.5 deg, pre-integrated.
+    sdf and weight within K2_ROW_TOL, colour rows untouched; one
+    integrate_depths_batched call is one device op; timed alone in every
+    pre-integrated case beside its bounds."""
     from texturefusion_torch.ops import cuda_kernels, tsdf
     worst, times = 0.0, {}
-    for name, n_frames, pre in (("f6_fresh", 6, False), ("f6_pre", 6, True),
-                                ("f12_reintegrate", 12, True)):
+    for name, n_frames, pre, mixed in (("f6_fresh", 6, False, False), ("f6_pre", 6, True, False),
+                                       ("f3_pre", 3, True, False),
+                                       ("f6_reintegrate", 6, True, True),
+                                       ("f12_reintegrate", 12, True, True)):
         cfg, intr, rows, origins, idx, active, *_, n = _k2_inputs(pre, 3)
-        if n_frames == 12:
-            d, p_old = _k2_frames(6, 4)
-            p_new = _k2_frames(6, 4, moved=True)[1]
+        if mixed:
+            d, p_old = _k2_frames(n_frames // 2, 4)
+            p_new = _k2_frames(n_frames // 2, 4, moved=True)[1]
             depths, poses = torch.cat([d, d]), torch.cat([p_old, p_new])
-            signs = [-1.0] * 6 + [1.0] * 6
+            signs = [-1.0] * (n_frames // 2) + [1.0] * (n_frames // 2)
         else:
             depths, poses = _k2_frames(n_frames, 4)
             signs = 1.0
@@ -716,10 +733,11 @@ def phase_k2_frames():
                 f"(share {full / t['kernel_ms']:.3f})")
             t["full_row_bound_ms"] = full
             if name == "f6_pre":
-                times = t
+                times.update(t)
             else:
-                times["f12"] = {k: t[k] for k in ("kernel_ms", "kernel_cold_ms", "call_ms",
-                                                  "plain_ms", "bound_ms", "full_row_bound_ms")}
+                times[name[:name.index("_")] + ("r" if mixed else "")] = {
+                    k: t[k] for k in ("kernel_ms", "kernel_cold_ms", "call_ms", "plain_ms",
+                                      "bound_ms", "full_row_bound_ms")}
         del kb, pb, rows
     return {"max_abs_err": worst, **times}
 

@@ -200,13 +200,12 @@ def test_frames_mode_matches_plain(cuda_device, scene, n_frames, pre):
 @pytest.mark.parametrize("n_frames", [1, 5, 6, 7, 12, cuda_kernels.MAX_FRAMES])
 @pytest.mark.parametrize("mixed,flags", [(False, False), (True, True)])
 def test_frames_tiles_match_plain(cuda_device, monkeypatch, tile, n_frames, mixed, flags):
-    """Every instantiated tile (voxels a thread, frames a group) of the
+    """Every instantiated tile (voxels a thread, blocks a chunk) of the
     F-frame mode against integrate_depths_batched_plain on 37 lanes of the
-    "block" scene, pre-integrated: frame counts that fill, split and
-    overrun a group, up to MAX_FRAMES; signs all +1, or alternating -1 /
-    +1 (the voxels that fall to w <= min_weight reset); the real slots
-    alone, or the padded list with its active flags and one real lane
-    turned off."""
+    "block" scene, pre-integrated: 1-64 frames (MAX_FRAMES), odd and
+    even; signs all +1, or alternating -1 / +1 (the voxels that fall to
+    w <= min_weight reset); the real slots alone, or the padded list with
+    its active flags and one real lane turned off."""
     monkeypatch.setattr(cuda_kernels, "FRAMES_TILE", tile)
     args, n = _scene(7, True, cuda_device, "block", n_active=37)
     kb, origins, idx, active, _, _, _, _, intr, cfg = args

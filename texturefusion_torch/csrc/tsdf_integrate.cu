@@ -23,10 +23,22 @@
 // chunk's sdf and weight rows once: the voxel sums the frames' signed
 // weights and weighted distances in registers, counts as updated where any
 // frame updated it, and resets after the last frame. A keyframe's local
-// frames integrate in one launch (F up to 6), and drift reintegration of
-// them in one more (F = 12: -1 at the old poses, +1 at the new). F
-// sequential depth-only launches would instead reset a voxel between
-// frames and walk the rows F times.
+// frames integrate in one launch, and drift reintegration of them in one
+// more (-1 at the old poses, +1 at the new). F sequential depth-only
+// launches would instead reset a voxel between frames and walk the rows F
+// times. On the bench loop's pipeline its launches are F = 3 (local
+// frames) and F = 6 (reintegration) over 133-491 chunks.
+//
+// What bounds the F-frame mode on the H100 at those shapes: instruction
+// issue and one wave's balance, then the launch. Each voxel and frame
+// runs ~80 instructions (two IEEE divisions among them), so at 1008
+// chunks a frame costs about what the SMs can issue; at ~270 chunks one
+// block a chunk puts 2 or 3 chunks on an SM, and the SMs with 3 set the
+// time; a launch whose blocks all leave at once takes ~2 us. So its
+// design (below, at tsdf_integrate_frames_kernel) takes the per-frame
+// pose load and inverse out of the voxel loop and splits each chunk over
+// two 128-thread blocks; issuing several frames' gathers before summing
+// them bought nothing.
 //
 // What bounds it on the H100: latency. Counted at full rows (read and
 // write sdf, weight, 3 colour floats and the count, 24 B a voxel, plus the
@@ -319,18 +331,16 @@ __device__ __forceinline__ void store_v(float* dst, const float (&v)[4]) {
 // a voxel that any frame updated takes w + sum(a), (sdf * w + sum(a*dist)) /
 // (w + sum(a) + 1e-4), then the reset. Colour rows are not touched.
 //
-// One block of 512 / V threads per listed chunk, V x-adjacent voxels a
-// thread. Before the frames, thread f < F inverts frame f's pose and
-// computes its w * sign and its band limit (truncation at the chunk
-// origin + res_diag) into shared memory, with K2's arithmetic, so no pose
-// load or inverse sits in the frame loop. The frames then go in groups of
-// G (a compile-time count, so the group is unrolled): every voxel of the
-// group's frames is projected and every depth gather issued, through the
-// read-only path, before the first is used; the sums then take the frames
-// in order, as the plain version does. The last group skips its missing
-// frames by block-uniform tests.
-template <int V, int G>
-__global__ void __launch_bounds__(kVoxels / V)
+// P blocks per listed chunk, each of 512 / (V * P) threads over 512 / P of
+// its voxels, V x-adjacent voxels a thread. Before the frames, thread f < F
+// of each block inverts frame f's pose and computes its w * sign and its
+// band limit (truncation at the chunk origin + res_diag) into shared
+// memory, with K2's arithmetic, so no pose load or inverse sits in the
+// frame loop. Then each frame projects the thread's voxels, gathers their
+// depth through the read-only path and sums, in frame order as the plain
+// version does.
+template <int V, int P>
+__global__ void __launch_bounds__(kVoxels / (V * P))
 tsdf_integrate_frames_kernel(float* __restrict__ sdf, float* __restrict__ weight,
                              const int64_t* __restrict__ idx,
                              const uint8_t* __restrict__ active,   // may be null
@@ -338,7 +348,7 @@ tsdf_integrate_frames_kernel(float* __restrict__ sdf, float* __restrict__ weight
                              const float* __restrict__ depths,     // [F, H, W]
                              const float* __restrict__ c2w_all,    // [F, 4, 4]
                              const TsdfParams p, const FrameSigns fs) {
-  static_assert(kVoxels / V >= kMaxFrames, "one thread a frame stages the poses");
+  static_assert(kVoxels / (V * P) >= kMaxFrames, "one thread a frame stages the poses");
   __shared__ float4 frame_rows[kMaxFrames][4];   // w2c rows 0-2; (w * sign, band, -, -)
   __shared__ float cent[8];
 
@@ -350,7 +360,7 @@ tsdf_integrate_frames_kernel(float* __restrict__ sdf, float* __restrict__ weight
   const int n_frames = fs.n_frames;
 
   // the rows first: nothing below decides whether they are needed
-  const int v0 = V * t;                          // this thread's V voxels
+  const int v0 = blockIdx.y * (kVoxels / P) + V * t;   // this thread's V voxels
   float* const sdf_row = sdf + slot * kVoxels + v0;
   float* const w_row = weight + slot * kVoxels + v0;
   float s_old[V], w_old[V];
@@ -406,57 +416,33 @@ tsdf_integrate_frames_kernel(float* __restrict__ sdf, float* __restrict__ weight
     ad[j] = 0.0f;
     touched[j] = false;
   }
-  for (int f0 = 0; f0 < n_frames; f0 += G) {
-    float z[G][V], d[G][V];
-    int pix[G][V];
-    bool in_img[G][V];
+  for (int f = 0; f < n_frames; ++f) {
+    const float4 r0 = frame_rows[f][0], r1 = frame_rows[f][1], r2 = frame_rows[f][2];
+    const float* depth = depths + plane * f;
+    float z[V], d[V];
+    bool in_img[V];
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      if (f0 + g >= n_frames) {                  // block-uniform: the last group's gap
-#pragma unroll
-        for (int j = 0; j < V; ++j) {
-          z[g][j] = 0.0f;
-          in_img[g][j] = false;
-          pix[g][j] = 0;
-        }
-        continue;
-      }
-      const float4 r0 = frame_rows[f0 + g][0];
-      const float4 r1 = frame_rows[f0 + g][1];
-      const float4 r2 = frame_rows[f0 + g][2];
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        // (r0*x + r1*y + r2*z) + t, in this order
-        const float xc = r0.x * wx[j] + r0.y * wy + r0.z * wz + r0.w;
-        const float yc = r1.x * wx[j] + r1.y * wy + r1.z * wz + r1.w;
-        z[g][j] = r2.x * wx[j] + r2.y * wy + r2.z * wz + r2.w;
-        const float safe_z = fabsf(z[g][j]) > 1e-9f ? z[g][j] : 1e-9f;
-        const float ur = rintf(p.fx * xc / safe_z + p.cx);   // half to even
-        const float vr = rintf(p.fy * yc / safe_z + p.cy);
-        in_img[g][j] = ur > 0.0f && ur < u_max && vr > 0.0f && vr < v_max && z[g][j] > 0.0f;
-        // vr * width + ur is exact in float: the plain version's flat index
-        pix[g][j] = in_img[g][j] ? (int)(vr * width + ur) : 0;
-      }
+    for (int j = 0; j < V; ++j) {
+      // (r0*x + r1*y + r2*z) + t, in this order
+      const float xc = r0.x * wx[j] + r0.y * wy + r0.z * wz + r0.w;
+      const float yc = r1.x * wx[j] + r1.y * wy + r1.z * wz + r1.w;
+      z[j] = r2.x * wx[j] + r2.y * wy + r2.z * wz + r2.w;
+      const float safe_z = fabsf(z[j]) > 1e-9f ? z[j] : 1e-9f;
+      const float ur = rintf(p.fx * xc / safe_z + p.cx);   // half to even
+      const float vr = rintf(p.fy * yc / safe_z + p.cy);
+      in_img[j] = ur > 0.0f && ur < u_max && vr > 0.0f && vr < v_max && z[j] > 0.0f;
+      // vr * width + ur is exact in float: the plain version's flat index
+      d[j] = in_img[j] ? __ldg(depth + (int)(vr * width + ur)) : 0.0f;
     }
+    const float4 wb = frame_rows[f][3];
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float* depth = depths + plane * (f0 + g);
-#pragma unroll
-      for (int j = 0; j < V; ++j) d[g][j] = in_img[g][j] ? __ldg(depth + pix[g][j]) : 0.0f;
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      if (f0 + g >= n_frames) break;             // block-uniform
-      const float4 wb = frame_rows[f0 + g][3];
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float dist = d[g][j] - z[g][j];
-        if (in_img[g][j] && d[g][j] > p.near_plane && d[g][j] < p.far_plane && dist > -0.03f &&
-            dist < wb.y) {
-          a[j] = a[j] + wb.x;
-          ad[j] = ad[j] + wb.x * dist;
-          touched[j] = true;
-        }
+    for (int j = 0; j < V; ++j) {
+      const float dist = d[j] - z[j];
+      if (in_img[j] && d[j] > p.near_plane && d[j] < p.far_plane && dist > -0.03f &&
+          dist < wb.y) {
+        a[j] = a[j] + wb.x;
+        ad[j] = ad[j] + wb.x * dist;
+        touched[j] = true;
       }
     }
   }
@@ -482,38 +468,38 @@ tsdf_integrate_frames_kernel(float* __restrict__ sdf, float* __restrict__ weight
   }
 }
 
-template <int V, int G>
+template <int V, int P>
 int launch_frames(float* sdf, float* weight, const int64_t* idx, const uint8_t* active,
                   const float* origins, const float* depths, const float* cam_to_worlds,
                   const TsdfParams& params, const FrameSigns& signs, int n_lanes,
                   cudaStream_t stream) {
-  tsdf_integrate_frames_kernel<V, G><<<n_lanes, kVoxels / V, 0, stream>>>(
+  tsdf_integrate_frames_kernel<V, P><<<dim3(n_lanes, P), kVoxels / (V * P), 0, stream>>>(
       sdf, weight, idx, active, origins, depths, cam_to_worlds, params, signs);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// F-frame mode: one block of 512 / voxels_per_thread threads per lane of
-// idx [n_lanes]; active may be null; depths [n_frames, H, W], cam_to_worlds
-// [n_frames, 4, 4], with 1 <= n_frames <= kMaxFrames (the signs travel in
-// `signs`); frames in groups of `group`. (voxels_per_thread, group) is one
-// of (1|2|4, 1|2|3|4).
+// F-frame mode: `parts` blocks of 512 / (voxels_per_thread * parts) threads
+// per lane of idx [n_lanes]; active may be null; depths [n_frames, H, W],
+// cam_to_worlds [n_frames, 4, 4], with 1 <= n_frames <= kMaxFrames (the
+// signs travel in `signs`). (voxels_per_thread, parts) is one of (1|2|4,
+// 1|2|4) with at least 64 threads a block.
 extern "C" int tf_tsdf_integrate_frames_launch(
     float* sdf, float* weight, const int64_t* idx, const uint8_t* active, const float* origins,
     const float* depths, const float* cam_to_worlds, const TsdfParams* params,
-    const FrameSigns* signs, int n_lanes, int voxels_per_thread, int group, void* stream) {
+    const FrameSigns* signs, int n_lanes, int voxels_per_thread, int parts, void* stream) {
   if (n_lanes < 0 || signs->n_frames < 1 || signs->n_frames > kMaxFrames)
     return (int)cudaErrorInvalidValue;
   if (n_lanes == 0) return (int)cudaSuccess;
   const cudaStream_t s = (cudaStream_t)stream;
-#define TF_FRAMES_CASE(V, G)                                                               \
-  if (voxels_per_thread == V && group == G)                                                \
-    return launch_frames<V, G>(sdf, weight, idx, active, origins, depths, cam_to_worlds,   \
+#define TF_FRAMES_CASE(V, P)                                                               \
+  if (voxels_per_thread == V && parts == P)                                                \
+    return launch_frames<V, P>(sdf, weight, idx, active, origins, depths, cam_to_worlds,   \
                                *params, *signs, n_lanes, s);
-  TF_FRAMES_CASE(1, 1) TF_FRAMES_CASE(1, 2) TF_FRAMES_CASE(1, 3) TF_FRAMES_CASE(1, 4)
-  TF_FRAMES_CASE(2, 1) TF_FRAMES_CASE(2, 2) TF_FRAMES_CASE(2, 3) TF_FRAMES_CASE(2, 4)
-  TF_FRAMES_CASE(4, 1) TF_FRAMES_CASE(4, 2) TF_FRAMES_CASE(4, 3) TF_FRAMES_CASE(4, 4)
+  TF_FRAMES_CASE(1, 1) TF_FRAMES_CASE(1, 2) TF_FRAMES_CASE(1, 4)
+  TF_FRAMES_CASE(2, 1) TF_FRAMES_CASE(2, 2) TF_FRAMES_CASE(2, 4)
+  TF_FRAMES_CASE(4, 1) TF_FRAMES_CASE(4, 2)
 #undef TF_FRAMES_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -51,10 +51,10 @@ SOURCES = {"bilateral.cu": (), "tsdf_integrate.cu": ("-fmad=false",)}
 MAX_RADIUS = 8              # K1 is instantiated for radius 0..MAX_RADIUS
 
 MAX_FRAMES = 64             # frames of one launch of K2's F-frame mode
-# (voxels a thread, frames a group) of the F-frame mode: the instantiated
-# tiles, and the one its wrapper launches
-FRAMES_TILES = tuple((v, g) for v in (1, 2, 4) for g in (1, 2, 3, 4))
-FRAMES_TILE = (2, 1)
+# (voxels a thread, blocks a chunk) of the F-frame mode: the instantiated
+# tiles (at least 64 threads a block), and the one its wrapper launches
+FRAMES_TILES = tuple((v, p) for v in (1, 2, 4) for p in (1, 2, 4) if v * p <= 8)
+FRAMES_TILE = (2, 2)
 
 LAUNCHES = {"bilateral": 0, "tsdf_integrate": 0, "tsdf_integrate_frames": 0}
 LANES = {"tsdf_integrate": 0, "tsdf_integrate_frames": 0}
@@ -315,9 +315,9 @@ def tsdf_integrate_frames_cuda(sdf: torch.Tensor, weight: torch.Tensor,
     cam_to_worlds [F, 4, 4], with `signs` F host floats (1 <= F <=
     MAX_FRAMES), into rows sdf/weight [S+1, 512] IN PLACE at the slots
     `idx` [U] (int64; `active` [U] bool or None as in tsdf_integrate_cuda).
-    One launch of one block of 512 / V threads per lane, where (V, G) =
-    FRAMES_TILE: V voxels a thread, frames in groups of G; colour rows are
-    not touched."""
+    One launch of P blocks of 512 / (V * P) threads per lane, where (V, P)
+    = FRAMES_TILE: V voxels a thread, P blocks a chunk; colour rows are not
+    touched."""
     n_rows, u = _require_rows(cfg, sdf, weight, idx, active, origins)
     n_frames = len(signs)
     if not 1 <= n_frames <= MAX_FRAMES:
