@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases (each prints one line of numbers; any failure exits non-zero):
+Runs these phases (each prints one line of numbers; any failure exits
+non-zero):
   1. device   - requires CUDA; prints the card's name and power limit
   2. build    - compiles both hand-written kernels with nvcc (sm_90a),
                 one process per source, all at once; [sass] counts the
@@ -67,8 +68,9 @@ Phases (each prints one line of numbers; any failure exits non-zero):
                 least one loop-closure edge and one reintegration, BA
                 over at least 16 keyframes, K1 once per frame, K2 and the
                 F-frame mode launched; prints the F-frame mode's launch
-                shapes (frames, lanes), and [k2-frames-path] times it
-                alone at each of them
+                shapes (frames, lanes), and [k2-frames-path] holds it
+                against its plain version and times it alone at each of
+                them, beside one launch with every lane off
  12. pipeline-async - the same with the fusion thread (async_fusion=True,
                 bench.py's setting): the same gates, frames/s beside [pipeline]
  13. pipeline-stream - the same, synchronous, with max_resident_chunks at
@@ -146,6 +148,11 @@ FP32_PER_SM_CLOCK = 128
 XU_PER_SM_CLOCK = 16
 SASS_FP32 = {"FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX", "FSET", "FCHK", "FSWZADD"}
 SASS_XU = {"MUFU", "F2I", "I2F", "F2F", "FRND"}
+# fp32 operations of K2 that depend only on the frame and the chunk, which
+# each of its threads computes again (tsdf_integrate_kernel's pose inverse
+# 15, the origin's camera depth 6, the truncation and its band limit 7,
+# w * sign 1): the bound counts them once a chunk
+K2_CHUNK_FP32 = 29
 # K1 fp32 operations per tap: subtract, square, spatial product,
 # multiply-add (2), weight add; and one exp
 K1_FLOPS_PER_TAP = 6
@@ -214,11 +221,6 @@ def sm_rate(per_clock: int) -> float:
     return torch.cuda.get_device_properties(0).multi_processor_count * per_clock * mhz * 1e6
 
 
-def exp_per_s() -> float:
-    """The exp unit's peak (K1's bound)."""
-    return sm_rate(EXP_PER_SM_CLOCK)
-
-
 _SASS_FUNC = re.compile(r"^\s*Function : (\S+)")
 _SASS_INSTR = re.compile(r"/\*([0-9a-f]+)\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)([.A-Z0-9_]*)"
                          r"\s*([^;]*);")
@@ -282,29 +284,37 @@ def sass_op_counts(instrs) -> dict:
 SASS = {}    # per kernel: {region: op counts} of the built library (phase_build)
 
 
-def _k2_ops(n_threads: int, n_colour_threads: int) -> dict:
-    """K2's operations from its SASS: every live thread (4 voxels) runs its
-    main code outside the colour block; the threads with a voxel in the
-    colour band also run that block."""
+def _k2_ops(n_chunks: int, n_colour_threads: int) -> dict:
+    """K2's operations from its SASS: each chunk's 128 threads (4 voxels
+    each) run the main code outside the colour block, but its
+    K2_CHUNK_FP32 frame-and-chunk operations count once a chunk; the
+    threads with a voxel in the colour band also run that block."""
     c = SASS["tsdf_integrate"]
-    return {u: (n_threads * (c["main"][u] - c["cond"][u]) + n_colour_threads * c["cond"][u],
-                sm_rate(rate)) for u, rate in (("fp32", FP32_PER_SM_CLOCK),
-                                               ("xu", XU_PER_SM_CLOCK))}
+    once = {"fp32": K2_CHUNK_FP32, "xu": 0}
+    return {u: (n_chunks * (128 * (c["main"][u] - c["cond"][u] - once[u]) + once[u])
+                + n_colour_threads * c["cond"][u], sm_rate(rate))
+            for u, rate in (("fp32", FP32_PER_SM_CLOCK), ("xu", XU_PER_SM_CLOCK))}
+
+
+def frames_per_voxel(c: dict) -> dict:
+    """The F-frame mode's operations per voxel from its SASS region counts
+    `c`: "frame", the frame loop's code once a voxel and a frame (its body
+    holds two MUFU.RCP a voxel and a frame, its projection's divisions);
+    "once", the code around the loop and outside the staging (one MUFU.RCP
+    a voxel, its update's division). The staging block, once a frame and
+    block, is left out: a few dozen operations a frame against the loop's
+    ~25,000 a chunk and frame."""
+    units = ("fp32", "xu", "all")
+    rest = {u: c["main"][u] - c["loop"][u] - c["cond"][u] for u in units + ("rcp",)}
+    return {"frame": {u: c["loop"][u] / (c["loop"]["rcp"] / 2) for u in units},
+            "once": {u: rest[u] / rest["rcp"] for u in units}}
 
 
 def frames_ops(n_frames: int, n_lanes: int) -> dict:
-    """The F-frame mode's operations from its SASS: each voxel of each lane
-    runs the frame loop's code once a frame (the loop body holds two
-    MUFU.RCP a voxel and a frame: its projection's divisions), each thread
-    the code around the loop, and one thread a frame of each block the
-    staging."""
-    from texturefusion_torch.ops import cuda_kernels
-    c = SASS["tsdf_integrate_frames"]
-    v, parts = cuda_kernels.FRAMES_TILE
-    per_vf = {u: c["loop"][u] / (c["loop"]["rcp"] / 2) for u in ("fp32", "xu")}
-    rest = {u: c["main"][u] - c["loop"][u] - c["cond"][u] for u in ("fp32", "xu")}
-    return {u: (n_lanes * (n_frames * 512 * per_vf[u] + 512 // v * rest[u]
-                           + n_frames * parts * c["cond"][u]), sm_rate(rate))
+    """The F-frame mode's operations over n_lanes chunks of 512 voxels and
+    n_frames frames (frames_per_voxel)."""
+    per = frames_per_voxel(SASS["tsdf_integrate_frames"])
+    return {u: (512 * n_lanes * (n_frames * per["frame"][u] + per["once"][u]), sm_rate(rate))
             for u, rate in (("fp32", FP32_PER_SM_CLOCK), ("xu", XU_PER_SM_CLOCK))}
 
 
@@ -318,20 +328,27 @@ def phase_sass():
     tool = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
     text = subprocess.run([tool if os.path.exists(tool) else "cuobjdump", "-sass", lib._name],
                           capture_output=True, text=True, timeout=300, check=True).stdout
+    SASS.update(sass_kernel_counts(text))
+    per = frames_per_voxel(SASS["tsdf_integrate_frames"])
+    log(f"[sass] K2 per thread (4 voxels): {json.dumps(SASS['tsdf_integrate'])}; F-frame mode "
+        f"per thread {json.dumps(SASS['tsdf_integrate_frames'])}: a voxel and a frame "
+        f"{per['frame']['fp32']:.2f} fp32, {per['frame']['xu']:.2f} conversions and MUFU, "
+        f"{per['frame']['all']:.2f} in all; a voxel outside the frame loop "
+        f"{per['once']['fp32']:.2f} fp32, {per['once']['xu']:.2f} conversions and MUFU")
+
+
+def sass_kernel_counts(text: str) -> dict:
+    """cuobjdump -sass output of the built library -> the op counts of each
+    region of K2 ("tsdf_integrate") and of its F-frame mode."""
     funcs = sass_functions(text)
-    v, parts = cuda_kernels.FRAMES_TILE
+    counts = {}
     for key, pattern in (("tsdf_integrate", "21tsdf_integrate_kernel"),
-                         ("tsdf_integrate_frames",
-                          f"tsdf_integrate_frames_kernelILi{v}ELi{parts}E")):
+                         ("tsdf_integrate_frames", "28tsdf_integrate_frames_kernel")):
         names = [n for n in funcs if pattern in n]
         if len(names) != 1:
             raise AssertionError(f"{len(names)} SASS functions match {pattern}")
-        SASS[key] = {r: sass_op_counts(ins) for r, ins in sass_regions(funcs[names[0]]).items()}
-    c = SASS["tsdf_integrate_frames"]
-    vf = c["loop"]["rcp"] / 2
-    log(f"[sass] K2 per thread (4 voxels): {json.dumps(SASS['tsdf_integrate'])}; F-frame mode "
-        f"(tile {v}x{parts}) {json.dumps(c)}: a voxel and a frame {c['loop']['fp32'] / vf:.2f} fp32, "
-        f"{c['loop']['xu'] / vf:.2f} conversions and MUFU, {c['loop']['all'] / vf:.2f} in all")
+        counts[key] = {r: sass_op_counts(ins) for r, ins in sass_regions(funcs[names[0]]).items()}
+    return counts
 
 
 def bound_ms(n_bytes: float, ops: dict):
@@ -442,7 +459,7 @@ def phase_k1():
                       lambda: preprocess.bilateral_filter(dev),
                       lambda: preprocess.bilateral_filter_plain(dev),
                       2 * dev.numel() * 4, {"fp32": (K1_FLOPS_PER_TAP * taps, FP32_FLOPS_PER_S),
-                                            "exp unit": (taps, exp_per_s())})
+                                            "exp unit": (taps, sm_rate(EXP_PER_SM_CLOCK))})
     log(f"[k1] bilateral 480x640 r=4: max_abs_err={err:.3e} (tol {K1_TOL}) "
         f"invalid_match={same_invalid} {fmt_times(t)}")
     if not (err <= K1_TOL and same_invalid):
@@ -533,7 +550,7 @@ def _k2_needed(before, after, origins, idx, n, pose, intr, cfg):
     n_cpix = int(pix[cupd.reshape(-1) & in_img].unique().numel())
     n_bytes = (int(upd.sum()) * 16 + int(cupd.sum()) * 32 + n_pix * 4 + n_cpix * 16
                + n * (8 + 1 + 12))
-    return n_bytes, _k2_ops(128 * n, int(cupd.reshape(n, 128, 4).any(-1).sum()))
+    return n_bytes, _k2_ops(n, int(cupd.reshape(n, 128, 4).any(-1).sum()))
 
 
 def phase_k2():
@@ -735,7 +752,7 @@ def phase_k2_frames():
             if name == "f6_pre":
                 times.update(t)
             else:
-                times[name[:name.index("_")] + ("r" if mixed else "")] = {
+                times[f"f{n_frames}{'r' if mixed else ''}"] = {
                     k: t[k] for k in ("kernel_ms", "kernel_cold_ms", "call_ms", "plain_ms",
                                       "bound_ms", "full_row_bound_ms")}
         del kb, pb, rows
@@ -745,7 +762,7 @@ def phase_k2_frames():
 def _k2_full_bound_ms(n: int, h: int, w: int) -> float:
     """K2's bound at full rows and planes for n chunks of an h x w frame
     (every thread in the colour band)."""
-    return bound_ms(_k2_bytes(n, True, h, w), _k2_ops(128 * n, 128 * n))[0]
+    return bound_ms(_k2_bytes(n, True, h, w), _k2_ops(n, 128 * n))[0]
 
 
 def k2_width_times(width: int, tsdf_integrate=None, seed: int = 1):
@@ -795,57 +812,84 @@ def frames_case(n_frames: int, width: int, mixed: bool, seed: int = 1):
 
 def frames_width_times(n_frames: int, width: int, mixed: bool, seed: int = 1,
                        integrate_frames=None):
-    """K2's F-frame mode alone (kernel_times: warm, cold ms) on
-    frames_case(n_frames, width, mixed, seed). `integrate_frames(sdf,
-    weight, slots, origins, depths, poses, signs, intr, cfg)` launches the
-    kernel once; by default cuda_kernels.tsdf_integrate_frames_cuda on the
-    slots alone."""
+    """K2's F-frame mode on frames_case(n_frames, width, mixed, seed): the
+    kernel alone (kernel_times: warm, cold ms) and one call (cuda_ms: the
+    host's dispatch included). `integrate_frames(sdf, weight, slots,
+    origins, depths, poses, signs, intr, cfg)` launches the kernel once; by
+    default cuda_kernels.tsdf_integrate_frames_cuda on the slots alone."""
     from texturefusion_torch.ops import cuda_kernels
     cfg, intr, rows, origins, slots, depths, poses, signs = frames_case(n_frames, width, mixed,
                                                                         seed)
     if integrate_frames is None:
         def integrate_frames(sdf, weight, slots, *args):
             cuda_kernels.tsdf_integrate_frames_cuda(sdf, weight, slots, None, *args)
-    return kernel_times(lambda: integrate_frames(rows[0], rows[1], slots, origins, depths,
-                                                 poses, signs, intr, cfg))
+    def launch():
+        integrate_frames(rows[0], rows[1], slots, origins, depths, poses, signs, intr, cfg)
+
+    return (*kernel_times(launch), cuda_ms(launch))
 
 
-def _frames_case_bound_ms(n_frames: int, width: int, mixed: bool, seed: int = 1) -> float:
-    """The bound of one frames_case: the bytes its data needs (the plain
-    version run on a copy of its rows) against frames_ops."""
-    from texturefusion_torch.ops import tsdf
+def _frames_case_check(n_frames: int, width: int, mixed: bool, seed: int = 1):
+    """One frames_case through the kernel and its plain version, each on a
+    copy of the rows: the sdf and weight rows of its slots within
+    K2_ROW_TOL (raises). Returns (the largest row error, the bound: the
+    bytes its data needs against frames_ops)."""
+    from texturefusion_torch.ops import cuda_kernels, tsdf
     cfg, intr, rows, origins, slots, depths, poses, signs = frames_case(n_frames, width, mixed,
                                                                         seed)
+    sdf, weight = rows[0].clone(), rows[1].clone()
+    cuda_kernels.tsdf_integrate_frames_cuda(sdf, weight, slots, None, origins, depths, poses,
+                                            signs, intr, cfg)
     before = [rows[0][slots], rows[1][slots]]
     after = tsdf.ChunkBatch(before[0].clone(), before[1].clone(), None, None)
     lanes = torch.arange(width, device="cuda")
     tsdf.integrate_depths_batched_plain(after, origins[slots], lanes, None, depths, poses,
                                         signs, intr, cfg)
+    errs = _k2_row_errors(f"F-frame {n_frames}x{width}", (sdf[slots], weight[slots]),
+                          (after.sdf, after.weight), width)
     needed = _frames_needed_bytes(before, after, origins[slots], lanes, width, depths, poses,
                                   intr, cfg)
-    return bound_ms(needed, frames_ops(n_frames, width))[0]
+    return max(errs.values()), bound_ms(needed, frames_ops(n_frames, width))[0]
 
 
 def phase_k2_frames_path(shapes):
-    """The F-frame mode alone at every (F, lanes) one [pipeline] run
-    launched it at: the time a pipeline spends in it (launches x warm
-    time), the mean time a launch, and the same sum of the bounds."""
-    total_warm = total_cold = total_bound = 0.0
+    """The F-frame mode at every (F, lanes) one [pipeline] run launched it
+    at: against its plain version (_frames_case_check), and alone: the
+    time a pipeline spends in it (launches x warm time), the mean time a
+    launch, the same sum of the bounds, and the launch floor (the
+    narrowest shape with every lane's flag off)."""
+    from texturefusion_torch.ops import cuda_kernels
+    total_warm = total_cold = total_call = total_bound = worst = 0.0
     per = {}
     for (f, w, mixed), c in sorted(shapes.items()):
-        warm, cold = frames_width_times(f, w, mixed)
+        warm, cold, call = frames_width_times(f, w, mixed)
         per[f"{f}x{w}{'r' if mixed else ''}"] = round(warm, 5)
         total_warm += c * warm
         total_cold += c * cold
-        total_bound += c * _frames_case_bound_ms(f, w, mixed)
+        total_call += c * call
+        err, bound = _frames_case_check(f, w, mixed)
+        worst = max(worst, err)
+        total_bound += c * bound
+    f, w, mixed = min(shapes)
+    off = torch.zeros(w, dtype=torch.bool, device="cuda")
+
+    def idle(sdf, weight, slots, *args):
+        cuda_kernels.tsdf_integrate_frames_cuda(sdf, weight, slots, off, *args)
+
+    floor_warm, floor_cold, _ = frames_width_times(f, w, mixed, integrate_frames=idle)
     n = sum(shapes.values())
-    log(f"[k2-frames-path] {n} launches of [pipeline] at their shapes: in all "
-        f"{total_warm:.4f} ms warm, {total_cold:.4f} ms cold, bound {total_bound:.4f} ms (share "
-        f"{total_bound / total_warm:.3f}); a launch {total_warm / n:.4f} ms warm, "
-        f"{total_cold / n:.4f} ms cold; warm ms by FxLanes (r: reintegration) {json.dumps(per)}")
-    return {"path_launches": n, "path_total_ms": total_warm, "path_total_cold_ms": total_cold,
+    log(f"[k2-frames-path] {n} launches of [pipeline] at their shapes: sdf and weight against "
+        f"the plain version max_err={worst:.3e}; in all "
+        f"{total_warm:.4f} ms warm, {total_cold:.4f} ms cold, {total_call:.4f} ms as calls, bound "
+        f"{total_bound:.4f} ms (share {total_bound / total_warm:.3f}); a launch "
+        f"{total_warm / n:.4f} ms warm, {total_cold / n:.4f} ms cold; every lane off "
+        f"({f}x{w}) {floor_warm:.5f} ms warm, {floor_cold:.5f} ms cold; warm ms by FxLanes (r: "
+        f"reintegration) {json.dumps(per)}")
+    return {"path_launches": n, "path_max_abs_err": worst, "path_total_ms": total_warm,
+            "path_total_cold_ms": total_cold, "path_total_call_ms": total_call,
             "path_total_bound_ms": total_bound, "path_share": total_bound / total_warm,
-            "path_mean_ms": total_warm / n, "path_mean_cold_ms": total_cold / n}
+            "path_mean_ms": total_warm / n, "path_mean_cold_ms": total_cold / n,
+            "path_floor_ms": floor_warm, "path_floor_cold_ms": floor_cold}
 
 
 def _slice_config(small: bool):
@@ -1223,10 +1267,9 @@ def phase_profile_tracked(frames, first=60, n=20):
 
 
 def _pipeline_config(small=False, async_fusion=False, **tsdf):
-    """[tracked]'s camera and blur gate, [slice]'s TSDF sizes, the default
-    BAConfig (dense BA: this loop's ~30 keyframes stay below
-    schur_min_keyframes) and the fusion thread on or off; `small`: the
-    tiny config."""
+    """[tracked]'s camera, blur gate and BAConfig (bench.py's
+    schur_min_keyframes = 16), [slice]'s TSDF sizes and the fusion thread
+    on or off; `small`: the tiny config."""
     import dataclasses
 
     from texturefusion_torch.config import ParallelConfig
@@ -1671,6 +1714,7 @@ def main() -> int:
     phase_profile_tracked(tracked_frames)
     runs = [phase_pipeline(tracked_frames)]
     k2f.update(phase_k2_frames_path(runs[0]["frame_shapes"]))
+    k2f["max_abs_err"] = max(k2f["max_abs_err"], k2f["path_max_abs_err"])
     runs.append(phase_pipeline(tracked_frames, async_fusion=True, reference=runs[0]))
     runs.append(phase_pipeline(tracked_frames, max_resident=runs[0]["active"] // 2,
                                reference=runs[0]))

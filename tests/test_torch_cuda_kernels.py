@@ -196,17 +196,15 @@ def test_frames_mode_matches_plain(cuda_device, scene, n_frames, pre):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", cuda_kernels.FRAMES_TILES)
 @pytest.mark.parametrize("n_frames", [1, 5, 6, 7, 12, cuda_kernels.MAX_FRAMES])
 @pytest.mark.parametrize("mixed,flags", [(False, False), (True, True)])
-def test_frames_tiles_match_plain(cuda_device, monkeypatch, tile, n_frames, mixed, flags):
-    """Every instantiated tile (voxels a thread, blocks a chunk) of the
-    F-frame mode against integrate_depths_batched_plain on 37 lanes of the
-    "block" scene, pre-integrated: 1-64 frames (MAX_FRAMES), odd and
-    even; signs all +1, or alternating -1 / +1 (the voxels that fall to
-    w <= min_weight reset); the real slots alone, or the padded list with
-    its active flags and one real lane turned off."""
-    monkeypatch.setattr(cuda_kernels, "FRAMES_TILE", tile)
+def test_frames_mode_frame_counts_match_plain(cuda_device, n_frames, mixed, flags):
+    """The F-frame mode against integrate_depths_batched_plain on 37 lanes
+    (no multiple of a block's voxels or threads) of the "block" scene,
+    pre-integrated: 1-64 frames (MAX_FRAMES), odd and even; signs all +1,
+    or alternating -1 / +1 (the voxels that fall to w <= min_weight
+    reset); the real slots alone, or the padded list with its active flags
+    and one real lane turned off."""
     args, n = _scene(7, True, cuda_device, "block", n_active=37)
     kb, origins, idx, active, _, _, _, _, intr, cfg = args
     depths, poses = _frames(8, n_frames, SCENES["block"][0], intr, cuda_device)
@@ -434,16 +432,6 @@ def test_wrappers_refuse_cpu_and_wrong_types():
         call(quality=None)
     with pytest.raises(ValueError, match="shape"):
         call(active=active[:-1])                     # one flag a lane
-
-
-def test_frames_tiles_are_instantiated():
-    """The F-frame tiles the wrapper may launch are those the CUDA source
-    instantiates, and the default is one of them."""
-    with open(os.path.join(os.path.dirname(cuda_kernels.__file__), "..", "csrc",
-                           "tsdf_integrate.cu")) as f:
-        cases = re.findall(r"TF_FRAMES_CASE\((\d), (\d)\)", f.read())
-    assert sorted((int(v), int(g)) for v, g in cases) == sorted(cuda_kernels.FRAMES_TILES)
-    assert cuda_kernels.FRAMES_TILE in cuda_kernels.FRAMES_TILES
 
 
 def test_frames_wrapper_refuses_cpu_and_wrong_frames():

@@ -146,25 +146,23 @@ def test_lost_tracking_starts_new_origin_then_merges():
     assert sum(f.origin_index == 0 for f in slam.frames) > len(slam.frames) // 2
 
 
-@pytest.mark.parametrize("change", [
-    {"ba": dataclasses.replace(CFG.ba, schur_min_keyframes=2)},
-    {"parallel": ParallelConfig(n_devices=2)},
-])
-def test_unported_ba_branches_raise(loop, change):
-    """Multi-device BA is not ported: it raises at the first BA. On one
-    device, BA from schur_min_keyframes on is ported: with the threshold
-    at 2, the JAX package runs its Schur BA (a 1-device mesh) at every
-    keyframe, and the port its dense BA; the two agree within this file's
-    tolerances, with the same final BA."""
+def test_unported_ba_branches_raise(loop):
+    """Multi-device BA is not ported: it raises at the first BA."""
     _, depths, grays, _, _ = loop
-    config = CFG.replace(**change)
-    if "parallel" in change:
-        slam = TSLAM(config, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 6"):
-            for i, (d, g) in enumerate(zip(depths, grays)):
-                slam.update_frame(torch.tensor(g), torch.tensor(d), timestamp=float(i))
-        assert len(slam.keyframes) == 2
-        return
+    slam = TSLAM(CFG.replace(parallel=ParallelConfig(n_devices=2)), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        for i, (d, g) in enumerate(zip(depths, grays)):
+            slam.update_frame(torch.tensor(g), torch.tensor(d), timestamp=float(i))
+    assert len(slam.keyframes) == 2
+
+
+def test_ba_past_schur_min_keyframes_matches_jax(loop):
+    """On one device, BA from schur_min_keyframes on is ported: with the
+    threshold at 2, the JAX package runs its Schur BA (a 1-device mesh) at
+    every keyframe, and the port its dense BA; the two agree within this
+    file's tolerances, with the same final BA."""
+    _, depths, grays, _, _ = loop
+    config = CFG.replace(ba=dataclasses.replace(CFG.ba, schur_min_keyframes=2))
     js = JSLAM(config)
     ts = TSLAM(config, device="cpu", draw_fn=JaxKeyDraws())
     for i, (d, g) in enumerate(zip(depths, grays)):

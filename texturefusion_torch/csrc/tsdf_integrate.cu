@@ -112,6 +112,10 @@ namespace {
 
 constexpr int kVoxels = 512;               // 8^3, x-fastest
 constexpr int kThreads = 128;              // 4 voxels a thread
+// F-frame mode: 2 voxels a thread, 2 blocks a chunk
+constexpr int kFrameVoxels = 2;
+constexpr int kFrameParts = 2;
+constexpr int kFrameThreads = kVoxels / (kFrameVoxels * kFrameParts);
 constexpr float kResetSdf = 999.0f;
 
 __global__ void __launch_bounds__(kThreads)
@@ -301,28 +305,6 @@ tsdf_integrate_kernel(float* __restrict__ sdf, float* __restrict__ weight,
   }
 }
 
-// V floats of a row, x-adjacent voxels, in one load or store.
-__device__ __forceinline__ void load_v(const float* src, float (&o)[1]) { o[0] = *src; }
-__device__ __forceinline__ void load_v(const float* src, float (&o)[2]) {
-  const float2 v = *reinterpret_cast<const float2*>(src);
-  o[0] = v.x;
-  o[1] = v.y;
-}
-__device__ __forceinline__ void load_v(const float* src, float (&o)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(src);
-  o[0] = v.x;
-  o[1] = v.y;
-  o[2] = v.z;
-  o[3] = v.w;
-}
-__device__ __forceinline__ void store_v(float* dst, const float (&v)[1]) { *dst = v[0]; }
-__device__ __forceinline__ void store_v(float* dst, const float (&v)[2]) {
-  *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
-}
-__device__ __forceinline__ void store_v(float* dst, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
 // F-frame mode: depth-only frames [F, H, W] at poses [F, 4, 4] with one
 // sign each, into the sdf and weight rows of the listed chunks, in one
 // read-modify-write (texturefusion_torch/ops/tsdf.py
@@ -331,16 +313,17 @@ __device__ __forceinline__ void store_v(float* dst, const float (&v)[4]) {
 // a voxel that any frame updated takes w + sum(a), (sdf * w + sum(a*dist)) /
 // (w + sum(a) + 1e-4), then the reset. Colour rows are not touched.
 //
-// P blocks per listed chunk, each of 512 / (V * P) threads over 512 / P of
-// its voxels, V x-adjacent voxels a thread. Before the frames, thread f < F
-// of each block inverts frame f's pose and computes its w * sign and its
-// band limit (truncation at the chunk origin + res_diag) into shared
-// memory, with K2's arithmetic, so no pose load or inverse sits in the
-// frame loop. Then each frame projects the thread's voxels, gathers their
-// depth through the read-only path and sums, in frame order as the plain
-// version does.
-template <int V, int P>
-__global__ void __launch_bounds__(kVoxels / (V * P))
+// kFrameParts blocks per listed chunk, each of kFrameThreads threads over
+// 256 of its voxels, 2 x-adjacent voxels a thread (timed at the pipeline's
+// shapes against 1 or 4 voxels a thread, 1 or 4 blocks a chunk, and
+// groups of frames whose gathers are issued together: PERF.md). Before the
+// frames, thread f < F of each block inverts frame f's pose and computes
+// its w * sign and its band limit (truncation at the chunk origin +
+// res_diag) into shared memory, with K2's arithmetic, so no pose load or
+// inverse sits in the frame loop. Then each frame projects the thread's
+// voxels, gathers their depth through the read-only path and sums, in
+// frame order as the plain version does.
+__global__ void __launch_bounds__(kFrameThreads)
 tsdf_integrate_frames_kernel(float* __restrict__ sdf, float* __restrict__ weight,
                              const int64_t* __restrict__ idx,
                              const uint8_t* __restrict__ active,   // may be null
@@ -348,7 +331,8 @@ tsdf_integrate_frames_kernel(float* __restrict__ sdf, float* __restrict__ weight
                              const float* __restrict__ depths,     // [F, H, W]
                              const float* __restrict__ c2w_all,    // [F, 4, 4]
                              const TsdfParams p, const FrameSigns fs) {
-  static_assert(kVoxels / (V * P) >= kMaxFrames, "one thread a frame stages the poses");
+  constexpr int V = kFrameVoxels;
+  static_assert(kFrameThreads >= kMaxFrames, "one thread a frame stages the poses");
   __shared__ float4 frame_rows[kMaxFrames][4];   // w2c rows 0-2; (w * sign, band, -, -)
   __shared__ float cent[8];
 
@@ -360,12 +344,11 @@ tsdf_integrate_frames_kernel(float* __restrict__ sdf, float* __restrict__ weight
   const int n_frames = fs.n_frames;
 
   // the rows first: nothing below decides whether they are needed
-  const int v0 = blockIdx.y * (kVoxels / P) + V * t;   // this thread's V voxels
-  float* const sdf_row = sdf + slot * kVoxels + v0;
-  float* const w_row = weight + slot * kVoxels + v0;
-  float s_old[V], w_old[V];
-  load_v(sdf_row, s_old);
-  load_v(w_row, w_old);
+  const int v0 = blockIdx.y * (kVoxels / kFrameParts) + V * t;   // this thread's V voxels
+  float2* const sdf2 = reinterpret_cast<float2*>(sdf + slot * kVoxels + v0);
+  float2* const w2 = reinterpret_cast<float2*>(weight + slot * kVoxels + v0);
+  const float2 s_row = *sdf2, w_row = *w2;
+  float s_old[V] = {s_row.x, s_row.y}, w_old[V] = {w_row.x, w_row.y};
 
   const float ox = origins[slot * 3 + 0];
   const float oy = origins[slot * 3 + 1];
@@ -463,45 +446,28 @@ tsdf_integrate_frames_kernel(float* __restrict__ sdf, float* __restrict__ weight
     }
   }
   if (any) {
-    store_v(sdf_row, s_old);
-    store_v(w_row, w_old);
+    *sdf2 = make_float2(s_old[0], s_old[1]);
+    *w2 = make_float2(w_old[0], w_old[1]);
   }
-}
-
-template <int V, int P>
-int launch_frames(float* sdf, float* weight, const int64_t* idx, const uint8_t* active,
-                  const float* origins, const float* depths, const float* cam_to_worlds,
-                  const TsdfParams& params, const FrameSigns& signs, int n_lanes,
-                  cudaStream_t stream) {
-  tsdf_integrate_frames_kernel<V, P><<<dim3(n_lanes, P), kVoxels / (V * P), 0, stream>>>(
-      sdf, weight, idx, active, origins, depths, cam_to_worlds, params, signs);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// F-frame mode: `parts` blocks of 512 / (voxels_per_thread * parts) threads
-// per lane of idx [n_lanes]; active may be null; depths [n_frames, H, W],
-// cam_to_worlds [n_frames, 4, 4], with 1 <= n_frames <= kMaxFrames (the
-// signs travel in `signs`). (voxels_per_thread, parts) is one of (1|2|4,
-// 1|2|4) with at least 64 threads a block.
+// F-frame mode: kFrameParts blocks of kFrameThreads threads per lane of idx
+// [n_lanes]; active may be null; depths [n_frames, H, W], cam_to_worlds
+// [n_frames, 4, 4], with 1 <= n_frames <= kMaxFrames (the signs travel in
+// `signs`).
 extern "C" int tf_tsdf_integrate_frames_launch(
     float* sdf, float* weight, const int64_t* idx, const uint8_t* active, const float* origins,
     const float* depths, const float* cam_to_worlds, const TsdfParams* params,
-    const FrameSigns* signs, int n_lanes, int voxels_per_thread, int parts, void* stream) {
+    const FrameSigns* signs, int n_lanes, void* stream) {
   if (n_lanes < 0 || signs->n_frames < 1 || signs->n_frames > kMaxFrames)
     return (int)cudaErrorInvalidValue;
   if (n_lanes == 0) return (int)cudaSuccess;
-  const cudaStream_t s = (cudaStream_t)stream;
-#define TF_FRAMES_CASE(V, P)                                                               \
-  if (voxels_per_thread == V && parts == P)                                                \
-    return launch_frames<V, P>(sdf, weight, idx, active, origins, depths, cam_to_worlds,   \
-                               *params, *signs, n_lanes, s);
-  TF_FRAMES_CASE(1, 1) TF_FRAMES_CASE(1, 2) TF_FRAMES_CASE(1, 4)
-  TF_FRAMES_CASE(2, 1) TF_FRAMES_CASE(2, 2) TF_FRAMES_CASE(2, 4)
-  TF_FRAMES_CASE(4, 1) TF_FRAMES_CASE(4, 2)
-#undef TF_FRAMES_CASE
-  return (int)cudaErrorInvalidValue;
+  tsdf_integrate_frames_kernel<<<dim3(n_lanes, kFrameParts), kFrameThreads, 0,
+                                 (cudaStream_t)stream>>>(
+      sdf, weight, idx, active, origins, depths, cam_to_worlds, *params, *signs);
+  return (int)cudaGetLastError();
 }
 
 // One block per lane of idx [n_lanes]; active [n_lanes] may be null.

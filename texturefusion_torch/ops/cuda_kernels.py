@@ -22,9 +22,9 @@ allocate their outputs with torch.empty and never synchronise.
 `LAUNCHES` counts kernel launches per kernel (K2's F-frame mode under
 its own key); each wrapper adds one right after its launch and nowhere
 else, so a run can show that its main path went through the kernels.
-`LANES` sums the lanes each mode of K2 was launched over, and
-`FRAME_SHAPES` counts the F-frame mode's launches by (frames, lanes,
-whether the signs mix -1 and +1: a drift reintegration).
+`LANES` sums the lanes K2 was launched over, and `FRAME_SHAPES` counts
+its F-frame mode's launches by (frames, lanes, whether the signs mix -1
+and +1: a drift reintegration).
 """
 
 from __future__ import annotations
@@ -51,13 +51,9 @@ SOURCES = {"bilateral.cu": (), "tsdf_integrate.cu": ("-fmad=false",)}
 MAX_RADIUS = 8              # K1 is instantiated for radius 0..MAX_RADIUS
 
 MAX_FRAMES = 64             # frames of one launch of K2's F-frame mode
-# (voxels a thread, blocks a chunk) of the F-frame mode: the instantiated
-# tiles (at least 64 threads a block), and the one its wrapper launches
-FRAMES_TILES = tuple((v, p) for v in (1, 2, 4) for p in (1, 2, 4) if v * p <= 8)
-FRAMES_TILE = (2, 2)
 
 LAUNCHES = {"bilateral": 0, "tsdf_integrate": 0, "tsdf_integrate_frames": 0}
-LANES = {"tsdf_integrate": 0, "tsdf_integrate_frames": 0}
+LANES = {"tsdf_integrate": 0}
 FRAME_SHAPES: collections.Counter = collections.Counter()
 
 _lib: Optional[ctypes.CDLL] = None
@@ -147,7 +143,7 @@ def build(verbose: bool = False) -> ctypes.CDLL:
         lib.tf_tsdf_integrate_launch.argtypes = [p] * 13 + [ctypes.POINTER(TsdfParams), i, p]
         lib.tf_tsdf_integrate_frames_launch.restype = i
         lib.tf_tsdf_integrate_frames_launch.argtypes = [p] * 7 + [
-            ctypes.POINTER(TsdfParams), ctypes.POINTER(FrameSigns), i, i, i, p]
+            ctypes.POINTER(TsdfParams), ctypes.POINTER(FrameSigns), i, p]
         _lib = lib
         return lib
 
@@ -315,9 +311,8 @@ def tsdf_integrate_frames_cuda(sdf: torch.Tensor, weight: torch.Tensor,
     cam_to_worlds [F, 4, 4], with `signs` F host floats (1 <= F <=
     MAX_FRAMES), into rows sdf/weight [S+1, 512] IN PLACE at the slots
     `idx` [U] (int64; `active` [U] bool or None as in tsdf_integrate_cuda).
-    One launch of P blocks of 512 / (V * P) threads per lane, where (V, P)
-    = FRAMES_TILE: V voxels a thread, P blocks a chunk; colour rows are not
-    touched."""
+    One launch of two 128-thread blocks per lane, each over half the
+    chunk's voxels at 2 a thread; colour rows are not touched."""
     n_rows, u = _require_rows(cfg, sdf, weight, idx, active, origins)
     n_frames = len(signs)
     if not 1 <= n_frames <= MAX_FRAMES:
@@ -335,9 +330,8 @@ def tsdf_integrate_frames_cuda(sdf: torch.Tensor, weight: torch.Tensor,
     rc = lib.tf_tsdf_integrate_frames_launch(
         sdf.data_ptr(), weight.data_ptr(), idx.data_ptr(),
         None if active is None else active.data_ptr(), origins.data_ptr(), depths.data_ptr(),
-        cam_to_worlds.data_ptr(), ctypes.byref(params), ctypes.byref(fs), u, *FRAMES_TILE,
+        cam_to_worlds.data_ptr(), ctypes.byref(params), ctypes.byref(fs), u,
         torch.cuda.current_stream(sdf.device).cuda_stream)
     _check(rc, "tsdf_integrate_frames")
     LAUNCHES["tsdf_integrate_frames"] += 1
-    LANES["tsdf_integrate_frames"] += u
     FRAME_SHAPES[(n_frames, u, min(signs) < 0 < max(signs))] += 1
