@@ -91,13 +91,34 @@ non-zero):
  15. pipeline-small - TexturedPipeline on the tiny config (10 orbit frames),
                 GPU against CPU with the same draws, geometry and texture
  16. profile-pipeline - 20 pipeline frames under torch.profiler (no gate)
+ 17. cli-synthetic - `python -m texturefusion_torch "" "" 0.02 4 --max-frames
+                30` in process (VGA, textured): exit 0, a trajectory line a
+                frame, stat.txt and chunk.txt, fused.ply with vertices, a
+                .cam and a .png a keyframe, model.obj / .mtl / .png;
+                frames/s and launches
+ 18. cli-dataset - [slice]'s 120 frames written as a TUM directory through
+                io/png (Paeth rows; associate, calib with distortion,
+                groundtruth), read back bit for bit (PNG decode ms a
+                frame), each frame uploaded pageable and pinned (ms), then
+                the command line on it, textured: its outputs as in 17, and
+                its trajectory.txt against groundtruth.txt, ATE <= 25 mm
+ 19. checkpoint - [pipeline]'s config and frames to frame 60, save_pipeline,
+                load_pipeline into a fresh pipeline: TSDF rows, slot map,
+                poses, keypoint DB and edges bit for bit; frames 60-119 and
+                finish() there: new keyframes and edges, one map origin,
+                ATE <= 25 mm, map RMS <= 32 mm; save / load seconds, bytes
+After phase 5, [raycast] renders 8 VGA views of [slice]'s volume
+(ops/raycast.raycast_volume; plain torch ops, no kernel) against the
+scene rendered there: hit share > 0.5, median depth error below a voxel,
+95% unit normals; refine_depth_to_isosurface on one noisy frame must
+move it towards the surface.
 Phase 4 also checks reintegrate_frame_fused (two K2 launches) and K2's
 F-frame mode ([k2-frames]: F = 6 at +1, fresh and pre-integrated; F = 3
 at +1; F = 6 and 12 as a drift reintegration, half the frames at -1, the
 other half at +1 at poses moved 6 mm / 0.5 deg) against their plain
 versions, and times the F-frame mode alone.
 The line before the last is a JSON object with each kernel's launches
-over the phases that drive it (5, 8, 11-14), its error against the plain
+over the phases that drive it (5, 8, 11-14, 17-19), its error against the plain
 version and its times, bound and share; the last line is
 {"ok": true, "device": {...}}.
 
@@ -1024,7 +1045,7 @@ def phase_slice(n_frames=120):
         f"kernel_cold_ms={cold:.4f} full_row_bound_ms={full:.4f} share={full / warm:.3f}")
     path = {"path_lanes": lanes, "path_kernel_ms": warm, "path_kernel_cold_ms": cold,
             "path_full_row_bound_ms": full}
-    return launches, path, (config, scene, poses, packed)
+    return launches, path, (config, scene, poses, packed), vol
 
 
 def _device_time(prof, wall: float, n_top: int, n_frames: int) -> str:
@@ -1350,7 +1371,7 @@ def _pipeline_report(name, pipe, loop, fin, scene, poses, launches, n_frames, sh
         pipe.save_trajectory(os.path.join(tmp, "trajectory.txt"))
         lines = open(os.path.join(tmp, "trajectory.txt")).read().strip().splitlines()
     st = pipe.stats
-    m.update(map_rms_mm=rms, map_median_mm=med, verts=n_raw, verts_welded=n_weld,
+    m.update(traj=traj, map_rms_mm=rms, map_median_mm=med, verts=n_raw, verts_welded=n_weld,
              reintegrations=st["reintegrations"], fps=n_frames / loop, finish_s=fin,
              active=pipe.volume.n_active(), frozen=len(pipe.mesher.frozen))
     stages = {k: round(v, 4) for k, v in sorted(STOPWATCH.totals.items())}
@@ -1698,32 +1719,361 @@ def _atlas_tile(atlas, rec):
     return atlas.image[oy:oy + atlas.patch_size, ox:ox + atlas.patch_size]
 
 
+# ------------------------------------------------------------------ the CLI, checkpoint, raycast
+
+CKPT_CUT = 60             # [checkpoint]: frames before the save
+RAYCAST_VIEWS = 8         # [raycast]: loop poses rendered from the slice's volume
+RAYCAST_HIT = 0.5         # test_raycast.py's thresholds
+RAYCAST_UNIT = 0.95
+TUM_FILTER = 4            # [cli-dataset]: every PNG row Paeth-filtered, the decoder's slow path
+
+
+def unpack_frame(frame: np.ndarray):
+    """A packed [H, W, 5] frame (preprocess.pack_frame) -> (depth uint16, rgb uint8)."""
+    depth = frame[..., 0].astype(np.uint16) | (frame[..., 1].astype(np.uint16) << 8)
+    return depth, np.ascontiguousarray(frame[..., 2:5])
+
+
+def write_tum_dataset(root, camera, packed, poses, t0=1000.0, fps=30.0, filter_type=TUM_FILTER):
+    """Packed frames as a TUM RGB-D directory, through io/png: rgb/ (8-bit)
+    and depth/ (16-bit) PNGs with every row filtered by `filter_type`,
+    associate.txt, a calib.txt with the five distortion fields and
+    groundtruth.txt (`ts tx ty tz qx qy qz qw`). Returns the timestamps."""
+    from texturefusion_torch.core import se3
+    from texturefusion_torch.io import png
+    for sub in ("rgb", "depth"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    stamps = [t0 + i / fps for i in range(len(packed))]
+    assoc, gt = [], []
+    for i, (ts, frame, pose) in enumerate(zip(stamps, packed, poses)):
+        depth, rgb = unpack_frame(frame)
+        rp, dp = f"rgb/{i:06d}.png", f"depth/{i:06d}.png"
+        png.write_png(os.path.join(root, rp), rgb, filter_type=filter_type)
+        png.write_png(os.path.join(root, dp), depth, filter_type=filter_type)
+        assoc.append(f"{ts:.6f} {rp} {ts:.6f} {dp}")
+        q = se3.quaternion_from_matrix(torch.as_tensor(np.asarray(pose[:3, :3], np.float32)))
+        gt.append(f"{ts:.6f} " + " ".join(repr(float(v)) for v in (*pose[:3, 3], *q.tolist())))
+    c = camera
+    with open(os.path.join(root, "associate.txt"), "w") as f:
+        f.write("\n".join(assoc) + "\n")
+    with open(os.path.join(root, "calib.txt"), "w") as f:
+        f.write(" ".join(repr(float(v)) for v in (c.fx, c.fy, c.cx, c.cy, c.width, c.height,
+                                                    c.depth_scale, c.d0, c.d1, c.d2, c.d3,
+                                                    c.d4)) + "\n")
+    with open(os.path.join(root, "groundtruth.txt"), "w") as f:
+        f.write("# timestamp tx ty tz qx qy qz qw\n" + "\n".join(gt) + "\n")
+    return stamps
+
+
+def read_back_tum(root, packed):
+    """Read every frame of a TUM directory through io/tum and hold it to the
+    packed frame it was written from, bit for bit. Returns (the sequence,
+    PNG decode seconds a frame: depth and rgb)."""
+    from texturefusion_torch.io import tum
+    seq = tum.load_tum_sequence(root)
+    if len(seq) != len(packed):
+        raise AssertionError(f"{root}: {len(seq)} frames read, {len(packed)} written")
+    t0 = time.perf_counter()
+    for i, frame in enumerate(packed):
+        depth, rgb = seq.load_frame_raw(i)
+        want_d, want_rgb = unpack_frame(frame)
+        if not (np.array_equal(depth, want_d) and np.array_equal(rgb, want_rgb)):
+            raise AssertionError(f"{root}: frame {i} does not read back as written")
+    return seq, (time.perf_counter() - t0) / len(packed)
+
+
+def run_cli(argv):
+    """texturefusion_torch.__main__.main(argv) in this process, its standard
+    output captured and logged. Returns (exit code, frames/s)."""
+    import contextlib
+    import io
+
+    from texturefusion_torch.__main__ import main as cli_main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if line.startswith(("processed", "fused.ply", "textured model", "texture export",
+                            "ATE RMSE")):
+            log(f"    | {line[:400]}")
+    m = re.search(r"processed \d+ frames in [0-9.]+s \(([0-9.]+) fps\)", text)
+    return rc, float(m.group(1)) if m else float("nan")
+
+
+def check_cli_outputs(out_dir, n_frames, textured=True) -> dict:
+    """The command line's outputs, complete: trajectory.txt with a line a
+    frame, stat.txt and chunk.txt, fused.ply with vertices (from its
+    header), one .cam and one .png a keyframe and, when textured,
+    model.obj / .mtl / .png. Returns {verts, keyframes}."""
+    from texturefusion_torch.io import png
+    lines = open(os.path.join(out_dir, "trajectory.txt")).read().strip().splitlines()
+    if len(lines) != n_frames or not all(len(ln.split()) == 8 for ln in lines):
+        raise AssertionError(f"{out_dir}: {len(lines)} trajectory lines for {n_frames} frames")
+    with open(os.path.join(out_dir, "fused.ply"), "rb") as f:
+        head = f.read(4096).split(b"end_header")[0].decode()
+    verts = int(re.search(r"element vertex (\d+)", head).group(1))
+    kf_dir = os.path.join(out_dir, "keyframes")
+    cams = sorted(f[:-4] for f in os.listdir(kf_dir) if f.endswith(".cam"))
+    pngs = sorted(f[:-4] for f in os.listdir(kf_dir) if f.endswith(".png"))
+    need = ["stat.txt", "chunk.txt"] + (["model.obj", "model.mtl", "model.png"] if textured else [])
+    missing = [n for n in need if not os.path.exists(os.path.join(out_dir, n))]
+    if verts <= 0 or not cams or cams != pngs or missing:
+        raise AssertionError(f"{out_dir}: {verts} vertices, keyframes {cams} / {pngs}, "
+                             f"missing {missing}")
+    for name in cams:
+        vals = open(os.path.join(kf_dir, name + ".cam")).read().split()
+        if len(vals) != 16 or png.read_png(os.path.join(kf_dir, name + ".png")).ndim != 3:
+            raise AssertionError(f"{kf_dir}/{name}: a bad keyframe dump")
+    return {"verts": verts, "keyframes": len(cams)}
+
+
+def phase_cli_synthetic(n_frames=30):
+    """`python -m texturefusion_torch "" "" 0.02 4 --max-frames 30`, in
+    process: the JAX package's README synthetic usage at VGA, textured."""
+    from texturefusion_torch.ops import cuda_kernels
+    cuda_kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as out:
+        rc, fps = run_cli(["", "", "0.02", "4", "--out", out, "--max-frames", str(n_frames)])
+        launches = dict(cuda_kernels.LAUNCHES)
+        res = check_cli_outputs(out, n_frames)
+    log(f"[cli-synthetic] rc={rc} {n_frames} frames {fps:.3f} frames/s verts={res['verts']} "
+        f"keyframes={res['keyframes']} launches={json.dumps(launches)}")
+    if rc != 0 or min(launches.values()) <= 0:
+        raise AssertionError(f"[cli-synthetic] rc {rc}, launches {launches}")
+    return launches
+
+
+def _upload_ms(packed):
+    """Each packed frame uploaded the pageable way (torch.as_tensor(...).to)
+    and through io/prefetch.upload (a pinned copy, then a non-blocking
+    copy), each synchronised: mean ms a frame each way."""
+    from texturefusion_torch.io.prefetch import upload
+    dev = torch.device("cuda")
+    out = {}
+    for name, fn in (("pageable", lambda f: torch.as_tensor(f).to(dev)),
+                     ("pinned", lambda f: upload(f, dev))):
+        fn(packed[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in packed:
+            fn(f)
+            torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / len(packed) * 1e3
+    return out
+
+
+def phase_cli_dataset(frames, reference):
+    """[slice]'s 120 loop frames (bench camera, depth noise, no exposure step
+    or blur) written as a TUM directory, read back bit for bit, then
+    `python -m texturefusion_torch ROOT "" 0.02 0`, textured; its
+    trajectory.txt against groundtruth.txt through io/tum."""
+    from texturefusion_torch.io import tum
+    from texturefusion_torch.ops import cuda_kernels
+    config, _, poses, packed = frames
+    with tempfile.TemporaryDirectory() as tmp:
+        root, out = os.path.join(tmp, "tum"), os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        write_tum_dataset(root, config.camera, packed, poses)
+        write_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+        _, decode_s = read_back_tum(root, packed)
+        up = _upload_ms(packed)
+        cuda_kernels.reset_launch_counts()
+        rc, fps = run_cli([root, "", "0.02", "0", "--out", out])
+        launches = dict(cuda_kernels.LAUNCHES)
+        res = check_cli_outputs(out, len(packed))
+        ts, est = tum.trajectory_from_tum(os.path.join(out, "trajectory.txt"))
+        gt_ts, gt = tum.trajectory_from_tum(os.path.join(root, "groundtruth.txt"))
+    pairs = tum.associate_timestamps(ts, gt_ts, max_dt=0.01)
+    ate = tum.ate_rmse(est[[i for i, _ in pairs]], gt[[j for _, j in pairs]]) * 1e3
+    log(f"[cli-dataset] {len(packed)} frames written as TUM PNGs (filter {TUM_FILTER}) in "
+        f"{write_s:.3f} s, {nbytes} bytes; read back bit for bit; PNG decode "
+        f"{decode_s * 1e3:.2f} ms a frame (depth + rgb); upload a frame pageable "
+        f"{up['pageable']:.4f} ms, pinned {up['pinned']:.4f} ms")
+    log(f"[cli-dataset] rc={rc} {fps:.3f} frames/s ate_mm={ate:.3f} over {len(pairs)} poses "
+        f"([pipeline] {reference['ate_mm']:.3f}, hardened frames) verts={res['verts']} "
+        f"keyframes={res['keyframes']} launches={json.dumps(launches)}")
+    if rc != 0 or len(pairs) != len(packed) or not ate <= ATE_MM:
+        raise AssertionError(f"[cli-dataset] rc {rc}, {len(pairs)} poses, ATE {ate:.3f} mm")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"[cli-dataset] a kernel of the path never launched: {launches}")
+    return launches
+
+
+def _state_equal(a, b) -> dict:
+    """The saved pipeline `a` against the restored `b`, bit for bit, by part."""
+    va, vb, sa, sb = a.volume, b.volume, a.slam, b.slam
+    return {
+        "tsdf_rows": all(torch.equal(x, y) for x, y in zip(va.batch, vb.batch)),
+        "slot_map": (np.array_equal(va.ids, vb.ids) and np.array_equal(va.used, vb.used)
+                     and va.slot_of == vb.slot_of and torch.equal(va.origins, vb.origins)),
+        "poses": np.array_equal(sa.poses, sb.poses) and np.array_equal(a.trajectory(),
+                                                                      b.trajectory()),
+        "keypoint_db": (all(torch.equal(x, y) for x, y in zip(sa.kp_db.kp, sb.kp_db.kp))
+                        and torch.equal(sa._row_to_slot, sb._row_to_slot)
+                        and torch.equal(sa.db.desc, sb.db.desc)
+                        and torch.equal(sa.db.valid, sb.db.valid)),
+        "edges": (sa.n_edges == sb.n_edges
+                  and all(torch.equal(x, y) for x, y in zip(sa.edges, sb.edges))),
+    }
+
+
+def phase_checkpoint(frames, reference):
+    """[pipeline]'s config and frames to frame 60, save_pipeline, load into a
+    fresh ReconstructionPipeline (state held to the saved one bit for bit),
+    then frames 60-119 and finish() there: new keyframes and edges, one map
+    origin, [pipeline]'s gates."""
+    from texturefusion_torch.ops import cuda_kernels
+    from texturefusion_torch.utils import checkpoint
+    _, poses, packed = frames
+    config = _pipeline_config()
+    cuda_kernels.reset_launch_counts()
+    first = _pipeline(config, "cuda")
+    for i in range(CKPT_CUT):
+        first.process_frame(packed[i], timestamp=float(i), host_packed=packed[i])
+    kf_cut, edges_cut = len(first.slam.keyframes), first.slam.n_edges
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pipeline.ckpt")
+        _sync("cuda")
+        t0 = time.perf_counter()
+        checkpoint.save_pipeline(first, path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path) + os.path.getsize(path + ".meta")
+        pipe = _pipeline(config, "cuda")
+        t0 = time.perf_counter()
+        checkpoint.load_pipeline(pipe, path)
+        _sync("cuda")
+        load_s = time.perf_counter() - t0
+    same = _state_equal(first, pipe)
+    first.close()
+    del first
+    t0 = time.perf_counter()
+    for i in range(CKPT_CUT, len(packed)):
+        pipe.process_frame(packed[i], timestamp=float(i), host_packed=packed[i])
+    pipe._drain_fusion()
+    _sync("cuda")
+    loop = time.perf_counter() - t0
+    pipe.finish()
+    _sync("cuda")
+    launches = dict(cuda_kernels.LAUNCHES)
+    m, traj = _tracking_metrics(pipe.slam, poses)
+    rms, med, n_verts = _map_error_mm(pipe, _bench_scene(), np.stack(poses))
+    identical = bool(np.array_equal(traj, reference["traj"]))
+    pipe.close()
+    log(f"[checkpoint] saved at frame {CKPT_CUT}: {size} bytes, save {save_s:.3f} s, load "
+        f"{load_s:.3f} s; restored bit for bit: {json.dumps(same)}")
+    log(f"[checkpoint] resumed {len(packed) - CKPT_CUT} frames at "
+        f"{(len(packed) - CKPT_CUT) / loop:.3f} frames/s: keyframes {kf_cut} -> {m['keyframes']} "
+        f"edges {edges_cut} -> {m['edges']} origins={m['origins']} ate_mm={m['ate_mm']:.3f} "
+        f"map_rms_mm={rms:.3f} map_median_mm={med:.3f} verts={n_verts} reintegrations="
+        f"{pipe.stats['reintegrations']} beside [pipeline]: ate_mm {reference['ate_mm']:.3f} "
+        f"map_rms_mm {reference['map_rms_mm']:.3f} verts {reference['verts']}; trajectory "
+        f"identical to [pipeline]'s: {identical} launches={json.dumps(launches)}")
+    if not all(same.values()):
+        raise AssertionError(f"[checkpoint] restored state differs: {same}")
+    if not (m["keyframes"] > kf_cut and m["edges"] > edges_cut and m["origins"] == 1):
+        raise AssertionError("[checkpoint] no keyframe or edge after the resume, or a new origin")
+    if not (m["ate_mm"] <= ATE_MM and rms <= MAP_RMS_MM):
+        raise AssertionError(f"[checkpoint] gates failed: ATE {m['ate_mm']:.3f} mm, map RMS "
+                             f"{rms:.3f} mm")
+    return launches
+
+
+def phase_raycast(vol, frames, n_views=RAYCAST_VIEWS):
+    """raycast_volume over [slice]'s volume at 8 of the loop's poses, each
+    against the scene rendered there: hit share, median |depth - rendered
+    depth| where both hold depth, unit normals; refine_depth_to_isosurface
+    on one noisy input frame."""
+    from texturefusion_torch.io import synthetic
+    from texturefusion_torch.ops import raycast
+    config, scene, poses, packed = frames
+    res_m = config.tsdf.voxel_resolution
+    views = np.linspace(0, len(poses) - 1, n_views).round().astype(int).tolist()
+    raycast.raycast_volume(vol, poses[views[0]])            # loads the ops' kernels
+    times, hits, meds, units = [], [], [], []
+    for i in views:
+        _sync("cuda")
+        t0 = time.perf_counter()
+        r = raycast.raycast_volume(vol, poses[i])
+        _sync("cuda")
+        times.append((time.perf_counter() - t0) * 1e3)
+        gt, _ = synthetic.render_frame(scene, vol.intr,
+                                       torch.as_tensor(poses[i], dtype=torch.float32,
+                                                       device="cuda"))
+        both = r.hit & (gt > 0)
+        hits.append(float(r.hit.float().mean()))
+        meds.append(float((r.depth - gt).abs()[both].median()))
+        norm = torch.linalg.vector_norm(r.normals[r.hit], dim=-1)
+        units.append(float(((norm - 1.0).abs() < 1e-3).float().mean()))
+    i = views[len(views) // 2]
+    depth_u16, _ = unpack_frame(packed[i])
+    noisy = torch.as_tensor(depth_u16.astype(np.float32) / config.camera.depth_scale,
+                            device="cuda")
+    pose = torch.as_tensor(poses[i], dtype=torch.float32, device="cuda")
+    table = vol._slot_table()
+    refined = raycast.refine_depth_to_isosurface(vol.batch.sdf, vol.batch.weight, table.table,
+                                                 table.lo, table.trash, noisy, pose, vol.intr,
+                                                 config.tsdf)
+    gt, _ = synthetic.render_frame(scene, vol.intr, pose)
+    ok = (noisy > 0) & (gt > 0)
+    before = float((noisy - gt).abs()[ok].median())
+    after = float((refined - gt).abs()[ok].median())
+    log(f"[raycast] {n_views} views {vol.intr.width}x{vol.intr.height} of the slice's volume "
+        f"(frames {views}): ms a raycast {json.dumps([round(t, 3) for t in times])} (median "
+        f"{float(np.median(times)):.3f}) hit_share min {min(hits):.4f} mean "
+        f"{float(np.mean(hits)):.4f}; median |depth - rendered| max {max(meds) * 1e3:.3f} mm "
+        f"(voxel {res_m * 1e3:.0f} mm); unit normals min {min(units):.4f}; refine at frame {i}: "
+        f"median |depth - rendered| {before * 1e3:.3f} -> {after * 1e3:.3f} mm")
+    if not (min(hits) > RAYCAST_HIT and max(meds) < res_m and min(units) >= RAYCAST_UNIT):
+        raise AssertionError(f"[raycast] gates failed: hits {hits}, medians {meds}, unit {units}")
+    if not after < before:
+        raise AssertionError(f"[raycast] refinement did not move depth to the surface: "
+                             f"{before} -> {after}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
     smi = phase_device()
-    phase_build()
-    phase_sass()
-    k1 = phase_k1()
-    k2 = phase_k2()
-    k2f = phase_k2_frames()
-    launches, k2_path, frames = phase_slice()
-    phase_small()
-    phase_profile(frames)
-    tracked_launches, tracked_frames = phase_tracked()
-    phase_tracked_small()
-    phase_profile_tracked(tracked_frames)
-    runs = [phase_pipeline(tracked_frames)]
-    k2f.update(phase_k2_frames_path(runs[0]["frame_shapes"]))
+    timed("build", phase_build)
+    timed("sass", phase_sass)
+    k1 = timed("k1", phase_k1)
+    k2 = timed("k2", phase_k2)
+    k2f = timed("k2-frames", phase_k2_frames)
+    launches, k2_path, frames, slice_volume = timed("slice", phase_slice)
+    timed("raycast", phase_raycast, slice_volume, frames)
+    del slice_volume
+    timed("small", phase_small)
+    timed("profile", phase_profile, frames)
+    tracked_launches, tracked_frames = timed("tracked", phase_tracked)
+    timed("tracked-small", phase_tracked_small)
+    timed("profile-tracked", phase_profile_tracked, tracked_frames)
+    runs = [timed("pipeline", phase_pipeline, tracked_frames)]
+    k2f.update(timed("k2-frames-path", phase_k2_frames_path, runs[0]["frame_shapes"]))
     k2f["max_abs_err"] = max(k2f["max_abs_err"], k2f["path_max_abs_err"])
-    runs.append(phase_pipeline(tracked_frames, async_fusion=True, reference=runs[0]))
-    runs.append(phase_pipeline(tracked_frames, max_resident=runs[0]["active"] // 2,
-                               reference=runs[0]))
-    runs.append(phase_pipeline(tracked_frames, reference=runs[0], textured=True))
-    phase_pipeline_small()
-    phase_profile_pipeline(tracked_frames)
+    runs.append(timed("pipeline-async", phase_pipeline, tracked_frames, async_fusion=True,
+                      reference=runs[0]))
+    runs.append(timed("pipeline-stream", phase_pipeline, tracked_frames,
+                      max_resident=runs[0]["active"] // 2, reference=runs[0]))
+    runs.append(timed("pipeline-textured", phase_pipeline, tracked_frames, reference=runs[0],
+                      textured=True))
+    timed("pipeline-small", phase_pipeline_small)
+    timed("profile-pipeline", phase_profile_pipeline, tracked_frames)
+    cli = [timed("cli-synthetic", phase_cli_synthetic),
+           timed("cli-dataset", phase_cli_dataset, frames, runs[0]),
+           timed("checkpoint", phase_checkpoint, tracked_frames, runs[0])]
 
     def total(key, *extra):
-        return sum(r["launches"][key] for r in runs) + sum(extra)
+        return (sum(r["launches"][key] for r in runs) + sum(c[key] for c in cli)
+                + sum(extra))
 
     kernels = [
         {"name": "bilateral", "route": "cuda",
@@ -1743,7 +2093,9 @@ def main() -> int:
     log(f"[launches] per phase: slice {json.dumps(launches)}, tracked "
         f"{json.dumps(tracked_launches)}, pipeline / pipeline-async / pipeline-stream / "
         f"pipeline-textured "
-        f"{json.dumps([r['launches'] for r in runs])}")
+        f"{json.dumps([r['launches'] for r in runs])}, cli-synthetic / cli-dataset / "
+        f"checkpoint {json.dumps(cli)}")
+    log(f"[phase-seconds] {json.dumps(seconds)}")
     log(f"[total] chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s, build included")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -2,11 +2,15 @@
 mode, on small hand-written SASS listings in cuobjdump's format: the
 regions sass_regions finds, the work counted once a voxel and frame, once
 a voxel and once a chunk, and that the F-frame mode's counts per voxel do
-not depend on how many voxels a thread holds."""
+not depend on how many voxels a thread holds. Then the pure helpers of
+[cli-dataset] and [cli-synthetic] on the CPU: the packed-frame unpacking,
+the TUM directory writer and its bit-for-bit read-back, and the check of
+the command line's outputs."""
 
 import importlib.util
 import os
 
+import numpy as np
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -110,3 +114,72 @@ def test_k2_counts_chunk_work_once(rates):
     assert ops["fp32"] == (3 * (128 * (100 - once) + once) + 50 * 20,
                            chip_smoke.FP32_PER_SM_CLOCK)
     assert ops["xu"] == (3 * 128 * 2, chip_smoke.XU_PER_SM_CLOCK)
+
+
+def _tiny_packed(n):
+    from texturefusion_torch.config import tiny_test_config
+    from texturefusion_torch.core import camera as cam
+    from texturefusion_torch.io import synthetic
+    from texturefusion_torch.ops.preprocess import pack_frame
+    cfg = tiny_test_config()
+    poses = synthetic.orbit_trajectory(n)
+    depths, rgbs = synthetic.render_sequence(synthetic.BoxRoomScene(),
+                                             cam.Intrinsics.from_config(cfg.camera), poses,
+                                             device="cpu")
+    rng = np.random.default_rng(0)
+    packed = [pack_frame((d * 5000 + rng.integers(0, 3, d.shape) * (d > 0)).astype(np.uint16),
+                         (c * 255).astype(np.uint8)) for d, c in zip(depths, rgbs)]
+    return cfg, poses, packed
+
+
+def test_unpack_frame_inverts_pack_frame():
+    from texturefusion_torch.ops.preprocess import pack_frame
+    rng = np.random.default_rng(2)
+    d = rng.integers(0, 65536, (7, 9)).astype(np.uint16)
+    c = rng.integers(0, 256, (7, 9, 3)).astype(np.uint8)
+    d2, c2 = chip_smoke.unpack_frame(pack_frame(d, c))
+    np.testing.assert_array_equal(d2, d)
+    np.testing.assert_array_equal(c2, c)
+
+
+@pytest.mark.parametrize("filter_type", [0, 4])
+def test_tum_writer_round_trip(tmp_path, filter_type):
+    """[cli-dataset]'s TUM directory: frames read back bit for bit, the
+    calib (distortion fields included) and the ground truth as written."""
+    import dataclasses
+
+    from texturefusion_torch.io import tum
+    cfg, poses, packed = _tiny_packed(3)
+    camera = dataclasses.replace(cfg.camera, d0=-0.03, d1=0.005)
+    stamps = chip_smoke.write_tum_dataset(str(tmp_path), camera, packed, poses,
+                                          filter_type=filter_type)
+    seq, decode_s = chip_smoke.read_back_tum(str(tmp_path), packed)
+    assert decode_s > 0
+    np.testing.assert_allclose(seq.timestamps, stamps, atol=1e-6)
+    assert dataclasses.asdict(seq.camera) == dataclasses.asdict(
+        dataclasses.replace(camera, far_plane=type(camera)().far_plane))
+    np.testing.assert_allclose(seq.gt_poses, np.stack(poses), atol=1e-6)
+    packed[1] = packed[1].copy()
+    packed[1][0, 0, 2] ^= 1
+    with pytest.raises(AssertionError, match="frame 1"):
+        chip_smoke.read_back_tum(str(tmp_path), packed)
+
+
+def test_check_cli_outputs_finds_what_is_missing(tmp_path):
+    from texturefusion_torch.io import ply, png
+    (tmp_path / "keyframes").mkdir()
+    ply.save_trajectory_tum(str(tmp_path / "trajectory.txt"), [0.0, 1.0], np.stack([np.eye(4)] * 2))
+    ply.save_ply(str(tmp_path / "fused.ply"), np.zeros((5, 3), np.float32))
+    for name in ("stat.txt", "chunk.txt"):
+        (tmp_path / name).write_text("x\n")
+    (tmp_path / "keyframes" / "000000.cam").write_text(" ".join(["0.5"] * 16) + "\n")
+    png.write_png(str(tmp_path / "keyframes" / "000000.png"), np.zeros((2, 2, 3), np.uint8))
+    assert chip_smoke.check_cli_outputs(str(tmp_path), 2, textured=False) == \
+        {"verts": 5, "keyframes": 1}
+    with pytest.raises(AssertionError, match="missing"):
+        chip_smoke.check_cli_outputs(str(tmp_path), 2)          # no model.obj / .mtl / .png
+    with pytest.raises(AssertionError, match="trajectory"):
+        chip_smoke.check_cli_outputs(str(tmp_path), 3, textured=False)
+    (tmp_path / "keyframes" / "000000.png").unlink()
+    with pytest.raises(AssertionError, match="keyframes"):
+        chip_smoke.check_cli_outputs(str(tmp_path), 2, textured=False)

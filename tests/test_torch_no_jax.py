@@ -1,7 +1,8 @@
 """The port runs without jax and without any module of the JAX package
 (the GT-pose slice, the tracked SLAM path through chip_smoke.run_tracked
 and the pipeline through chip_smoke.run_pipeline, on CPU tensors; the
-textured pipeline and its export also without cv2 or PIL, which the
+textured pipeline and its export, and the command line on a TUM
+directory and in synthetic mode, also without cv2 or PIL, which the
 card's machine lacks), and chip_smoke.py refuses to run without a GPU.
 
 Both checks run in fresh subprocesses, so the test session's own jax
@@ -137,6 +138,46 @@ print("JAX_MODULES", bad)
 """
 
 
+CLI = r"""
+import os, runpy, sys, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(2)
+import chip_smoke
+from texturefusion_torch.config import tiny_test_config
+from texturefusion_torch.core import camera as cam
+from texturefusion_torch.io import sensors, synthetic
+from texturefusion_torch.ops.preprocess import pack_frame
+cfg = tiny_test_config()
+orig = sensors.SyntheticSensor
+sensors.SyntheticSensor = lambda n_frames=30, camera=None, device="cuda": orig(
+    n_frames=n_frames, camera=cfg.camera, device=device)
+poses = synthetic.orbit_trajectory(4)
+depths, rgbs = synthetic.render_sequence(synthetic.BoxRoomScene(),
+                                         cam.Intrinsics.from_config(cfg.camera), poses,
+                                         device="cpu")
+packed = [pack_frame((d * 5000).astype(np.uint16), (c * 255).astype(np.uint8))
+          for d, c in zip(depths, rgbs)]
+with tempfile.TemporaryDirectory() as tmp:
+    root = os.path.join(tmp, "tum")
+    chip_smoke.write_tum_dataset(root, cfg.camera, packed, poses)
+    chip_smoke.read_back_tum(root, packed)
+    for args, textured in (([root, "", "0.05", "0"], True),
+                           (["", "", "0.05", "4", "--max-frames", "4"], True)):
+        out = os.path.join(tmp, "out" + args[3])
+        sys.argv = ["texturefusion_torch"] + args + ["--out", out, "--device", "cpu"]
+        try:
+            runpy.run_module("texturefusion_torch", run_name="__main__", alter_sys=True)
+        except SystemExit as e:
+            assert e.code == 0, e.code
+        chip_smoke.check_cli_outputs(out, 4, textured=textured)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "cv2", "PIL") or m.startswith(("jax.", "jaxlib", "texturefusion_tpu",
+                                                            "cv2.", "PIL.")))
+print("JAX_MODULES", bad)
+"""
+
+
 def _run(args, cwd, env_extra=None):
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
     env.pop("PYTHONSTARTUP", None)
@@ -170,6 +211,17 @@ def test_port_textured_pipeline_never_imports_jax_or_image_libraries():
     chip_smoke.run_pipeline on CPU tensors: no jax, JAX package, cv2 or
     PIL module loads."""
     res = _run(["-c", TEXTURED], ROOT)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "JAX_MODULES []" in res.stdout, res.stdout
+
+
+def test_port_command_line_never_imports_jax_or_image_libraries():
+    """`python -m texturefusion_torch` (runpy, as -m runs it) at the tiny
+    camera with --device cpu: on a TUM directory written and read back
+    through the port, and in synthetic mode with --max-frames 4, both
+    textured, with complete outputs; no jax, JAX package, cv2 or PIL
+    module loads."""
+    res = _run(["-c", CLI], ROOT)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "JAX_MODULES []" in res.stdout, res.stdout
 

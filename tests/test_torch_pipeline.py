@@ -352,7 +352,7 @@ def test_pipeline_entry_point_defaults_and_refusals():
     import inspect
     for cls in (TPipeline,):
         assert inspect.signature(cls).parameters["device"].default == "cuda"
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 6, multi-GPU"):
         TPipeline(CFG.replace(parallel=dataclasses.replace(SYNC, tsdf_sharded=True)),
                   device="cpu")
     assert os.path.basename(tply.__file__) == "ply.py"

@@ -93,8 +93,8 @@ class BAConfig:
     max_edges: int = 4096                # static edge capacity
     # the Schur-complement solve (eliminate interior keyframes, solve the
     # separator system; parallel/ba.py schur_gn) from this many keyframes
-    # on. The port has no Schur solve yet: GCSLAM raises at the threshold
-    # (ROADMAP Queue 1 item 13).
+    # on. On one device the port's GCSLAM takes the equal dense solve at
+    # any keyframe count; several devices raise (ROADMAP Queue 1 item 6).
     schur_min_keyframes: int = 64
     schur_separator_budget: int = 128
     # the JAX package's floors of its BA program's keyframe and edge
@@ -202,7 +202,7 @@ class ParallelConfig:
     pipelined_tracking: bool = True
     # shard the TSDF chunk-slot axis (and the mesh pool) over the devices
     # (SURVEY.md §2.3 "chunk batch is the natural shard axis"); the port's
-    # pipeline refuses it until the multi-GPU item (ROADMAP Queue 1 item 13)
+    # pipeline refuses it until the multi-GPU item (ROADMAP Queue 1 item 6)
     tsdf_sharded: bool = False
     # the JAX package's tracking pipeline (a frame's decisions finalized
     # pipeline_depth frames after its dispatch, later while its stats

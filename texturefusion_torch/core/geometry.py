@@ -34,3 +34,14 @@ def neighbor_offsets_6() -> np.ndarray:
     return np.array(
         [[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1]],
         dtype=np.int32)
+
+
+def trilinear_weights(frac: torch.Tensor) -> torch.Tensor:
+    """Fractional coords (..., 3) -> (..., 8) trilinear corner weights,
+    x fastest (the corner order of the JAX package's aabb_corners)."""
+    fx, fy, fz = frac[..., 0], frac[..., 1], frac[..., 2]
+    wx = torch.stack([1 - fx, fx], dim=-1)
+    wy = torch.stack([1 - fy, fy], dim=-1)
+    wz = torch.stack([1 - fz, fz], dim=-1)
+    w = wz[..., :, None, None] * wy[..., None, :, None] * wx[..., None, None, :]
+    return w.reshape(frac.shape[:-1] + (8,))

@@ -19,12 +19,16 @@ depth-only local frames (`integrate_local_depths`,
 since the last pass, and the hook through which a ChunkStreamer
 (fusion/streaming.py) restores offloaded chunks before discovery assigns
 slots.
+
+Queries: `sdf_at` samples the TSDF trilinearly at world points through
+a dense chunk-ID → slot table over the map's bounding box (`SlotTable`),
+which ops/raycast.py reads too.
 """
 
 from __future__ import annotations
 
 import warnings
-from typing import Dict, List, Optional, Sequence, Set
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -62,6 +66,9 @@ class TSDFVolume:
         self.new_since_gc: Set[int] = set()
         # optional ChunkStreamer: restores offloaded chunks on revisit
         self.streamer = None
+        # freed slots not yet handed out again, in release order: the top of
+        # the allocator's LIFO free list, which a checkpoint restores
+        self.released: List[int] = []
 
     @property
     def extent(self) -> float:
@@ -134,6 +141,9 @@ class TSDFVolume:
         """Sync host views and device origins for freshly allocated slots."""
         if len(new_slots) == 0:
             return
+        for slot in new_slots.tolist():
+            if self.released and self.released[-1] == slot:
+                self.released.pop()
         new_ids = self.alloc.export()[0][new_slots]
         self.ids[new_slots] = new_ids
         self.used[new_slots] = True
@@ -160,7 +170,9 @@ class TSDFVolume:
         slots = np.asarray([s for s in np.atleast_1d(slots) if s >= 0], np.int64)
         if len(slots) == 0:
             return
+        freed = list(dict.fromkeys(s for s in slots.tolist() if self.used[s]))
         self.alloc.release(slots)
+        self.released.extend(freed)
         self._obs_q[slots] = 0.0
         self._obs_mask[slots] = False
         for s in slots.tolist():
@@ -334,3 +346,81 @@ class TSDFVolume:
         cand = cand[self.used[cand] & ~self._obs_mask[cand].any(axis=1)]
         self.new_since_gc.clear()
         return self.garbage_collect(cand)
+
+    # ---------------------------------------------------------- queries
+
+    def sdf_at(self, points_w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Trilinear TSDF sample at world points (..., 3) -> (sdf, valid)
+        (ref: Chisel.h:251-342 GetDistanceFromSurface;
+        ChunkManager.cpp:1043-1168 GetSDF)."""
+        return sample_sdf_trilinear(self.batch.sdf, self.batch.weight, self._slot_table(),
+                                    points_w.to(self.device), self.cfg.chunk_size,
+                                    self.cfg.voxel_resolution)
+
+    def _slot_table(self) -> "SlotTable":
+        """Dense chunk-ID → slot lookup over the active chunks' bounding
+        box, built on the host and moved to the device."""
+        act = self.active_slots()
+        trash = self.cfg.capacity
+        if len(act) == 0:
+            lo = np.zeros(3, np.int32)
+            table = np.full((1, 1, 1), trash, np.int32)
+        else:
+            ids = self.ids[act]
+            lo = ids.min(0)
+            table = np.full(tuple((ids.max(0) - lo + 1).tolist()), trash, np.int32)
+            rel = ids - lo
+            table[rel[:, 0], rel[:, 1], rel[:, 2]] = act
+        return SlotTable(torch.as_tensor(table, dtype=torch.int64, device=self.device),
+                         torch.as_tensor(lo, dtype=torch.int64, device=self.device), trash)
+
+
+class SlotTable:
+    """Dense chunk-ID → slot map over the map's bounding box, on the device."""
+
+    def __init__(self, table: torch.Tensor, lo: torch.Tensor, trash: int):
+        self.table = table   # [X, Y, Z] int64, the trash slot where absent
+        self.lo = lo         # [3] int64
+        self.trash = trash
+        # made once: a host-to-device copy per lookup would wait for the
+        # device in every step of a raycast
+        self.shape = torch.tensor(table.shape, dtype=torch.int64).to(table.device)
+        # the 8 trilinear corner offsets, x fastest (geometry.trilinear_weights' order)
+        self.corners = torch.tensor([[x, y, z] for z in (0, 1) for y in (0, 1)
+                                     for x in (0, 1)], dtype=torch.int64).to(table.device)
+
+    def slots_for(self, ids: torch.Tensor) -> torch.Tensor:
+        """(..., 3) integer chunk IDs -> slots (the trash slot when absent)."""
+        rel = ids.to(torch.int64) - self.lo
+        inb = torch.all((rel >= 0) & (rel < self.shape), dim=-1)
+        relc = torch.minimum(torch.clamp(rel, min=0), self.shape - 1)
+        s = self.table[relc[..., 0], relc[..., 1], relc[..., 2]]
+        return torch.where(inb, s, self.trash)
+
+
+def voxel_corners(table: SlotTable, points_w: torch.Tensor, chunk_size: int,
+                  resolution: float):
+    """The 8 voxel centres around world points (..., 3): (trilinear weights
+    (..., 8), their slots (..., 8), linear voxel index in the chunk (..., 8))."""
+    g = points_w / resolution - 0.5
+    g0 = torch.floor(g)
+    w8 = geometry.trilinear_weights(g - g0)
+    vox = g0.to(torch.int64)[..., None, :] + table.corners
+    cid = torch.div(vox, chunk_size, rounding_mode="floor")
+    local = vox - cid * chunk_size
+    lin = local[..., 0] + local[..., 1] * chunk_size + local[..., 2] * chunk_size * chunk_size
+    return w8, table.slots_for(cid), lin
+
+
+def sample_sdf_trilinear(sdf: torch.Tensor, weight: torch.Tensor, table: SlotTable,
+                         points_w: torch.Tensor, chunk_size: int, resolution: float):
+    """Trilinear SDF interpolation across chunk boundaries: the 8 voxel
+    centres around each point, possibly in different chunks, through the
+    dense slot table (ref: ChunkManager.cpp:1043-1168). A sample is valid
+    where all 8 hold weight and sdf < RESET_SDF / 2 (the JAX package's
+    test, one-sided; ops/raycast.py tests |sdf|)."""
+    w8, slot, lin = voxel_corners(table, points_w, chunk_size, resolution)
+    s8, w8v = sdf[slot, lin], weight[slot, lin]
+    ok = torch.all((w8v > 0) & (s8 < tsdf_ops.RESET_SDF * 0.5), dim=-1)
+    val = torch.sum(w8 * s8, dim=-1)
+    return torch.where(ok, val, tsdf_ops.RESET_SDF), ok

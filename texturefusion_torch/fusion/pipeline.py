@@ -107,7 +107,7 @@ class ReconstructionPipeline:
                  frame_draws: Optional[Callable[[int], Tuple[torch.Tensor, torch.Tensor]]] = None):
         if config.parallel.tsdf_sharded:
             raise NotImplementedError(
-                "the sharded TSDF is not ported yet (ROADMAP Queue 1 item 13)")
+                "the sharded TSDF is not ported yet (ROADMAP Queue 1 item 6, multi-GPU)")
         self.config = config
         self.device = torch.device(device)
         self.intr = cam.Intrinsics.from_config(config.camera)
@@ -485,6 +485,26 @@ class ReconstructionPipeline:
         if timestamps is None:
             timestamps = [f.timestamp for f in self.slam.frames]
         ply.save_trajectory_tum(path, timestamps, self.trajectory())
+
+    def save_keyframe_textures(self, out_dir: str) -> int:
+        """Per-keyframe %06d.cam + %06d.png dump (ref: main.cpp:287-313):
+        the camera file holds the world-to-camera pose (3×4, row-major)
+        and fx fy cx cy; the PNG the keyframe's rgb, written through
+        io/png. Returns the number of keyframes written."""
+        from texturefusion_torch.io import png
+
+        self._drain_fusion()
+        os.makedirs(out_dir, exist_ok=True)
+        n = 0
+        for slot, st in sorted(self.kf_states.items()):
+            w2c = np.linalg.inv(self.slam.keyframe_pose(slot))
+            vals = list(w2c[:3].reshape(-1)) + [self.intr.fx, self.intr.fy,
+                                                self.intr.cx, self.intr.cy]
+            with open(os.path.join(out_dir, f"{slot:06d}.cam"), "w") as f:
+                f.write(" ".join(f"{v:.8f}" for v in vals) + "\n")
+            png.write_png(os.path.join(out_dir, f"{slot:06d}.png"), st.rgb_np())
+            n += 1
+        return n
 
     def memory_stats(self) -> Dict[str, float]:
         """Approximate memory accounting in MB (ref: Frame::GetOccupiedMemorySize

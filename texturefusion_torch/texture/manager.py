@@ -40,6 +40,10 @@ from texturefusion_torch.texture.mrf import ViewSelector
 from texturefusion_torch.utils.stopwatch import STOPWATCH
 
 
+class NoTexturedChunks(RuntimeError):
+    """export_textured found no chunk with a texture patch to export."""
+
+
 class ChunkTexture:
     __slots__ = ("label", "atlas_uv", "uv16", "uv_valid", "color_adjust", "wrong")
 
@@ -265,7 +269,7 @@ class TextureManager:
                 continue
             parts.append((slot, tex, min(len(meshes[slot][0]), len(tex.atlas_uv))))
         if not parts:
-            raise RuntimeError("no textured chunks to export")
+            raise NoTexturedChunks("no textured chunks to export")
         uvs = np.concatenate([tex.atlas_uv[:k] for _, tex, k in parts])
         raw = self._sample_atlas(uvs)                    # before the bake
         self.bake_compensation_into_atlas()

@@ -123,3 +123,22 @@ def texture_rows_from_numpy(labels: np.ndarray, stats: np.ndarray, device="cuda"
     (labels_dev [S+1] int32, stats_dev [S+1, STATS_W] f32)."""
     return (torch.tensor(np.asarray(labels, np.int32), device=device),
             torch.tensor(np.asarray(stats, np.float32), device=device))
+
+
+def restore_jax_checkpoint(pipe, arrays, meta) -> None:
+    """Resume a port pipeline from a JAX checkpoint
+    (texturefusion_tpu/utils/checkpoint.save_pipeline): `arrays` its .npz
+    arrays, `meta` its .meta pickle with every array in it converted
+    with np.asarray (the port never unpickles a jax array). uint32
+    descriptor words become int32 with the same bits. What the JAX file
+    lacks stays as a fresh pipeline has it: no integrated chunk ids (the
+    next reintegration of such a keyframe takes the full path), the
+    seeded generators, no previous keypoints (the last keyframe's stand
+    in, as in a resumed JAX run), the allocator's free list in its
+    initial order; the frame counter resumes at the frame count."""
+    from texturefusion_torch.utils import checkpoint
+    arrays = {k: (np.ascontiguousarray(v).view(np.int32)
+                  if k.endswith("_desc") and np.asarray(v).dtype == np.uint32 else np.asarray(v))
+              for k, v in dict(arrays).items()}
+    meta = dict(meta, dispatch_count=len(meta["frames"]))
+    checkpoint.restore_pipeline_state(pipe, arrays, meta)
