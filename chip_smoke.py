@@ -107,6 +107,24 @@ non-zero):
                 poses, keypoint DB and edges bit for bit; frames 60-119 and
                 finish() there: new keyframes and edges, one map origin,
                 ATE <= 25 mm, map RMS <= 32 mm; save / load seconds, bytes
+ 20. ba-sharded - distributed_gn and schur_gn (sep_budget 24) over 4 shards
+                (4 cards where the machine has them, else 4 shards of the
+                one card) against the dense fastba.gauss_newton_rounds on a
+                64-keyframe chain: poses within rtol 2e-3, atol 2e-4 of the
+                dense ones; ms a round for each, edges per shard, separators
+ 21. multichip - dryrun_multichip over the same 4 shards (one full map
+                cycle with K2 on every shard, then the live pipeline,
+                tsdf_sharded, on three tiny frames): its asserts; the map
+                cycle on the card against the same cycle on 8 CPU shards
+ 22. pipeline-sharded - [pipeline]'s config and 120 frames with the TSDF
+                rows, the mesh pool and BA's edges sharded over the 4 shards
+                (slot s on shard s % 4): [pipeline]'s gates, ATE and map RMS
+                within 0.5 mm of [pipeline]'s, resident chunks per shard
+                within 10% of their mean; frames/s beside [pipeline]'s, K2
+                and F-frame launches per shard, the largest position
+                difference, keyframe and loop-edge counts beside
+                [pipeline]'s; K2 and the F-frame mode against their plain
+                versions on one shard's rows
 After phase 5, [raycast] renders 8 VGA views of [slice]'s volume
 (ops/raycast.raycast_volume; plain torch ops, no kernel) against the
 scene rendered there: hit share > 0.5, median depth error below a voxel,
@@ -118,7 +136,7 @@ at +1; F = 6 and 12 as a drift reintegration, half the frames at -1, the
 other half at +1 at poses moved 6 mm / 0.5 deg) against their plain
 versions, and times the F-frame mode alone.
 The line before the last is a JSON object with each kernel's launches
-over the phases that drive it (5, 8, 11-14, 17-19), its error against the plain
+over the phases that drive it (5, 8, 11-14, 17-19, 21-22), its error against the plain
 version and its times, bound and share; the last line is
 {"ok": true, "device": {...}}.
 
@@ -179,6 +197,11 @@ K2_CHUNK_FP32 = 29
 K1_FLOPS_PER_TAP = 6
 FLUSH_BYTES = 128 << 20       # > the 50 MB L2: a cold launch follows this write
 SLEEP_CYCLES = 50_000_000     # ~25 ms of device sleep: longer than the host's queuing
+N_SHARDS = 4                  # [multichip], [ba-sharded], [pipeline-sharded]
+BA_RTOL, BA_ATOL = 2e-3, 2e-4     # test_parallel.py's Schur tolerances: sharded vs dense
+BA_SEP_BUDGET = 24
+SHARDED_MM = 0.5              # [pipeline-sharded]: ATE and map RMS beside [pipeline]'s
+SHARD_BALANCE = 0.10          # [pipeline-sharded]: resident chunks per shard around their mean
 
 
 def log(msg: str) -> None:
@@ -1129,7 +1152,7 @@ def _frame_draws(draw_fn, tcfg):
     return lambda i: tuple(draw_fn(c, None) for c in (tcfg, lite_config(tcfg)))
 
 
-def _pipeline(config, device, draw_fn=None, fuse=True, textured=False):
+def _pipeline(config, device, draw_fn=None, fuse=True, textured=False, mesh=None):
     """A ReconstructionPipeline (TexturedPipeline with `textured`) whose
     RANSAC draws all come from draw_fn (when given); with fuse=False its
     fusion cycles do nothing, which leaves the pipeline's tracking half."""
@@ -1141,7 +1164,7 @@ def _pipeline(config, device, draw_fn=None, fuse=True, textured=False):
 
     cls = TexturedPipeline if textured else ReconstructionPipeline if fuse else TrackingOnly
     return cls(config, device=device, draw_fn=draw_fn,
-               frame_draws=_frame_draws(draw_fn, config.tracking))
+               frame_draws=_frame_draws(draw_fn, config.tracking), mesh=mesh)
 
 
 def _sync(device):
@@ -1301,12 +1324,14 @@ def _pipeline_config(small=False, async_fusion=False, **tsdf):
                         parallel=ParallelConfig(async_fusion=async_fusion))
 
 
-def run_pipeline(config, packed, device, draw_fn=None, on_frame=None, textured=False):
+def run_pipeline(config, packed, device, draw_fn=None, on_frame=None, textured=False,
+                 mesh=None):
     """The pipeline's main path: ReconstructionPipeline (TexturedPipeline
-    with `textured`) .process_frame on each packed frame (with its host
-    copy), the fusion thread joined, then finish(). Returns (pipe, loop
-    seconds, finish seconds); both clocks end in a synchronize."""
-    pipe = _pipeline(config, device, draw_fn, textured=textured)
+    with `textured`; its rows, mesh pool and BA sharded over `mesh` when
+    given) .process_frame on each packed frame (with its host copy), the
+    fusion thread joined, then finish(). Returns (pipe, loop seconds,
+    finish seconds); both clocks end in a synchronize."""
+    pipe = _pipeline(config, device, draw_fn, textured=textured, mesh=mesh)
     t0 = time.perf_counter()
     for i, frame in enumerate(packed):
         pipe.process_frame(frame, timestamp=float(i), host_packed=frame)
@@ -1372,6 +1397,7 @@ def _pipeline_report(name, pipe, loop, fin, scene, poses, launches, n_frames, sh
         lines = open(os.path.join(tmp, "trajectory.txt")).read().strip().splitlines()
     st = pipe.stats
     m.update(traj=traj, map_rms_mm=rms, map_median_mm=med, verts=n_raw, verts_welded=n_weld,
+             kf_flags=[f.is_keyframe for f in pipe.slam.frames],
              reintegrations=st["reintegrations"], fps=n_frames / loop, finish_s=fin,
              active=pipe.volume.n_active(), frozen=len(pipe.mesher.frozen))
     stages = {k: round(v, 4) for k, v in sorted(STOPWATCH.totals.items())}
@@ -1980,6 +2006,251 @@ def phase_checkpoint(frames, reference):
     return launches
 
 
+def _shards():
+    """N_SHARDS shards: one a card where that many cards exist, else all on
+    the first card (they then share its stream: no scaling figure)."""
+    from texturefusion_torch.parallel import mesh as pmesh
+    if torch.cuda.device_count() >= N_SHARDS:
+        return pmesh.make_mesh(N_SHARDS, "cuda"), f"{N_SHARDS} cards"
+    return pmesh.DeviceMesh(["cuda:0"] * N_SHARDS), f"{N_SHARDS} shards sharing one card"
+
+
+def _chain_graph(n_kf, device, n_pts=80, noise=0.03, seed=3, n_loops=3):
+    """tests/test_parallel.py's keyframe chain with a few loop edges, at
+    n_kf keyframes: (noisy poses, edges, active)."""
+    from texturefusion_torch.core import se3
+    from texturefusion_torch.slam import fastba
+    rng = np.random.default_rng(seed)
+    gt = se3.se3_exp(torch.tensor([[0.25 * k, 0.01 * k, 0.002 * k * k, 0.0, 0.03 * k,
+                                    0.001 * k] for k in range(n_kf)], dtype=torch.float32))
+    pts = rng.uniform(-3, 3, (n_pts, 3)).astype(np.float32)
+    pts[:, 2] += 5.0
+    pairs = [(k, k + 1) for k in range(n_kf - 1)]
+    pairs += [(int(rng.integers(0, n_kf // 2)), n_kf - 1 - i) for i in range(n_loops)]
+    edges = fastba.make_edges(len(pairs), "cpu")
+    inv = se3.inverse(gt)
+    for e, (i, j) in enumerate(pairs):
+        p = se3.transform_points(inv[i], torch.as_tensor(pts))
+        q = se3.transform_points(inv[j], torch.as_tensor(pts))
+        fastba.write_edges(edges, torch.tensor([e]), i, j,
+                           [x[None] for x in fastba.preintegrate_edge(p, q, torch.ones(n_pts))])
+    xi = torch.as_tensor(rng.normal(0, noise, (n_kf, 6)).astype(np.float32))
+    xi[0] = 0.0
+    poses = se3.compose(se3.se3_exp(xi), gt)
+    return (poses.to(device), fastba.EdgeSums(*(a.to(device) for a in edges)),
+            torch.ones(n_kf, dtype=torch.bool, device=device))
+
+
+def phase_ba_sharded(n_kf=64, n_rounds=10):
+    """distributed_gn and schur_gn (sep_budget 24) over N_SHARDS shards of
+    the card against the dense fastba.gauss_newton_rounds on the card, on
+    a 64-keyframe chain (one round of 4 iterations): poses within
+    test_parallel.py's Schur tolerances; ms a round (median of 10, host
+    clock ending in a synchronize), edges per shard, separators and the
+    psum's bytes an iteration."""
+    from texturefusion_torch.config import BAConfig
+    from texturefusion_torch.parallel import ba as pba
+    from texturefusion_torch.slam import fastba
+    mesh, where = _shards()
+    poses, edges, active = _chain_graph(n_kf, "cuda")
+    cfg = BAConfig(gn_rounds=1, gn_iterations_per_round=4)
+    shards = pba.shard_edges(pba.pad_edges_for_mesh(edges, mesh.size), mesh)
+    runs = {"dense": lambda: fastba.gauss_newton_rounds(poses, edges, n_kf, active, cfg),
+            "distributed": lambda: pba.distributed_gn(poses, shards, n_kf, active, cfg, mesh),
+            "schur": lambda: pba.schur_gn(poses, shards, n_kf, active, cfg, mesh,
+                                          sep_budget=BA_SEP_BUDGET)}
+    out, ms = {}, {}
+    for name, fn in runs.items():
+        out[name] = fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(n_rounds):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        ms[name] = float(np.median(times) * 1e3)
+    dense = out["dense"][0]
+    err = {k: float((out[k][0] - dense).abs().max()) for k in ("distributed", "schur")}
+    ok = {k: bool(torch.allclose(out[k][0], dense, rtol=BA_RTOL, atol=BA_ATOL)) for k in err}
+    n_sep = int(pba._separators(mesh, shards, n_kf, n_kf // mesh.size).sum())
+    k6 = 6 * n_kf
+    log(f"[ba-sharded] {n_kf}-keyframe chain, {int(edges.valid.sum())} edges over {where}: "
+        f"ms a round (4 iterations) dense={ms['dense']:.3f} distributed={ms['distributed']:.3f} "
+        f"schur={ms['schur']:.3f}; edges per shard "
+        f"{[int(e.valid.sum()) for e in shards]}, separators {n_sep} of {n_kf} (budget "
+        f"{BA_SEP_BUDGET}); psum payload an iteration {mesh.size * (k6 * k6 + k6) * 4} bytes "
+        f"(each shard's [6K, 6K] H and [6K] b); max |pose - dense| {json.dumps(err)}; errors "
+        f"after: dense {float(out['dense'][2]):.3e} distributed "
+        f"{float(out['distributed'][2]):.3e} schur {float(out['schur'][2]):.3e} (before "
+        f"{float(out['dense'][1]):.3e})")
+    if not all(ok.values()) or n_sep > BA_SEP_BUDGET or n_sep == 0:
+        raise AssertionError(f"[ba-sharded] sharded BA disagrees with the dense solve: {ok}, "
+                             f"or the Schur path did not run ({n_sep} separators)")
+    return ms
+
+
+def phase_multichip():
+    """dryrun_multichip over N_SHARDS shards of the card (one full map
+    cycle: discovery, sharded integration (K2 on every shard), meshing
+    across shards, datacost, MRF, an edge-sharded BA round; then the live
+    pipeline, tsdf_sharded, on three tiny frames), its asserts; then the
+    map cycle on the card against the same cycle on an 8-shard CPU mesh
+    (plain kernels): n_found, vertex counts and labels equal, rows within
+    K2's tolerances, poses within 1e-4."""
+    from texturefusion_torch.ops import cuda_kernels
+    from texturefusion_torch.parallel import mesh as pmesh
+    from texturefusion_torch.parallel.dryrun import dryrun_multichip, multichip_cycle
+    mesh, where = _shards()
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = dryrun_multichip(mesh.size, mesh=mesh)
+    torch.cuda.synchronize()
+    dry_s = time.perf_counter() - t0
+    launches = dict(cuda_kernels.LAUNCHES)
+    g = multichip_cycle(mesh, 8)
+    c = multichip_cycle(pmesh.make_mesh(8, "cpu"), 8)
+    rows_g = g[0].batch.gather(np.arange(g[0].batch.n_rows), device="cpu")
+    rows_c = c[0].batch.gather(np.arange(c[0].batch.n_rows), device="cpu")
+    errs = {name: float((a - b).abs().max())
+            for name, a, b in zip(K2_ROW_TOL, rows_g, rows_c)}
+    rows_ok = all(torch.allclose(a, b, rtol=K2_ROW_TOL[n][0], atol=K2_ROW_TOL[n][1])
+                  for n, a, b in zip(K2_ROW_TOL, rows_g, rows_c))
+    pose_err = float((g[0].poses.cpu() - c[0].poses).abs().max())
+    same = {"n_found": int(g[1]) == int(c[1]),
+            "vcount": bool(torch.equal(g[2].cpu(), c[2])),
+            "labels": bool(torch.equal(g[3].cpu(), c[3]))}
+    log(f"[multichip] dryrun_multichip over {where}: asserts held in {dry_s:.3f} s; n_found="
+        f"{r['n_found']} vcount={r['vcount'].tolist()} weight_sum={r['weight_sum']:.1f} "
+        f"pipeline chunks={r['pipeline_active']} weight={r['pipeline_weight']:.1f} "
+        f"launches={json.dumps(launches)}; map cycle (64 slots) card vs 8 CPU shards: "
+        f"{json.dumps(same)} n_found={int(g[1])} vertices={int(g[2].sum())} row max_abs_err "
+        f"{json.dumps(errs)} pose max_abs_err={pose_err:.2e}")
+    if not (all(same.values()) and rows_ok and pose_err <= 1e-4 and int(g[2].sum()) > 0):
+        raise AssertionError("[multichip] the card's map cycle disagrees with the CPU's")
+    if not (launches["tsdf_integrate"] >= mesh.size and launches["bilateral"] == 3):
+        raise AssertionError(f"[multichip] K2 or K1 did not run as it should: {launches}")
+    return launches
+
+
+def _one_shard_check(pipe) -> dict:
+    """K2 and the F-frame mode on one shard's rows (shard 0, its active
+    slots, local indices), on copies, against their plain versions: a
+    keyframe's +1 pass and its local frames' depth-only pass."""
+    from texturefusion_torch.ops import tsdf as tsdf_ops
+    vol = pipe.volume
+    part = vol.rows.parts[0]
+    act = vol.active_slots()
+    idx = torch.as_tensor(vol.mesh.local_row(act[vol.mesh.shard_of(act) == 0]),
+                          device=part[0].device)
+    st = next(s for _, s in sorted(pipe.kf_states.items()) if s.integrated and s.local_depths)
+    pose = torch.as_tensor(st.integrated_pose, dtype=torch.float32, device="cuda")
+    depth, quality = st.depth.to("cuda"), st.quality.to("cuda")
+    rgb = st.rgb.to("cuda").float() / 255.0
+    out = {}
+    for mode in ("k2", "frames"):
+        a = tsdf_ops.ChunkBatch(*(t.clone() for t in part[:4]))
+        b = tsdf_ops.ChunkBatch(*(t.clone() for t in part[:4]))
+        if mode == "k2":
+            qa, ua = tsdf_ops.integrate_frame_fused(a, part[4], idx, None, depth, rgb, quality,
+                                                    pose, 1.0, vol.intr, vol.cfg)
+            qb, ub = tsdf_ops.integrate_frame_fused_plain(b, part[4], idx, None, depth, rgb,
+                                                          quality, pose, 1.0, vol.intr, vol.cfg)
+            ok = torch.equal(ua, ub) and torch.allclose(qa, qb, rtol=K2_Q_TOL[0],
+                                                        atol=K2_Q_TOL[1])
+        else:
+            d = torch.stack([x.to("cuda") for x in st.local_depths])
+            p = torch.as_tensor(np.stack([st.integrated_pose @ r for r in st.local_rel_poses]),
+                                dtype=torch.float32, device="cuda")
+            tsdf_ops.integrate_depths_batched(a, part[4], idx, None, d, p, 1.0, vol.intr, vol.cfg)
+            tsdf_ops.integrate_depths_batched_plain(b, part[4], idx, None, d, p, 1.0, vol.intr,
+                                                    vol.cfg)
+            ok = True
+        errs = {n: float((x[idx] - y[idx]).abs().max()) for n, x, y in zip(K2_ROW_TOL, a, b)}
+        ok = ok and all(torch.allclose(x[idx], y[idx], rtol=K2_ROW_TOL[n][0],
+                                       atol=K2_ROW_TOL[n][1]) for n, x, y in zip(K2_ROW_TOL, a, b))
+        out[mode] = {"lanes": int(idx.numel()), "ok": bool(ok), "max_abs_err": errs}
+    return out
+
+
+def phase_pipeline_sharded(frames, reference):
+    """[pipeline]'s config and 120 frames with the TSDF rows, the mesh pool
+    and BA's edges sharded over N_SHARDS shards (slot s on shard s % n):
+    [pipeline]'s gates, ATE and map RMS within 0.5 mm of [pipeline]'s,
+    resident chunks per shard within 10% of their mean; frames/s, K2 and
+    F-frame launches per shard, the largest position difference to
+    [pipeline], keyframe and loop-edge counts beside [pipeline]'s (and the
+    first frame where their keyframe decisions part); K2 and the F-frame
+    mode against their plain versions on one shard's rows."""
+    from texturefusion_torch.ops import cuda_kernels
+    from texturefusion_torch.utils.stopwatch import STOPWATCH
+    _, poses, packed = frames
+    mesh, where = _shards()
+    config = _pipeline_config()
+    STOPWATCH.reset()
+    cuda_kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    pipe, loop, fin = run_pipeline(config, packed, "cuda", mesh=mesh)
+    launches = dict(cuda_kernels.LAUNCHES)
+    shapes = dict(cuda_kernels.FRAME_SHAPES)
+    k2_lanes = cuda_kernels.LANES["tsdf_integrate"] / max(launches["tsdf_integrate"], 1)
+    name = "pipeline-sharded"
+    m = _pipeline_report(name, pipe, loop, fin, _bench_scene(), poses, launches, len(packed),
+                         shapes)
+    vol = pipe.volume
+    n = mesh.size
+    act = vol.active_slots()
+    resident = np.bincount(vol.mesh.shard_of(act), minlength=n)
+    blocks = np.bincount(act // ((vol.cfg.capacity + 1) // n), minlength=n)
+    k2 = [a + 2 * b for a, b in zip(vol.rows.per_shard("integrate_frame"),
+                                    vol.rows.per_shard("reintegrate_frame"))]
+    ff = vol.rows.per_shard("integrate_depths")
+    pos_mm = float(np.abs(m["traj"][:, :3, 3] - reference["traj"][:, :3, 3]).max() * 1e3)
+    part = next((i for i, (a, b) in enumerate(zip(m["kf_flags"], reference["kf_flags"]))
+                 if a != b), None)
+    check = _one_shard_check(pipe)
+    pipe.close()
+    # each launch takes one shard's lanes: K2 and the F-frame mode (F = 3,
+    # the local-frame passes) alone at a shard's mean width and at n times it
+    f_lanes = frame_shapes_summary(shapes)["local_mean_lanes"]
+    widths = {"k2": (k2_lanes, lambda w: k2_width_times(w)),
+              "frames_f3": (f_lanes, lambda w: frames_width_times(3, w, False)[:2])}
+    alone = {k: {"shard_lanes": round(w, 1),
+                 "shard_ms": [round(x, 5) for x in fn(max(int(round(w)), 1))],
+                 "whole_lanes": round(w * n, 1),
+                 "whole_ms": [round(x, 5) for x in fn(int(round(w * n)))]}
+             for k, (w, fn) in widths.items()}
+    note = ("each shard on its own card" if len(set(mesh.devices)) == n else
+            "shards sharing one card run on one stream: not a scaling figure")
+    log(f"[{name}] over {where} (capacity {vol.cfg.capacity}): frames/s {m['fps']:.3f} vs "
+        f"[pipeline] {reference['fps']:.3f} ({note}); resident chunks per shard "
+        f"{resident.tolist()} (contiguous blocks "
+        f"would hold {blocks.tolist()}); K2 launches per shard {k2}, F-frame launches per "
+        f"shard {ff}; remesh calls per shard {pipe.mesher.pool_rows.per_shard('remesh')}; "
+        f"alone (warm, cold ms) at a shard's mean lanes and at {n}x them {json.dumps(alone)}")
+    log(f"[{name}] beside [pipeline]: ate_mm {m['ate_mm']:.3f} vs {reference['ate_mm']:.3f}, "
+        f"map_rms_mm {m['map_rms_mm']:.3f} vs {reference['map_rms_mm']:.3f}, keyframes "
+        f"{m['keyframes']} vs {reference['keyframes']}, loop_edges {m['loop_edges']} vs "
+        f"{reference['loop_edges']}, max position difference {pos_mm:.4f} mm, keyframe "
+        f"decisions part at frame {part}; one shard's rows: {json.dumps(check)}")
+    if not (sum(k2) == launches["tsdf_integrate"] and sum(ff) == launches["tsdf_integrate_frames"]
+            and min(k2) > 0 and min(ff) > 0):
+        raise AssertionError(f"[{name}] per-shard launches {k2} / {ff} do not add up to "
+                             f"{launches} or a shard never launched")
+    if not (abs(m["ate_mm"] - reference["ate_mm"]) <= SHARDED_MM
+            and abs(m["map_rms_mm"] - reference["map_rms_mm"]) <= SHARDED_MM):
+        raise AssertionError(f"[{name}] ATE or map RMS more than {SHARDED_MM} mm from "
+                             "[pipeline]'s")
+    if np.abs(resident - resident.mean()).max() > SHARD_BALANCE * resident.mean():
+        raise AssertionError(f"[{name}] resident chunks per shard {resident.tolist()} not "
+                             f"within {SHARD_BALANCE:.0%} of their mean")
+    if not all(c["ok"] for c in check.values()):
+        raise AssertionError(f"[{name}] a kernel disagrees with its plain version on one "
+                             f"shard's rows: {check}")
+    m["launches"] = launches
+    return m
+
+
 def phase_raycast(vol, frames, n_views=RAYCAST_VIEWS):
     """raycast_volume over [slice]'s volume at 8 of the loop's poses, each
     against the scene rendered there: hit share, median |depth - rendered
@@ -2070,6 +2341,9 @@ def main() -> int:
     cli = [timed("cli-synthetic", phase_cli_synthetic),
            timed("cli-dataset", phase_cli_dataset, frames, runs[0]),
            timed("checkpoint", phase_checkpoint, tracked_frames, runs[0])]
+    timed("ba-sharded", phase_ba_sharded)
+    cli.append(timed("multichip", phase_multichip))
+    runs.append(timed("pipeline-sharded", phase_pipeline_sharded, tracked_frames, runs[0]))
 
     def total(key, *extra):
         return (sum(r["launches"][key] for r in runs) + sum(c[key] for c in cli)
@@ -2092,9 +2366,9 @@ def main() -> int:
     ]
     log(f"[launches] per phase: slice {json.dumps(launches)}, tracked "
         f"{json.dumps(tracked_launches)}, pipeline / pipeline-async / pipeline-stream / "
-        f"pipeline-textured "
+        f"pipeline-textured / pipeline-sharded "
         f"{json.dumps([r['launches'] for r in runs])}, cli-synthetic / cli-dataset / "
-        f"checkpoint {json.dumps(cli)}")
+        f"checkpoint / multichip {json.dumps(cli)}")
     log(f"[phase-seconds] {json.dumps(seconds)}")
     log(f"[total] chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s, build included")
     print(smi)

@@ -3,7 +3,8 @@
 and the pipeline through chip_smoke.run_pipeline, on CPU tensors; the
 textured pipeline and its export, and the command line on a TUM
 directory and in synthetic mode, also without cv2 or PIL, which the
-card's machine lacks), and chip_smoke.py refuses to run without a GPU.
+card's machine lacks; the multi-device layer and dryrun_multichip with
+those imports blocked), and chip_smoke.py refuses to run without a GPU.
 
 Both checks run in fresh subprocesses, so the test session's own jax
 import cannot hide an import of jax by the port.
@@ -178,6 +179,31 @@ print("JAX_MODULES", bad)
 """
 
 
+MULTICHIP = r"""
+import importlib.abc, sys
+
+
+class Blocked(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "texturefusion_tpu", "cv2", "PIL"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+
+sys.meta_path.insert(0, Blocked())
+import torch
+torch.set_num_threads(2)
+import texturefusion_torch.parallel.ba
+import texturefusion_torch.parallel.mesh
+import texturefusion_torch.parallel.sharded_tsdf
+import texturefusion_torch.models.reconstruction
+from texturefusion_torch.parallel.dryrun import dryrun_multichip
+r = dryrun_multichip(2, device="cpu")
+assert r["pipeline_active"] > 0 and r["shards"] == 2
+print("MULTICHIP_OK")
+"""
+
+
 def _run(args, cwd, env_extra=None):
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
     env.pop("PYTHONSTARTUP", None)
@@ -224,6 +250,14 @@ def test_port_command_line_never_imports_jax_or_image_libraries():
     res = _run(["-c", CLI], ROOT)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "JAX_MODULES []" in res.stdout, res.stdout
+
+
+def test_port_multi_device_layer_never_imports_jax_or_image_libraries():
+    """parallel/*, models.reconstruction and dryrun_multichip(2, "cpu")
+    with any import of jax, the JAX package, cv2 or PIL raising."""
+    res = _run(["-c", MULTICHIP], ROOT)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "MULTICHIP_OK" in res.stdout, res.stdout
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -349,10 +349,20 @@ def test_simplify_matches_jax(runs):
 
 
 def test_pipeline_entry_point_defaults_and_refusals():
+    """The sharded TSDF was refused; it is ported: tsdf_sharded on the CPU
+    shards the rows over its eight virtual devices, as the JAX package
+    shards over its eight host devices (the sharded run's parity is
+    tests/test_torch_parallel_tsdf.py). Texturing a sharded pool is what
+    is still refused."""
     import inspect
-    for cls in (TPipeline,):
+
+    from texturefusion_torch.fusion.pipeline import TexturedPipeline
+    for cls in (TPipeline, TexturedPipeline):
         assert inspect.signature(cls).parameters["device"].default == "cuda"
-    with pytest.raises(NotImplementedError, match="item 6, multi-GPU"):
-        TPipeline(CFG.replace(parallel=dataclasses.replace(SYNC, tsdf_sharded=True)),
-                  device="cpu")
+    sharded = CFG.replace(parallel=dataclasses.replace(SYNC, tsdf_sharded=True))
+    pipe = TPipeline(sharded, device="cpu")
+    assert pipe.volume.sharded and pipe.volume.mesh.size == 8
+    assert (pipe.volume.cfg.capacity + 1) % 8 == 0
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        TexturedPipeline(sharded, device="cpu")
     assert os.path.basename(tply.__file__) == "ply.py"

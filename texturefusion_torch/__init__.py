@@ -20,6 +20,12 @@ hand-written CUDA kernels carry it on the GPU
 and bound by ops/cuda_kernels.py); every tensor on the CPU takes the
 plain PyTorch version of the same function.
 
+parallel/ is the multi-device layer: a DeviceMesh of torch devices
+driven by one process, the TSDF rows and the mesh pool sharded by chunk
+slot (slot s on shard s % n), BA's edges sharded (distributed and Schur
+Gauss-Newton), the multichip map cycle (models/reconstruction) and
+dryrun_multichip.
+
 The package never imports jax, nor anything of the JAX package: it
 keeps its own copies of the configuration dataclasses (config.py) and of
 the native chunk allocator (native.py, csrc/chunk_alloc.cpp).

@@ -94,7 +94,8 @@ class BAConfig:
     # the Schur-complement solve (eliminate interior keyframes, solve the
     # separator system; parallel/ba.py schur_gn) from this many keyframes
     # on. On one device the port's GCSLAM takes the equal dense solve at
-    # any keyframe count; several devices raise (ROADMAP Queue 1 item 6).
+    # any keyframe count; over a DeviceMesh BA is edge-sharded, Schur from
+    # here on, distributed GN below.
     schur_min_keyframes: int = 64
     schur_separator_budget: int = 128
     # the JAX package's floors of its BA program's keyframe and edge
@@ -201,8 +202,9 @@ class ParallelConfig:
     # ignored by the port (see pipeline_depth below)
     pipelined_tracking: bool = True
     # shard the TSDF chunk-slot axis (and the mesh pool) over the devices
-    # (SURVEY.md §2.3 "chunk batch is the natural shard axis"); the port's
-    # pipeline refuses it until the multi-GPU item (ROADMAP Queue 1 item 6)
+    # (SURVEY.md §2.3 "chunk batch is the natural shard axis"), slot s on
+    # shard s % n; sharded when more than one device of the pipeline's type
+    # exists (the CPU counts parallel/mesh.CPU_SHARDS virtual devices)
     tsdf_sharded: bool = False
     # the JAX package's tracking pipeline (a frame's decisions finalized
     # pipeline_depth frames after its dispatch, later while its stats

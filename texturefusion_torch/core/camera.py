@@ -40,6 +40,13 @@ class Intrinsics(NamedTuple):
                    near=cam.near_plane, far=cam.far_plane,
                    d0=cam.d0, d1=cam.d1, d2=cam.d2, d3=cam.d3, d4=cam.d4)
 
+    def scaled(self, factor: float) -> "Intrinsics":
+        """Intrinsics for an image resized by `factor` (pyramid levels)."""
+        return self._replace(
+            fx=self.fx * factor, fy=self.fy * factor,
+            cx=(self.cx + 0.5) * factor - 0.5, cy=(self.cy + 0.5) * factor - 0.5,
+            width=int(round(self.width * factor)), height=int(round(self.height * factor)))
+
     @property
     def has_distortion(self) -> bool:
         return any(abs(d) > 1e-12

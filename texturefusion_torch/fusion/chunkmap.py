@@ -23,10 +23,19 @@ slots.
 Queries: `sdf_at` samples the TSDF trilinearly at world points through
 a dense chunk-ID → slot table over the map's bounding box (`SlotTable`),
 which ops/raycast.py reads too.
+
+Rows: the rows live in a ShardedRows container (parallel/sharded_tsdf.py),
+one shard on `device` by default. With a DeviceMesh of n > 1 shards, slot
+s lives on shard s % n; the capacity grows so that capacity + 1 (the
+trash row) divides by n, as in the JAX package, and every row access goes
+through the container: each voxel-update launch takes one shard's rows
+and local indices, and a query reads the rows gathered onto the mesh's
+first device (`dense_batch`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
@@ -38,18 +47,28 @@ from texturefusion_torch.core import camera as cam
 from texturefusion_torch.core import geometry
 from texturefusion_torch.native import make_allocator
 from texturefusion_torch.ops import tsdf as tsdf_ops
+from texturefusion_torch.parallel.mesh import DeviceMesh
+from texturefusion_torch.parallel.sharded_tsdf import ORIGIN_FIELD, TSDF_FIELDS, volume_rows
 
 
 class TSDFVolume:
-    def __init__(self, config: PipelineConfig, device="cuda"):
+    def __init__(self, config: PipelineConfig, device="cuda",
+                 mesh: Optional[DeviceMesh] = None):
         self.config = config
         self.cfg = config.tsdf
         self.intr = cam.Intrinsics.from_config(config.camera)
-        self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None else DeviceMesh([device])
+        self.device = self.mesh.devices[0]
+        n_sh = self.mesh.size
+        if n_sh > 1:
+            # the slot axis divides evenly over the mesh: grow the capacity so
+            # that (capacity + trash row) is a multiple of the shard count
+            cap = -(-(self.cfg.capacity + 1) // n_sh) * n_sh - 1
+            if cap != self.cfg.capacity:
+                self.cfg = dataclasses.replace(self.cfg, capacity=cap)
         cap = self.cfg.capacity
         self.n_voxels = self.cfg.chunk_size ** 3
-        self.batch = tsdf_ops.make_empty_batch(cap + 1, self.n_voxels, self.device)
-        self.origins = torch.zeros((cap + 1, 3), dtype=torch.float32, device=self.device)
+        self.rows = volume_rows(self.mesh, cap + 1, self.n_voxels)
 
         self.alloc = make_allocator(cap)
         self.slot_of: dict = {}                      # chunk id -> slot
@@ -69,6 +88,36 @@ class TSDFVolume:
         # freed slots not yet handed out again, in release order: the top of
         # the allocator's LIFO free list, which a checkpoint restores
         self.released: List[int] = []
+
+    @property
+    def sharded(self) -> bool:
+        return self.mesh.size > 1
+
+    def _unsharded(self, what: str) -> None:
+        if self.sharded:
+            raise NotImplementedError(
+                f"TSDFVolume.{what} is the one-device row tensor; a sharded volume's rows "
+                "are read through volume.rows or dense_batch()")
+
+    @property
+    def batch(self) -> tsdf_ops.ChunkBatch:
+        """The [cap+1, ...] TSDF rows of an unsharded volume (updated in place)."""
+        self._unsharded("batch")
+        return tsdf_ops.ChunkBatch(*self.rows.parts[0][:4])
+
+    @property
+    def origins(self) -> torch.Tensor:
+        """The [cap+1, 3] chunk origins of an unsharded volume."""
+        self._unsharded("origins")
+        return self.rows.parts[0][ORIGIN_FIELD]
+
+    def dense_batch(self) -> Tuple[tsdf_ops.ChunkBatch, torch.Tensor]:
+        """(rows, origins) of every slot in slot order on `device`: the row
+        tensors themselves when unsharded, else a gathered copy."""
+        if not self.sharded:
+            return self.batch, self.origins
+        *rows, origins = self.rows.gather(np.arange(self.rows.n_rows))
+        return tsdf_ops.ChunkBatch(*rows), origins
 
     @property
     def extent(self) -> float:
@@ -151,8 +200,8 @@ class TSDFVolume:
             self.slot_of[cid] = int(s)
         self.chunks_created += len(new_slots)
         self.new_since_gc.update(new_slots.tolist())
-        self.origins[torch.as_tensor(new_slots, device=self.device)] = torch.as_tensor(
-            new_ids.astype(np.float32) * self.extent, device=self.device)
+        self.rows.put(new_slots, [torch.as_tensor(new_ids.astype(np.float32) * self.extent)],
+                      fields=(ORIGIN_FIELD,))
 
     def allocate(self, ids: np.ndarray) -> np.ndarray:
         """Get-or-create slots for chunk IDs (N, 3); -1 when the pool is full."""
@@ -181,11 +230,7 @@ class TSDFVolume:
                 del self.slot_of[cid]
             self.used[s] = False
             self.dirty_mesh.discard(s)
-        idx = torch.as_tensor(slots, device=self.device)
-        self.batch.sdf[idx] = tsdf_ops.RESET_SDF
-        self.batch.weight[idx] = 0.0
-        self.batch.color[idx] = 0.0
-        self.batch.color_count[idx] = 0.0
+        self.rows.fill(slots, dict(zip(TSDF_FIELDS, (tsdf_ops.RESET_SDF, 0.0, 0.0, 0.0))))
 
     # ---------------------------------------------------------- integration
 
@@ -233,11 +278,16 @@ class TSDFVolume:
         if with_color and quality_map is None:
             quality_map = torch.zeros(depth.shape, dtype=torch.float32, device=self.device)
         budget = self.cfg.max_update_chunks
+
+        def fn(k, part, idx):
+            dev = idx.device
+            return tsdf_ops.integrate_frame_fused(
+                tsdf_ops.ChunkBatch(*part[:4]), part[ORIGIN_FIELD], idx, None, depth.to(dev),
+                _to(rgb, dev), _to(quality_map, dev), pose.to(dev), float(sign),
+                self.intr, self.cfg, with_color=with_color)
         for start in range(0, len(slots), budget):
             chunk_slots = slots[start:start + budget]
-            quality, updated = tsdf_ops.integrate_frame_fused(
-                self.batch, self.origins, self._idx(chunk_slots), None, depth, rgb, quality_map,
-                pose, float(sign), self.intr, self.cfg, with_color=with_color)
+            quality, updated = self.rows.launch(fn, chunk_slots, "integrate_frame")
             if with_color and keyframe_id is not None:
                 self._record_obs(chunk_slots, quality, updated, keyframe_id, sign)
             self._mark_dirty(chunk_slots)
@@ -268,9 +318,6 @@ class TSDFVolume:
     def _pose(self, cam_to_world) -> torch.Tensor:
         return torch.as_tensor(cam_to_world, dtype=torch.float32, device=self.device)
 
-    def _idx(self, slots: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
-
     def reintegrate_frame(self, depth: torch.Tensor, rgb: torch.Tensor,
                           quality_map: torch.Tensor, pose_old, pose_new,
                           keyframe_id: int, slots: np.ndarray) -> np.ndarray:
@@ -281,11 +328,16 @@ class TSDFVolume:
         the re-integration's entries are recorded here."""
         p_old, p_new = self._pose(pose_old), self._pose(pose_new)
         budget = self.cfg.max_update_chunks
+
+        def fn(k, part, idx):
+            dev = idx.device
+            return tsdf_ops.reintegrate_frame_fused(
+                tsdf_ops.ChunkBatch(*part[:4]), part[ORIGIN_FIELD], idx, None, depth.to(dev),
+                rgb.to(dev), quality_map.to(dev), p_old.to(dev), p_new.to(dev), self.intr,
+                self.cfg)
         for start in range(0, len(slots), budget):
             chunk_slots = slots[start:start + budget]
-            quality, updated = tsdf_ops.reintegrate_frame_fused(
-                self.batch, self.origins, self._idx(chunk_slots), None, depth, rgb,
-                quality_map, p_old, p_new, self.intr, self.cfg)
+            quality, updated = self.rows.launch(fn, chunk_slots, "reintegrate_frame")
             self._record_obs(chunk_slots, quality, updated, keyframe_id, 1.0)
             self._mark_dirty(chunk_slots)
         return slots
@@ -295,10 +347,14 @@ class TSDFVolume:
         d = torch.stack([x.to(self.device) for x in depths])
         p = self._pose(np.stack(poses))
         budget = self.cfg.max_update_chunks
-        for start in range(0, len(slots), budget):
+
+        def fn(k, part, idx):
+            dev = idx.device
             tsdf_ops.integrate_depths_batched(
-                self.batch, self.origins, self._idx(slots[start:start + budget]), None, d, p,
-                signs, self.intr, self.cfg)
+                tsdf_ops.ChunkBatch(*part[:4]), part[ORIGIN_FIELD], idx, None, d.to(dev),
+                p.to(dev), signs, self.intr, self.cfg)
+        for start in range(0, len(slots), budget):
+            self.rows.launch(fn, slots[start:start + budget], "integrate_depths")
 
     def integrate_local_depths(self, depths: Sequence[torch.Tensor],
                                cam_to_worlds: Sequence[np.ndarray], slots: np.ndarray,
@@ -330,7 +386,9 @@ class TSDFVolume:
         slots = np.asarray(slots, np.int64)
         if len(slots) == 0:
             return slots
-        occ = self.batch.weight[self._idx(slots)].abs().sum(-1).cpu().numpy()
+        (occ,) = self.rows.launch(lambda k, part, idx: (part[1][idx].abs().sum(-1),), slots,
+                                  "occupancy")
+        occ = occ.cpu().numpy()
         empty = slots[occ <= 0.0]
         self.release(empty)
         return empty
@@ -353,7 +411,8 @@ class TSDFVolume:
         """Trilinear TSDF sample at world points (..., 3) -> (sdf, valid)
         (ref: Chisel.h:251-342 GetDistanceFromSurface;
         ChunkManager.cpp:1043-1168 GetSDF)."""
-        return sample_sdf_trilinear(self.batch.sdf, self.batch.weight, self._slot_table(),
+        batch, _ = self.dense_batch()
+        return sample_sdf_trilinear(batch.sdf, batch.weight, self._slot_table(),
                                     points_w.to(self.device), self.cfg.chunk_size,
                                     self.cfg.voxel_resolution)
 
@@ -373,6 +432,10 @@ class TSDFVolume:
             table[rel[:, 0], rel[:, 1], rel[:, 2]] = act
         return SlotTable(torch.as_tensor(table, dtype=torch.int64, device=self.device),
                          torch.as_tensor(lo, dtype=torch.int64, device=self.device), trash)
+
+
+def _to(t: Optional[torch.Tensor], device) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(device)
 
 
 class SlotTable:

@@ -10,6 +10,13 @@ export still holds them. `chunk_adjacency_arrays` gives the texture
 stage its chunk graph; `on_drop` hears of every slot whose mesh is
 dropped (GC, streaming), so per-slot state kept elsewhere is released
 before the slot is recycled.
+
+The pool is sharded like the volume's rows (slot s on shard s % n of its
+mesh). A sharded remesh meshes each shard's dirty chunks on that shard's
+device, after gathering the rows of the chunks and of their 7 corner
+neighbours, from whichever shard holds them, into a halo staging tensor
+whose last row is a reset row (RESET_SDF, weight 0) that every absent
+neighbour reads, as the unsharded trash row does.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ import torch
 from texturefusion_torch.core import geometry
 from texturefusion_torch.fusion.chunkmap import TSDFVolume
 from texturefusion_torch.ops import marching_cubes as mc
+from texturefusion_torch.ops import tsdf as tsdf_ops
+from texturefusion_torch.parallel.sharded_tsdf import TSDF_FIELDS, ShardedRows
 
 
 class IncrementalMesher:
@@ -36,7 +45,9 @@ class IncrementalMesher:
         cap = volume.cfg.capacity
         self.p_cap = cfg.pool_verts_per_chunk
         self.t_cap = cfg.pool_tris_per_chunk
-        self.pool = mc.make_mesh_pool(cap, self.p_cap, self.t_cap, volume.device)
+        self.pool_rows = ShardedRows.build(
+            volume.mesh, cap + 1,
+            lambda rows, dev: tuple(mc.make_mesh_pool(rows - 1, self.p_cap, self.t_cap, dev)))
         self.vcount = np.zeros(cap + 1, np.int32)   # host mirrors
         self.tcount = np.zeros(cap + 1, np.int32)
         # chunk id -> host mesh of an OFFLOADED chunk (streaming): its slot
@@ -48,6 +59,15 @@ class IncrementalMesher:
         self._warned_overflow = False
         # called with the slots (int64 array) of every drop
         self.on_drop: Optional[Callable[[np.ndarray], None]] = None
+
+    @property
+    def pool(self) -> mc.MeshPool:
+        """The [cap+1, ...] pool of an unsharded volume (updated in place)."""
+        if self.volume.sharded:
+            raise NotImplementedError(
+                "IncrementalMesher.pool is the one-device pool; a sharded pool is read "
+                "through mesher.pool_rows")
+        return mc.MeshPool(*self.pool_rows.parts[0])
 
     def _neighbor_slots(self, slots: np.ndarray) -> np.ndarray:
         """[U, 8] slots of self + 7 positive-corner neighbours, trash
@@ -64,14 +84,37 @@ class IncrementalMesher:
     def _remesh(self, slots: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """Mesh one batch of slots into the pool; returns host (vcount, tcount)."""
         vol = self.volume
-        dev = vol.device
-        vcount, tcount = mc.mesh_chunks_pooled(
-            self.pool, *vol.batch,
-            torch.as_tensor(slots, device=dev),
-            torch.as_tensor(self._neighbor_slots(slots), device=dev),
-            torch.as_tensor(vol.ids[slots].astype(np.float32) * vol.extent, device=dev),
-            torch.ones(len(slots), dtype=torch.bool, device=dev),
-            vol.cfg.chunk_size, vol.cfg.voxel_resolution)
+        origins = vol.ids[slots].astype(np.float32) * vol.extent
+        nbr = self._neighbor_slots(slots)
+        if not vol.sharded:
+            dev = vol.device
+            vcount, tcount = mc.mesh_chunks_pooled(
+                self.pool, *vol.batch, torch.as_tensor(slots, device=dev),
+                torch.as_tensor(nbr, device=dev), torch.as_tensor(origins, device=dev),
+                torch.ones(len(slots), dtype=torch.bool, device=dev),
+                vol.cfg.chunk_size, vol.cfg.voxel_resolution)
+            return vcount.cpu().numpy(), tcount.cpu().numpy()
+
+        trash = vol.cfg.capacity
+
+        def fn(k, pool_part, idx):
+            dev = idx.device
+            mine = np.nonzero(np.asarray(slots) % vol.mesh.size == k)[0]   # split()'s lanes
+            halo, inv = np.unique(nbr[mine], return_inverse=True)
+            real = halo[halo != trash]
+            # the trash slot is the largest, so it sorts last: staging row
+            # len(real), the reset row, is what an absent neighbour reads
+            staged = [torch.cat([rows, reset]) for rows, reset in zip(
+                vol.rows.gather(real, fields=TSDF_FIELDS, device=dev),
+                tsdf_ops.make_empty_batch(1, vol.n_voxels, dev))]
+            return mc.mesh_chunks_pooled(
+                mc.MeshPool(*pool_part), *staged, idx,
+                torch.as_tensor(inv.reshape(-1, 8), device=dev),
+                torch.as_tensor(origins[mine], device=dev),
+                torch.ones(len(mine), dtype=torch.bool, device=dev),
+                vol.cfg.chunk_size, vol.cfg.voxel_resolution)
+
+        vcount, tcount = self.pool_rows.launch(fn, slots, "remesh")
         return vcount.cpu().numpy(), tcount.cpu().numpy()
 
     def update_meshes(self, max_chunks: int = 0) -> int:
@@ -104,8 +147,7 @@ class IncrementalMesher:
                            if self.tcount[s] > 0], np.int64)
         if len(todo) == 0:
             return {}
-        v, cp, npk, tr, vc, tc = (a.cpu().numpy() for a in mc.gather_pool_rows(
-            self.pool, torch.as_tensor(todo, device=self.volume.device)))
+        v, cp, npk, tr, vc, tc = (a.cpu().numpy() for a in self.pool_rows.gather(todo))
         out: Dict[int, tuple] = {}
         for i, s in enumerate(todo.tolist()):
             nv, nt = int(vc[i]), int(tc[i])
@@ -137,9 +179,7 @@ class IncrementalMesher:
             return
         self.vcount[slots] = 0
         self.tcount[slots] = 0
-        idx = torch.as_tensor(slots, device=self.volume.device)
-        self.pool.vcount[idx] = 0
-        self.pool.tcount[idx] = 0
+        self.pool_rows.fill(slots, {4: 0, 5: 0})
         self._cache_valid = False
         if self.on_drop is not None:
             self.on_drop(slots)

@@ -57,6 +57,7 @@ from texturefusion_torch.fusion.mesher import IncrementalMesher
 from texturefusion_torch.fusion.streaming import ChunkStreamer
 from texturefusion_torch.models.reconstruction import frame_step_tracked2
 from texturefusion_torch.ops import preprocess
+from texturefusion_torch.parallel.mesh import DeviceMesh, same_device, tsdf_mesh
 from texturefusion_torch.slam.gcslam import GCSLAM
 from texturefusion_torch.texture.manager import TextureManager
 from texturefusion_torch.utils.stopwatch import STOPWATCH
@@ -100,19 +101,28 @@ class ReconstructionPipeline:
     """`draw_fn` is GCSLAM's (every RANSAC draw of a promotion or retry);
     `frame_draws(frame_index)` returns the per-frame draws of
     frame_step_tracked2 (vs keyframe, vs previous frame). Both default to
-    the seeded generators."""
+    the seeded generators.
+
+    `mesh` shards the TSDF rows and the mesh pool over its devices (slot s
+    on shard s % n) and BA's edges; without one, parallel.tsdf_sharded
+    builds a mesh of parallel.n_devices devices (all when None) of the
+    pipeline's device type when more than one exists, as the JAX package
+    does (fusion/pipeline.py:103-115)."""
 
     def __init__(self, config: PipelineConfig, device="cuda",
                  draw_fn: Optional[Callable] = None,
-                 frame_draws: Optional[Callable[[int], Tuple[torch.Tensor, torch.Tensor]]] = None):
-        if config.parallel.tsdf_sharded:
-            raise NotImplementedError(
-                "the sharded TSDF is not ported yet (ROADMAP Queue 1 item 6, multi-GPU)")
+                 frame_draws: Optional[Callable[[int], Tuple[torch.Tensor, torch.Tensor]]] = None,
+                 mesh: Optional[DeviceMesh] = None):
         self.config = config
         self.device = torch.device(device)
+        if mesh is None and config.parallel.tsdf_sharded:
+            mesh = tsdf_mesh(config.parallel.n_devices, self.device)
+        if mesh is not None and not same_device(mesh.devices[0], self.device):
+            raise ValueError(f"the mesh starts on {mesh.devices[0]}, the pipeline is on "
+                             f"{self.device}")
         self.intr = cam.Intrinsics.from_config(config.camera)
-        self.slam = GCSLAM(config, device=self.device, draw_fn=draw_fn)
-        self.volume = TSDFVolume(config, device=self.device)
+        self.slam = GCSLAM(config, device=self.device, draw_fn=draw_fn, mesh=mesh)
+        self.volume = TSDFVolume(config, device=self.device, mesh=mesh)
         self.mesher = IncrementalMesher(self.volume)
         self.streamer = None
         if config.tsdf.max_resident_chunks > 0:
@@ -515,7 +525,7 @@ class ReconstructionPipeline:
         def nbytes(t):
             return t.numel() * t.element_size()
 
-        dev = sum(nbytes(a) for a in vol.batch) + nbytes(vol.origins)
+        dev = vol.rows.nbytes()
         kf = sum(nbytes(st.depth) + nbytes(st.rgb) + nbytes(st.quality)
                  + sum(nbytes(d) for d in st.local_depths)
                  for st in self.kf_states.values())
@@ -551,8 +561,15 @@ class TexturedPipeline(ReconstructionPipeline):
 
     def __init__(self, config: PipelineConfig, device="cuda",
                  draw_fn: Optional[Callable] = None,
-                 frame_draws: Optional[Callable[[int], Tuple[torch.Tensor, torch.Tensor]]] = None):
-        super().__init__(config, device=device, draw_fn=draw_fn, frame_draws=frame_draws)
+                 frame_draws: Optional[Callable[[int], Tuple[torch.Tensor, torch.Tensor]]] = None,
+                 mesh: Optional[DeviceMesh] = None):
+        super().__init__(config, device=device, draw_fn=draw_fn, frame_draws=frame_draws,
+                         mesh=mesh)
+        if self.volume.sharded:
+            self.close()
+            raise NotImplementedError(
+                "texturing a sharded mesh pool is not ported (ROADMAP Queue 1 item 7: the "
+                "texture stage reads the one-device pool)")
         self.texture = TextureManager(config, device=self.device)
         self.mesher.on_drop = self.texture.release
         # per submitted cycle, in order: the newest keyframe and each

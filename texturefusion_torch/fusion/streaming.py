@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from texturefusion_torch.fusion.chunkmap import TSDFVolume
+from texturefusion_torch.parallel.sharded_tsdf import TSDF_FIELDS
 
 
 class ChunkStreamer:
@@ -49,8 +50,7 @@ class ChunkStreamer:
             victims = act[np.argsort(-dist)[:over_budget]]
         if len(victims) == 0:
             return 0
-        idx = torch.as_tensor(victims, device=vol.device)
-        rows = [a[idx].cpu() for a in vol.batch]          # one host copy per array
+        rows = vol.rows.gather(victims, fields=TSDF_FIELDS, device="cpu")
         for r, s in enumerate(victims.tolist()):
             self.cold[tuple(vol.ids[s].tolist())] = tuple(a[r] for a in rows) + (
                 vol.obs_row(s),)
@@ -74,9 +74,8 @@ class ChunkStreamer:
             return 0
         kept = [h for h, k in zip(hits, ok) if k]
         rows = [self.cold.pop(h) for h in kept]
-        idx = torch.as_tensor(slots[ok], device=vol.device)
-        for i, a in enumerate(vol.batch):
-            a[idx] = torch.stack([r[i] for r in rows]).to(vol.device)
+        vol.rows.put(slots[ok], [torch.stack([r[i] for r in rows]) for i in TSDF_FIELDS],
+                     fields=TSDF_FIELDS)
         for s, r in zip(slots[ok].tolist(), rows):
             vol.set_obs_row(int(s), r[4])
             vol.dirty_mesh.add(int(s))

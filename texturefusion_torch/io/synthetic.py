@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from texturefusion_torch.core import camera as cam
+from texturefusion_torch.core import se3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,3 +167,17 @@ def loop_trajectory(n_frames: int, radius: float = 1.6,
         pose[:3, 3] = eye
         poses.append(pose)
     return poses
+
+
+def perturbed_poses(poses: List[np.ndarray], trans_sigma: float = 0.01,
+                    rot_sigma: float = 0.005, seed: int = 0) -> List[np.ndarray]:
+    """Ground-truth poses with noise, T·exp(ξ), ξ drawn from
+    numpy.random.default_rng(seed) (odometry initialization for BA tests)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for p in poses:
+        xi = np.concatenate([rng.standard_normal(3) * trans_sigma,
+                             rng.standard_normal(3) * rot_sigma]).astype(np.float32)
+        out.append(se3.compose(torch.as_tensor(np.asarray(p, np.float32)),
+                               se3.se3_exp(torch.as_tensor(xi))).numpy())
+    return out

@@ -14,15 +14,25 @@ gathers are direct and the compaction is an exclusive cumsum feeding a
 scatter; the outputs are the same: per chunk, the first P valid edges in
 ascending edge order and the first T valid triangles in emission order.
 
+Three outputs: the device mesh pool (`mesh_chunks_pooled`, the
+pipeline's), the padded per-chunk buffers (`mesh_chunks` → ChunkMesh,
+compacted on the host by `compact_mesh` or on the device by
+`compact_mesh_device`), and one flat compacted mesh over every chunk
+(`mesh_chunks_compact` → CompactMesh, the multichip map cycle's). The
+JAX package compacts the flat mesh with searchsorted gathers, because
+scatters serialize on the TPU; here a cumsum feeds one index_put_, with
+the same output.
+
 Packed normals and colours are built in int64 and stored as int32 in the
 pool: 3 × 8-bit channels never reach the sign bit, so the bits equal the
-JAX pool's uint32.
+JAX pool's uint32. CompactMesh's vertex records hold the JAX uint32
+words' bits in int32 too (positions as their float32 bits).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -63,20 +73,18 @@ def _grad_axis(f: torch.Tensor, axis: int) -> torch.Tensor:
                        torch.where(idx == n - 1, f - lower, (upper - lower) * 0.5))
 
 
-def _mesh_core(sdf, weight, color, color_count, nbr_slots, origins, active,
-               chunk_size: int, resolution: float):
-    """Marching cubes over U chunks. nbr_slots [U, 8] (self + 7 corner
-    neighbours, trash slot where absent), origins [U, 3], active [U].
+def _mesh_vertices(sdf, weight, color, color_count, nbr_slots, origins,
+                   chunk_size: int, resolution: float):
+    """The 9³ blocks of U chunks and their edge vertices. nbr_slots [U, 8]
+    (self + 7 corner neighbours, trash slot where absent), origins [U, 3].
 
-    Returns (positions [U,E,3], npack [U,E] i64, cpack [U,E] i64,
-    val [U,E] bool, vali [U,E] i64, vidx [U,E] i64 exclusive prefix,
-    tl [U,T,3] i64 chunk-local vertex ids, tvalid [U,T] bool)."""
+    Returns (s_blk [U, 729], observed [U, 729], positions [U,E,3],
+    normals [U,E,3], colors [U,E,3] in 0..1, crossing [U,E] bool)."""
     dev = sdf.device
-    U, V = nbr_slots.shape[0], sdf.shape[1]
-    s = chunk_size
+    V = sdf.shape[1]
 
     # ---- 9³ blocks: one direct gather per field
-    nbr_lut, lin_lut = _block_luts(s)
+    nbr_lut, lin_lut = _block_luts(chunk_size)
     flat = (nbr_slots[:, torch.as_tensor(nbr_lut, device=dev)] * V
             + torch.as_tensor(lin_lut, device=dev))              # [U, 729]
     s_blk = sdf.reshape(-1)[flat]
@@ -115,17 +123,14 @@ def _mesh_core(sdf, weight, color, color_count, nbr_slots, origins, active,
                  + 0.5 * resolution)
     normals = torch.cat(nrm_l, dim=1)
     colors = torch.clamp(torch.cat(col_l, dim=1), 0.0, 1.0)
-    val = torch.cat(val_l, dim=1) & active[:, None]              # [U, 3·729]
+    return s_blk, ob, positions, normals, colors, torch.cat(val_l, dim=1)
 
-    vali = val.to(torch.int64)
-    vidx = torch.cumsum(vali, dim=1) - vali
 
-    n8 = (torch.clamp(torch.round(normals * 127.0), -127, 127) + 127.0).to(torch.int64)
-    npack = n8[..., 0] + (n8[..., 1] << 8) + (n8[..., 2] << 16)
-    c8 = torch.clamp(torch.round(colors * 255.0), 0, 255).to(torch.int64)
-    cpack = c8[..., 0] + (c8[..., 1] << 8) + (c8[..., 2] << 16)
-
-    # ---- triangles: case index → local edges → chunk-local vertex ids
+def _triangle_edges(s_blk: torch.Tensor, ob: torch.Tensor, chunk_size: int):
+    """Per chunk, the marching-cubes triangles as block edge ids: (emitted
+    [U, 512·MT·3] bool, edge id [U, 512·MT·3], 0 where not emitted)."""
+    dev = s_blk.device
+    U, s = s_blk.shape[0], chunk_size
     vox = np.stack(np.meshgrid(np.arange(s), np.arange(s), np.arange(s),
                                indexing="ij"), axis=-1).reshape(-1, 3)
     corner_lin = torch.as_tensor(_grid_lin(vox[:, None, :] + mc_tables.CORNER_OFFSETS[None]),
@@ -139,14 +144,130 @@ def _mesh_core(sdf, weight, color, color_count, nbr_slots, origins, active,
                               device=dev)[case]                  # [U, 512, MT*3]
     e_glob = torch.as_tensor(_grid_lin(vox[:, None, :] + mc_tables.EDGE_ORIGIN[None])
                              + mc_tables.EDGE_AXIS[None, :] * B3, device=dev)  # [512, 12]
-    emitted = local_e >= 0
     gid = torch.gather(e_glob[None].expand(U, -1, -1), 2,
                        torch.clamp(local_e, min=0)).reshape(U, -1)
-    tl = torch.where(emitted.reshape(U, -1), torch.gather(vidx, 1, gid), 0).reshape(U, -1, 3)
+    return (local_e >= 0).reshape(U, -1), gid
+
+
+def _mesh_core(sdf, weight, color, color_count, nbr_slots, origins, active,
+               chunk_size: int, resolution: float):
+    """Marching cubes over U chunks. nbr_slots [U, 8] (self + 7 corner
+    neighbours, trash slot where absent), origins [U, 3], active [U].
+
+    Returns (positions [U,E,3], npack [U,E] i64, cpack [U,E] i64,
+    val [U,E] bool, vali [U,E] i64, vidx [U,E] i64 exclusive prefix,
+    tl [U,T,3] i64 chunk-local vertex ids, tvalid [U,T] bool)."""
+    U = nbr_slots.shape[0]
+    s_blk, ob, positions, normals, colors, crossing = _mesh_vertices(
+        sdf, weight, color, color_count, nbr_slots, origins, chunk_size, resolution)
+    val = crossing & active[:, None]                             # [U, 3·729]
+
+    vali = val.to(torch.int64)
+    vidx = torch.cumsum(vali, dim=1) - vali
+
+    n8 = (torch.clamp(torch.round(normals * 127.0), -127, 127) + 127.0).to(torch.int64)
+    npack = n8[..., 0] + (n8[..., 1] << 8) + (n8[..., 2] << 16)
+    c8 = torch.clamp(torch.round(colors * 255.0), 0, 255).to(torch.int64)
+    cpack = c8[..., 0] + (c8[..., 1] << 8) + (c8[..., 2] << 16)
+
+    # ---- triangles: case index → local edges → chunk-local vertex ids
+    emitted, gid = _triangle_edges(s_blk, ob, chunk_size)
+    tl = torch.where(emitted, torch.gather(vidx, 1, gid), 0).reshape(U, -1, 3)
     cv = torch.gather(val, 1, gid).reshape(U, -1, 3)
     tvalid = (torch.all(emitted.reshape(U, -1, 3), dim=-1) & torch.all(cv, dim=-1)
               & active[:, None])
     return positions, npack, cpack, val, vali, vidx, tl, tvalid
+
+
+class ChunkMesh(NamedTuple):
+    """Padded per-chunk mesh buffers (batch dimension U leading)."""
+
+    positions: torch.Tensor   # [U, 3·729, 3] world-space edge vertices
+    normals: torch.Tensor     # [U, 3·729, 3]
+    colors: torch.Tensor      # [U, 3·729, 3] in [0, 1]
+    vert_valid: torch.Tensor  # [U, 3·729] bool
+    triangles: torch.Tensor   # [U, 8³·MAX_TRIS, 3] int64 block edge ids, -1 padded
+
+
+def mesh_chunks(sdf, weight, color, color_count, slots: torch.Tensor,
+                nbr_slots: torch.Tensor, origins: torch.Tensor, chunk_size: int,
+                resolution: float) -> ChunkMesh:
+    """Marching cubes over the chunks `slots` [U] into padded per-chunk
+    buffers: every owned grid edge's vertex, valid where the SDF crosses
+    zero between two observed nodes, and triangles of edge ids."""
+    del slots  # the chunks are named by nbr_slots[:, 0], as in the JAX package
+    U = nbr_slots.shape[0]
+    s_blk, ob, positions, normals, colors, crossing = _mesh_vertices(
+        sdf, weight, color, color_count, nbr_slots, origins, chunk_size, resolution)
+    emitted, gid = _triangle_edges(s_blk, ob, chunk_size)
+    return ChunkMesh(positions, normals, colors, crossing,
+                     torch.where(emitted, gid, -1).reshape(U, -1, 3))
+
+
+class CompactMesh(NamedTuple):
+    """A flat mesh holding only real geometry, over all U chunks: vertex
+    records of 5 words (position xyz as float32 bits; the normal as
+    3×(int8+127); the colour as 3×uint8), chunk u's at rows [voff[u],
+    voff[u] + vcount[u]), and triangles as CHUNK-LOCAL vertex ids."""
+
+    vert_rec: torch.Tensor    # [vert_cap, 5] int32 (the JAX uint32 words' bits)
+    triangles: torch.Tensor   # [tri_cap, 3] int32
+    vcount: torch.Tensor      # [U] int32 vertices per chunk
+    tcount: torch.Tensor      # [U] int32 triangles per chunk
+
+
+def _records(positions: torch.Tensor, npack: torch.Tensor, cpack: torch.Tensor) -> torch.Tensor:
+    """[U, E, 5] int32 vertex records."""
+    return torch.cat([positions.contiguous().view(torch.int32),
+                      npack[..., None].to(torch.int32), cpack[..., None].to(torch.int32)],
+                     dim=-1)
+
+
+def _compact_flat(valid: torch.Tensor, payload: torch.Tensor, cap: int) -> torch.Tensor:
+    """The first `cap` payload rows whose `valid` is set, in flat row-major
+    order, zero-filled: valid [U, E], payload [U, E, C] -> [cap, C]."""
+    v = valid.reshape(-1)
+    dest = torch.cumsum(v.to(torch.int64), dim=0) - 1
+    keep = v & (dest < cap)
+    out = torch.zeros((cap, payload.shape[-1]), dtype=payload.dtype, device=payload.device)
+    out[dest[keep]] = payload.reshape(-1, payload.shape[-1])[keep]
+    return out
+
+
+def compact_mesh_device(mesh: ChunkMesh, active: torch.Tensor, vert_cap: int,
+                        tri_cap: int) -> CompactMesh:
+    """On-device compaction of padded per-chunk buffers into a CompactMesh
+    (vertices of inactive chunks and triangles touching an invalid vertex
+    are dropped)."""
+    U = mesh.vert_valid.shape[0]
+    val = mesh.vert_valid & active[:, None]
+    vali = val.to(torch.int64)
+    vidx = torch.cumsum(vali, dim=1) - vali
+    n8 = (torch.clamp(torch.round(mesh.normals * 127.0), -127, 127) + 127.0).to(torch.int64)
+    c8 = torch.clamp(torch.round(mesh.colors * 255.0), 0, 255).to(torch.int64)
+    rec = _records(mesh.positions, n8[..., 0] + (n8[..., 1] << 8) + (n8[..., 2] << 16),
+                   c8[..., 0] + (c8[..., 1] << 8) + (c8[..., 2] << 16))
+    t = mesh.triangles
+    safe = torch.clamp(t, min=0).reshape(U, -1)
+    cv = torch.gather(val, 1, safe).reshape(t.shape)
+    tvalid = torch.all(t >= 0, dim=-1) & torch.all(cv, dim=-1) & active[:, None]
+    tl = torch.gather(vidx, 1, safe).reshape(t.shape)
+    return CompactMesh(_compact_flat(val, rec, vert_cap),
+                       _compact_flat(tvalid, tl.to(torch.int32), tri_cap),
+                       vali.sum(dim=1).to(torch.int32), tvalid.sum(dim=1).to(torch.int32))
+
+
+def mesh_chunks_compact(sdf, weight, color, color_count, nbr_slots: torch.Tensor,
+                        origins: torch.Tensor, active: torch.Tensor, chunk_size: int,
+                        resolution: float, vert_cap: int, tri_cap: int) -> CompactMesh:
+    """Marching cubes and the global compaction in one call: one flat mesh
+    over all U chunks (the multichip map cycle's meshing)."""
+    positions, npack, cpack, val, vali, _, tl, tvalid = _mesh_core(
+        sdf, weight, color, color_count, nbr_slots, origins, active, chunk_size, resolution)
+    return CompactMesh(_compact_flat(val, _records(positions, npack, cpack), vert_cap),
+                       _compact_flat(tvalid, tl.to(torch.int32), tri_cap),
+                       vali.sum(dim=1).to(torch.int32),
+                       tvalid.to(torch.int64).sum(dim=1).to(torch.int32))
 
 
 @dataclasses.dataclass
@@ -235,3 +356,50 @@ def unpack_u32_channels(packed: np.ndarray) -> np.ndarray:
     packed = np.asarray(packed).astype(np.uint32)
     return np.stack([packed & 0xFF, (packed >> 8) & 0xFF,
                      (packed >> 16) & 0xFF], axis=-1).astype(np.float32)
+
+
+def unpack_vert_records(rec: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """[N, 5] vertex records (the uint32 words' bits) → (positions f32
+    [N, 3], colors [N, 3] in 0..1, normals [N, 3])."""
+    rec = np.asarray(rec).astype(np.uint32)
+    pos = rec[:, :3].copy().view(np.float32)
+    nrm = (unpack_u32_channels(rec[:, 3]) - 127.0) / 127.0
+    col = unpack_u32_channels(rec[:, 4]) / 255.0
+    return pos, col, nrm
+
+
+def compact_mesh(mesh: ChunkMesh, active: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Host-side compaction of padded chunk meshes into flat arrays: each
+    chunk keeps the vertices its valid triangles use (ref:
+    Chisel.cpp:288-355 DrawMeshes' buffer fill). Returns (vertices [N, 3],
+    faces [M, 3] int32, colors [N, 3], normals [N, 3])."""
+    pos, nrm, col, val, tris = (t.cpu().numpy() for t in
+                                (mesh.positions, mesh.normals, mesh.colors,
+                                 mesh.vert_valid, mesh.triangles))
+    verts_out, faces_out, cols_out, nrms_out = [], [], [], []
+    base = 0
+    for u in range(pos.shape[0]):
+        if not active[u]:
+            continue
+        t = tris[u]
+        t = t[(t >= 0).all(axis=-1)]
+        t = t[val[u][t].all(axis=-1)]     # all three edge vertices valid
+        if len(t) == 0:
+            continue
+        used = np.zeros(val.shape[1], bool)
+        used[t.reshape(-1)] = True
+        remap = np.full(val.shape[1], -1, np.int64)
+        remap[used] = np.arange(used.sum()) + base
+        verts_out.append(pos[u][used])
+        cols_out.append(col[u][used])
+        nrms_out.append(nrm[u][used])
+        faces_out.append(remap[t])
+        base += used.sum()
+    if not verts_out:
+        z = np.zeros((0, 3), np.float32)
+        return z, np.zeros((0, 3), np.int32), z, z
+    return (np.concatenate(verts_out).astype(np.float32),
+            np.concatenate(faces_out).astype(np.int32),
+            np.concatenate(cols_out).astype(np.float32),
+            np.concatenate(nrms_out).astype(np.float32))

@@ -123,6 +123,15 @@ def refine_depth_with_normals(depth: torch.Tensor, normals: torch.Tensor,
     return torch.where((cos >= min_cos) & has_normal, depth, 0.0)
 
 
+def color_valid_flag(depth: torch.Tensor, normals: torch.Tensor,
+                     intr: cam.Intrinsics, min_cos: float = 0.2) -> torch.Tensor:
+    """Per-pixel flag: a colour observation is usable where |view·normal|
+    ≥ 0.2 (ref: checkColorQuality BasicAPI.cpp:783-813)."""
+    cos = view_angle_cos(depth, normals, intr)
+    has_normal = torch.sum(normals * normals, dim=-1) > 1e-12
+    return (cos >= min_cos) & has_normal & (depth > 0)
+
+
 def sobel_magnitude(gray: torch.Tensor) -> torch.Tensor:
     """|Sobel| gradient magnitude of (H, W), edge-replicated."""
     s = _shift
@@ -230,6 +239,32 @@ def frame_preprocess(depth_raw: torch.Tensor, intr: cam.Intrinsics,
     (ref: framePreprocess BasicAPI.cpp:942-997)."""
     return bilateral_filter(depth_clamp(depth_raw, intr.near, intr.far),
                             radius=bilateral_radius)
+
+
+def devignette(rgb: torch.Tensor, intr: cam.Intrinsics,
+               strength: float = 0.3) -> torch.Tensor:
+    """Radial vignetting correction (ref: DatasetWrapper.hpp's optional
+    radial devignetting): multiply by 1 + strength·r²·(1 + r²)."""
+    u, v = cam.pixel_grid(intr, device=rgb.device)
+    r2 = ((u - intr.cx) / intr.fx) ** 2 + ((v - intr.cy) / intr.fy) ** 2
+    gain = 1.0 + strength * r2 * (1.0 + r2)
+    return torch.clamp(rgb * gain[..., None], 0.0, 1.0)
+
+
+def remove_boundary_depth(depth: torch.Tensor, iterations: int = 2) -> torch.Tensor:
+    """Erode depth at discontinuities: flying-pixel removal
+    (ref: MapMaintain.hpp:131-172 removeBoundary)."""
+    d = depth
+    for _ in range(iterations):
+        neighbor_max = d
+        neighbor_min = torch.where(d > 0, d, torch.inf)
+        for dy, dx in ((0, 1), (0, -1), (1, 0), (-1, 0)):
+            nb = _shift(d, dy, dx)
+            neighbor_max = torch.maximum(neighbor_max, nb)
+            neighbor_min = torch.minimum(neighbor_min, torch.where(nb > 0, nb, torch.inf))
+        jump = neighbor_max - torch.where(torch.isfinite(neighbor_min), neighbor_min, 0.0)
+        d = torch.where((d > 0) & (jump < 0.1 * torch.clamp(d, min=0.5)), d, 0.0)
+    return d
 
 
 def pack_frame(depth_u16: np.ndarray, rgb_u8: np.ndarray) -> np.ndarray:

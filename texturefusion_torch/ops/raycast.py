@@ -115,7 +115,8 @@ def raycast_volume(volume, cam_to_world, intr: Optional[cam.Intrinsics] = None,
                    n_steps: int = 128) -> RaycastResult:
     """raycast over a TSDFVolume, on its device."""
     table = volume._slot_table()
-    return raycast(volume.batch.sdf, volume.batch.weight, volume.batch.color,
-                   volume.batch.color_count, table.table, table.lo, table.trash,
+    batch, _ = volume.dense_batch()
+    return raycast(batch.sdf, batch.weight, batch.color, batch.color_count,
+                   table.table, table.lo, table.trash,
                    torch.as_tensor(cam_to_world, dtype=torch.float32, device=volume.device),
                    intr or volume.intr, volume.cfg, n_steps=n_steps)

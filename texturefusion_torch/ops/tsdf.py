@@ -13,7 +13,8 @@ integrate_chunks → index_copy_). `reintegrate_frame_fused` (drift
 reintegration: -1 at the old pose, +1 at the new) is two K2 launches on
 the same rows, and `integrate_depths_batched` (a keyframe's depth-only
 local frames) one launch of K2's F-frame mode; each has a `_plain`
-version. Semantics kept from the reference's AVX path:
+version. `integrate_depths_scan` walks the frames one by one (one K2
+launch a frame), the F-frame mode's reference. Semantics kept from the reference's AVX path:
 
   * truncation once per chunk, at the chunk origin's camera depth
   * strict-interior pixel validity (0 < u < W-1, 0 < v < H-1), the pixel
@@ -262,6 +263,22 @@ def reintegrate_frame_fused(batch: ChunkBatch, origins_full: torch.Tensor,
     return reintegrate_frame_fused_plain(batch, origins_full, idx, active, depth, rgb,
                                          quality_map, pose_old, pose_new, intr, cfg,
                                          with_color=with_color)
+
+
+def integrate_depths_scan(batch: ChunkBatch, origins_full: torch.Tensor,
+                          idx: torch.Tensor, active: Optional[torch.Tensor],
+                          depths: torch.Tensor, cam_to_worlds: torch.Tensor, sign: float,
+                          intr: cam.Intrinsics, cfg: TSDFConfig) -> None:
+    """Depth-only integration of F frames (depths [F, H, W], cam_to_worlds
+    [F, 4, 4]) into the idx rows IN PLACE, one frame after another, as
+    the reference integrates a keyframe's local frames
+    (ref: MobileFusion.cpp:187-203): each frame is a depth-only voxel
+    update (K2 on CUDA rows, integrate_frame_fused_plain on CPU rows), so
+    the weight reset applies between frames. The reference against which
+    integrate_depths_batched's one-pass sum is measured."""
+    for depth, pose in zip(depths, cam_to_worlds):
+        integrate_frame_fused(batch, origins_full, idx, active, depth, None, None, pose,
+                              float(sign), intr, cfg, with_color=False)
 
 
 def frame_signs(signs, n_frames: int) -> Tuple[float, ...]:

@@ -193,23 +193,31 @@ def gauss_newton_rounds(poses: torch.Tensor, edges: EdgeSums, n_kf: int,
     return (torch.where(grew, poses, new_poses), err0, torch.where(grew, err0, err1))
 
 
-def prune_outlier_edges(poses: torch.Tensor, edges: EdgeSums,
-                        factor: float = 3.0) -> EdgeSums:
-    """Disable edges whose mean residual exceeds factor × the median over
-    VALID edges (ref: MultiViewGeometry.cpp:1165-1205); odometry edges
-    (consecutive keyframes) are never pruned."""
-    e = edge_errors(poses, edges)
-    mean_per_pt = e / torch.clamp(edges.s_w, min=1e-9)
-    n_valid = torch.sum(edges.valid)
-    srt = torch.sort(torch.where(edges.valid, mean_per_pt, torch.inf)).values
+def prune_mask(mean_per_pt: torch.Tensor, valid: torch.Tensor, kf_i: torch.Tensor,
+               kf_j: torch.Tensor, factor: float = 3.0) -> torch.Tensor:
+    """The `valid` mask after pruning: an edge stays valid while its mean
+    residual is at most factor × the median over VALID edges; odometry
+    edges (consecutive keyframes) are never pruned."""
+    n_valid = torch.sum(valid)
+    srt = torch.sort(torch.where(valid, mean_per_pt, torch.inf)).values
     last = srt.numel() - 1
     hi = torch.clamp((n_valid - 1) // 2 + (n_valid - 1) % 2, 0, last)
     lo = torch.clamp((n_valid - 1) // 2, 0, last)
     med = 0.5 * (srt[lo] + srt[hi])
     med = torch.where(n_valid > 0, med, 1e9)
-    keep = edges.valid & (mean_per_pt <= factor * torch.clamp(med, min=1e-12))
-    odo = torch.abs(edges.kf_i - edges.kf_j) == 1
-    return edges._replace(valid=torch.where(odo, edges.valid, keep))
+    keep = valid & (mean_per_pt <= factor * torch.clamp(med, min=1e-12))
+    odo = torch.abs(kf_i - kf_j) == 1
+    return torch.where(odo, valid, keep)
+
+
+def prune_outlier_edges(poses: torch.Tensor, edges: EdgeSums,
+                        factor: float = 3.0) -> EdgeSums:
+    """Disable edges whose mean residual exceeds factor × the median over
+    VALID edges (ref: MultiViewGeometry.cpp:1165-1205); odometry edges
+    (consecutive keyframes) are never pruned."""
+    mean_per_pt = edge_errors(poses, edges) / torch.clamp(edges.s_w, min=1e-9)
+    return edges._replace(valid=prune_mask(mean_per_pt, edges.valid, edges.kf_i,
+                                           edges.kf_j, factor))
 
 
 def reweight_edges(poses: torch.Tensor, edges: EdgeSums,

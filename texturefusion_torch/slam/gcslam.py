@@ -17,9 +17,10 @@ What the JAX package adds to hide a high-latency device link is not
 carried: deferred promotion (`defer_promote` is ignored: promotion is
 synchronous), the pipelined tracker's stale-reference path, async pose
 fetches and the BA bucket floors (BA runs at the true keyframe and edge
-counts). The branches that are not ported raise NotImplementedError:
-a `res_kf_slot` that is not the last keyframe, and multi-device BA. On
-one device the JAX package's Schur BA is the dense solve (`_run_ba`).
+counts). The branch that is not ported raises NotImplementedError: a
+`res_kf_slot` that is not the last keyframe. On one device the JAX
+package's Schur BA is the dense solve; over a DeviceMesh BA is
+edge-sharded (`_run_ba`, parallel/ba.py).
 
 Random draws: every registration takes Gumbel draws from `draw_fn(cfg,
 n)` ([R, H, 4, K], or [n, R, H, 4, K] for n candidates). By default they
@@ -38,6 +39,8 @@ import torch
 from texturefusion_torch.config import PipelineConfig, TrackingConfig
 from texturefusion_torch.core import camera as cam
 from texturefusion_torch.core import se3
+from texturefusion_torch.parallel import ba as pba
+from texturefusion_torch.parallel.mesh import DeviceMesh, config_mesh, pad_to_multiple
 from texturefusion_torch.slam import fastba, loopclosure, promote
 from texturefusion_torch.slam.features import Keypoints, extract_features
 from texturefusion_torch.slam.matching import (TwoViewResult, ransac_draws, register_frames,
@@ -69,11 +72,18 @@ class KeyframeRecord:
 
 class GCSLAM:
     def __init__(self, config: PipelineConfig, device="cuda",
-                 draw_fn: Optional[Callable[[TrackingConfig, Optional[int]], torch.Tensor]] = None):
+                 draw_fn: Optional[Callable[[TrackingConfig, Optional[int]], torch.Tensor]] = None,
+                 mesh: Optional[DeviceMesh] = None):
+        """`mesh` shards BA's edges over its devices; without one, the
+        config's parallel.n_devices picks a mesh under the JAX package's
+        rule (more than one device, and that many exist)."""
         self.config = config
         self.cfg = config.tracking
         self.intr = cam.Intrinsics.from_config(config.camera)
         self.device = torch.device(device)
+        if mesh is None:
+            mesh = config_mesh(config.parallel.n_devices, self.device, "GCSLAM")
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.frames: List[FrameRecord] = []
         self.keyframes: List[KeyframeRecord] = []
         max_kf = config.ba.max_keyframes
@@ -178,29 +188,43 @@ class GCSLAM:
 
     def _run_ba(self) -> None:
         """FastBA over all keyframes (ref: optimizeKeyFrameMap
-        MultiViewGeometry.cpp:1209-1217, at every new keyframe), dense,
-        at the true keyframe and edge counts, on one device at any keyframe
-        count. From `schur_min_keyframes` on, the JAX package runs the
-        keyframe-partitioned Schur BA (parallel/ba.py) on a 1-device mesh;
-        there one block holds every keyframe, no edge crosses a block, the
-        separator set is empty and its step is the dense −H⁻¹b with the
-        same pin, damping, non-finite guard, rollback and pruning as
-        fastba.optimize. Several devices raise NotImplementedError."""
+        MultiViewGeometry.cpp:1209-1217, at every new keyframe), at the true
+        keyframe and edge counts. On one device it is dense at any keyframe
+        count: from `schur_min_keyframes` on, the JAX package runs its
+        keyframe-partitioned Schur BA on a 1-device mesh, where one block
+        holds every keyframe, no edge crosses a block, the separator set is
+        empty and the step is the dense −H⁻¹b. With a mesh the edges are
+        sharded over it (parallel/ba.py): Schur GN from
+        `schur_min_keyframes` on, else distributed GN, with the keyframes
+        padded by pinned inactive ones to a mesh multiple. Pin, damping,
+        non-finite guard, rollback and pruning are the same on every path."""
         n_kf = len(self.keyframes)
         if n_kf < 2 or self.n_edges < 1:
             return
-        n_dev = self.config.parallel.n_devices
-        if n_dev and n_dev > 1:
-            raise NotImplementedError(
-                "edge-sharded multi-device BA is not ported yet (ROADMAP Queue 1 item 6)")
-        poses = torch.as_tensor(self.poses[:n_kf], device=self.device)
-        active = torch.ones(n_kf, dtype=torch.bool, device=self.device)
-        new_poses, edges, errs = fastba.optimize(poses, self.edges.head(self.n_edges), n_kf,
-                                                 active, self.config.ba)
+        cfg = self.config.ba
+        edges = self.edges.head(self.n_edges)
+        if self.mesh is None:
+            poses = torch.as_tensor(self.poses[:n_kf], device=self.device)
+            active = torch.ones(n_kf, dtype=torch.bool, device=self.device)
+            new_poses, edges, errs = fastba.optimize(poses, edges, n_kf, active, cfg)
+            valid = edges.valid
+        else:
+            n_pad = pad_to_multiple(n_kf, self.mesh.size)
+            dev0 = self.mesh.devices[0]
+            # identity rows past the true count: the pose array need not
+            # hold n_pad rows when the mesh size does not divide its capacity
+            pad = np.tile(np.eye(4, dtype=np.float32), (n_pad - n_kf, 1, 1))
+            poses = torch.as_tensor(np.concatenate([self.poses[:n_kf], pad]), device=dev0)
+            active = torch.arange(n_pad, device=dev0) < n_kf
+            new_poses, valid, errs = pba.ba_rounds(
+                poses, edges, n_pad, active, cfg, self.mesh,
+                use_schur=n_kf >= cfg.schur_min_keyframes,
+                sep_budget=cfg.schur_separator_budget)
+            new_poses = new_poses[:n_kf]
         self.last_ba_errors = list(errs.cpu().numpy())
         self.ba_keyframes = max(self.ba_keyframes, n_kf)
         self.poses[:n_kf] = new_poses.cpu().numpy()
-        self.edges.valid[:self.n_edges] = edges.valid
+        self.edges.valid[:self.n_edges] = valid.to(self.device)
 
     # ------------------------------------------------------------ keyframes
 

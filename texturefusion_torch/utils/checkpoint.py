@@ -84,10 +84,11 @@ def pipeline_state(pipe) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
             "offloaded chunks are in the streamer's host store, which is not saved")
     pipe._drain_fusion()
     vol, slam = pipe.volume, pipe.slam
+    batch, origins = vol.dense_batch()
     arrays: Dict[str, np.ndarray] = {
-        "sdf": _np(vol.batch.sdf), "weight": _np(vol.batch.weight),
-        "color": _np(vol.batch.color), "color_count": _np(vol.batch.color_count),
-        "origins": _np(vol.origins), "poses": slam.poses.copy(),
+        "sdf": _np(batch.sdf), "weight": _np(batch.weight),
+        "color": _np(batch.color), "color_count": _np(batch.color_count),
+        "origins": _np(origins), "poses": slam.poses.copy(),
         "chunk_ids": vol.ids.copy(), "used": vol.used.copy(),
         "db_desc": _np(slam.db.desc), "db_valid": _np(slam.db.valid),
         "row_to_slot": _np(slam._row_to_slot),
@@ -156,9 +157,9 @@ def restore_pipeline_state(pipe, arrays, meta: Dict[str, Any]) -> None:
         dst.copy_(torch.as_tensor(np.asarray(arrays[name])).to(dst.dtype))
 
     vol = pipe.volume
-    for dst, name in zip(vol.batch, ("sdf", "weight", "color", "color_count")):
-        put(dst, name)
-    put(vol.origins, "origins")
+    vol.rows.put(np.arange(vol.rows.n_rows), [torch.as_tensor(np.asarray(arrays[name])) for name in
+                                              ("sdf", "weight", "color", "color_count",
+                                               "origins")])
     vol.ids = np.array(arrays["chunk_ids"], np.int32)
     vol.used = np.array(arrays["used"], bool)
     vol.slot_of = {tuple(int(c) for c in k): int(v) for k, v in meta["slot_of"].items()}
