@@ -116,15 +116,22 @@ non-zero):
                 cycle with K2 on every shard, then the live pipeline,
                 tsdf_sharded, on three tiny frames): its asserts; the map
                 cycle on the card against the same cycle on 8 CPU shards
- 22. pipeline-sharded - [pipeline]'s config and 120 frames with the TSDF
-                rows, the mesh pool and BA's edges sharded over the 4 shards
-                (slot s on shard s % 4): [pipeline]'s gates, ATE and map RMS
-                within 0.5 mm of [pipeline]'s, resident chunks per shard
-                within 10% of their mean; frames/s beside [pipeline]'s, K2
-                and F-frame launches per shard, the largest position
-                difference, keyframe and loop-edge counts beside
-                [pipeline]'s; K2 and the F-frame mode against their plain
-                versions on one shard's rows
+ 22. pipeline-sharded - TexturedPipeline on [pipeline]'s config and 120
+                frames with the TSDF rows, the mesh pool and BA's edges
+                sharded over the 4 shards (slot s on shard s % 4), then
+                export_textured: [pipeline]'s gates, ATE and map RMS within
+                0.5 mm of [pipeline]'s, resident chunks per shard within 10%
+                of their mean; [pipeline-textured]'s texture gates (half the
+                meshed chunks patched and not wrong, the atlas not full, the
+                OBJ/MTL/PNG consistent); one texture cycle through the
+                sharded pool reader bit for bit against the same cycle on
+                the pool assembled on one card, and the reader's gather
+                timed alone; frames/s, the texture stages, the colour error
+                and the share of chunks with the same label beside
+                [pipeline-textured]'s; K2 and F-frame launches per shard,
+                the largest position difference, keyframe and loop-edge
+                counts beside [pipeline]'s; K2 and the F-frame mode against
+                their plain versions on one shard's rows
 After phase 5, [raycast] renders 8 VGA views of [slice]'s volume
 (ops/raycast.raycast_volume; plain torch ops, no kernel) against the
 scene rendered there: hit share > 0.5, median depth error below a voxel,
@@ -1526,7 +1533,9 @@ def _texture_audit(pipe) -> dict:
     occluded vertices whose depth taps touch a hole (depth 0)."""
     from texturefusion_torch.core import camera as cam
     from texturefusion_torch.core import se3
+    from texturefusion_torch.ops import marching_cubes as mc
     from texturefusion_torch.ops import tsdf
+    from texturefusion_torch.parallel.sharded_tsdf import ORIGIN_FIELD
     from texturefusion_torch.texture.patch import _bilinear_packed, _unpack, wrong_mapping_tests
     tm, vol, intr, cfg, dev = pipe.texture, pipe.volume, pipe.intr, pipe.texture.cfg, pipe.device
     meshed = np.asarray(sorted(pipe.mesher.meshes), np.int64)
@@ -1534,11 +1543,13 @@ def _texture_audit(pipe) -> dict:
     out = {"meshed": len(meshed), "with_observation": int(mask[meshed].any(1).sum()),
            "with_positive_observation": int(((q > 0) & mask)[meshed].any(1).sum()),
            "wrong": sum(tm.chunk_tex[s].wrong for s in meshed if s in tm.chunk_tex)}
-    idx = torch.as_tensor(meshed, device=dev)
-    origins, pool = vol.origins[idx], pipe.mesher.pool
+    # through the containers: a sharded volume and pool as one-device ones
+    (origins,) = vol.rows.gather(meshed, fields=(ORIGIN_FIELD,), device=dev)
+    verts, colpk, vcount = pipe.mesher.pool_rows.gather(
+        meshed, fields=(mc.POOL_VERTS, mc.POOL_COLORS, mc.POOL_VCOUNT), device=dev)
     world = tsdf._voxel_world(origins, vol.cfg)
-    verts, vcol = pool.verts[idx], _unpack(pool.col_packed[idx]) / 255.0
-    valid = torch.arange(verts.shape[1], device=dev)[None] < pool.vcount[idx][:, None]
+    vcol = _unpack(colpk) / 255.0
+    valid = torch.arange(verts.shape[1], device=dev)[None] < vcount[:, None]
     seen = torch.zeros(len(meshed), dtype=torch.bool, device=dev)
     passes = torch.zeros_like(seen)
     fails = {"occluded": 0, "depth": 0, "colour": 0, "no_vertex_in_view": 0}
@@ -1578,9 +1589,13 @@ def _texture_audit(pipe) -> dict:
     return out
 
 
-def _textured_report(name, pipe, scene, poses, m, reference):
+def _textured_report(name, pipe, scene, poses, m, reference, ref_name="pipeline",
+                     geometry=True):
     """[pipeline-textured]: the export, the texture stages, the colour
-    error, and the gates beside [pipeline] (`reference`)."""
+    error, and the gates beside `reference` ([pipeline]'s metrics, or
+    `ref_name`'s): with `geometry`, ATE and vertices beside it (texturing
+    writes no TSDF row); the texture's gates always. Adds the texture
+    stages, the colour errors and each chunk id's label to m."""
     from texturefusion_torch.io import png, tum
     from texturefusion_torch.utils.stopwatch import STOPWATCH
     tm = pipe.texture
@@ -1620,7 +1635,7 @@ def _textured_report(name, pipe, scene, poses, m, reference):
     log(f"[{name}] texture stages (seconds, calls) {json.dumps(stages)}; export_textured "
         f"{export_s:.3f} s, files {json.dumps(sizes)}, v={n_v} vt={n_vt} f={len(faces)} "
         f"png={None if img is None else list(img.shape)} used_rows={tm.atlas.used_rows()}")
-    log(f"[{name}] frames/s {m['fps']:.3f} vs [pipeline] {reference['fps']:.3f}, finish "
+    log(f"[{name}] frames/s {m['fps']:.3f} vs [{ref_name}] {reference['fps']:.3f}, finish "
         f"{m['finish_s']:.3f} s vs {reference['finish_s']:.3f} s, ate_mm {m['ate_mm']:.4f} vs "
         f"{reference['ate_mm']:.4f}, verts {m['verts']} vs {reference['verts']}; meshed="
         f"{len(meshed)} patched={len(patched)} ({len(patched) / max(len(meshed), 1):.3f}) "
@@ -1632,11 +1647,13 @@ def _textured_report(name, pipe, scene, poses, m, reference):
     log(f"[{name}] colour error vs scene.color, uint8 levels, {len(pos)} vertices "
         f"({int(exposed.sum())} labelled with a keyframe of frames {EXPOSURE_FRAMES[0]}-"
         f"{EXPOSURE_FRAMES[1] - 1}): {json.dumps(errors)}")
+    ids = pipe.volume.ids
     m.update(texture_s=STOPWATCH.totals["texture"], texture_final_s=STOPWATCH.totals[
-        "texture_final"], export_s=export_s, colour_errors=errors)
-    if abs(m["ate_mm"] - reference["ate_mm"]) > TEX_ATE_MM or \
-            abs(m["verts"] - reference["verts"]) > TEX_VERTS_FRAC * reference["verts"]:
-        raise AssertionError(f"[{name}] the map or trajectory moved against [pipeline]")
+        "texture_final"], export_s=export_s, colour_errors=errors, tex_stages=stages,
+        labels_by_id={tuple(ids[s].tolist()): t.label for s, t in tm.chunk_tex.items()})
+    if geometry and (abs(m["ate_mm"] - reference["ate_mm"]) > TEX_ATE_MM or
+                     abs(m["verts"] - reference["verts"]) > TEX_VERTS_FRAC * reference["verts"]):
+        raise AssertionError(f"[{name}] the map or trajectory moved against [{ref_name}]")
     if tm.atlas.overflowed or len(good) < TEX_PATCHED_FRAC * len(meshed):
         raise AssertionError(f"[{name}] atlas overflowed or only {len(good)} of "
                              f"{len(meshed)} meshed chunks patched and not wrong")
@@ -2173,15 +2190,90 @@ def _one_shard_check(pipe) -> dict:
     return out
 
 
-def phase_pipeline_sharded(frames, reference):
-    """[pipeline]'s config and 120 frames with the TSDF rows, the mesh pool
-    and BA's edges sharded over N_SHARDS shards (slot s on shard s % n):
-    [pipeline]'s gates, ATE and map RMS within 0.5 mm of [pipeline]'s,
-    resident chunks per shard within 10% of their mean; frames/s, K2 and
-    F-frame launches per shard, the largest position difference to
-    [pipeline], keyframe and loop-edge counts beside [pipeline]'s (and the
-    first frame where their keyframe decisions part); K2 and the F-frame
-    mode against their plain versions on one shard's rows."""
+def sharded_cycle_check(pipe, n_timed=20) -> dict:
+    """After a textured run, one texture cycle over every meshed chunk
+    through the pipeline's pool reader (sharded: the count columns and the
+    projected rows gathered from their shards) and, from copies of the
+    same state, texture_cycle_incremental on the pool assembled on one
+    device: whether each output and the updated state agree bit for bit.
+    The one-device cycle runs twice, and must repeat itself too. On the
+    card, the reader alone at the cycle's shape (ms, host dispatch
+    included): its two count columns, and its gather of the projected
+    lanes beside the same gather from the assembled pool; and the
+    cycle's per-keyframe moment sum beside index_add_'s."""
+    from texturefusion_torch.ops import marching_cubes as mc
+    from texturefusion_torch.texture import patch
+    tm, mesher, dev = pipe.texture, pipe.mesher, pipe.texture.device
+    newest = len(pipe.slam.keyframes) - 1
+    meshed, nbr = mesher.chunk_adjacency_arrays()
+    problem, slots, rmask, _ = tm.build_cycle(pipe.volume, meshed, nbr, pipe._tex_states(),
+                                              newest, set(meshed.tolist()))
+    rows = mesher.pool_rows
+    pool = mc.MeshPool(*rows.gather(np.arange(rows.n_rows), device=dev))
+
+    def state():
+        return tuple(t.clone() for t in (tm._labels_dev, tm._stats_dev, tm._failed_dev))
+
+    def one_device(st):
+        return patch.texture_cycle_incremental(
+            problem, torch.as_tensor(slots, device=dev), *st, torch.as_tensor(rmask, device=dev),
+            pool.verts, pool.col_packed, pool.vcount, pool.tcount, tm.kf_stack.rgb_packed,
+            tm.kf_stack.depth, torch.as_tensor(tm.kf_stack.poses, device=dev),
+            max(newest - 1, 0), tm.intr, tm.cfg, tm.cfg.mrf_sweeps, tm.cfg.patch_project_budget)
+
+    sharded, one, again = state(), state(), state()
+    got = tm.run_cycle(problem, slots, rmask, newest, mesher.pool_reader(dev), sharded)
+    want = one_device(one)
+    same = {k: bool(torch.equal(a, b)) for k, a, b in zip(got._fields, got, want)}
+    same.update({k: bool(torch.equal(a, b))
+                 for k, a, b in zip(("labels", "stats", "failed"), sharded, one)})
+    # the one-device cycle again: the program gives the same bits twice
+    same["one_device_repeatable"] = all(
+        torch.equal(a, b) for a, b in zip(tuple(want) + one, tuple(one_device(again)) + again))
+    # the lanes the program gathers: the projected chunks' slots, then trash
+    budget = tm.cfg.patch_project_budget
+    n_proj = min(int(got.n_changed), budget)
+    lanes = torch.full((budget,), rows.n_rows - 1, dtype=torch.int64, device=dev)
+    lanes[:n_proj] = torch.as_tensor(slots, device=dev)[got.proj_rows[:n_proj]]
+    out = {"exact": all(same.values()), "outputs": same, "meshed": len(meshed),
+           "n_changed": int(got.n_changed), "projected": n_proj, "lanes": budget,
+           "shards": rows.mesh.size}
+    if dev.type == "cuda":
+        reader = mesher.pool_reader(dev)
+        # the cycle's per-keyframe moment sum as the program makes it, and
+        # through index_add_ (atomics, not repeatable) on the same rows
+        k = tm.kf_stack.poses.shape[0]
+        labels, stats = one[0], one[1]
+        seg_ok = (labels >= 0) & (pool.tcount > 0)
+        seg_ok[-1] = False
+        seg = torch.where(seg_ok, torch.clamp(labels, 0, k - 1), k).to(torch.int64)
+        out["ms"] = {
+            "columns": cuda_ms(lambda: mesher.pool_reader(dev), n=n_timed),
+            "rows": cuda_ms(lambda: reader.rows(lanes), n=n_timed),
+            "rows_one_device": cuda_ms(lambda: (pool.verts[lanes], pool.col_packed[lanes]),
+                                       n=n_timed),
+            "moment_sum": cuda_ms(lambda: patch._segment_sum(seg, stats, k + 1), n=n_timed),
+            "moment_sum_index_add": cuda_ms(
+                lambda: torch.zeros((k + 1, stats.shape[1]), device=dev).index_add_(0, seg, stats),
+                n=n_timed)}
+    return out
+
+
+def phase_pipeline_sharded(frames, reference, textured):
+    """TexturedPipeline on [pipeline]'s config and 120 frames with the TSDF
+    rows, the mesh pool and BA's edges sharded over N_SHARDS shards (slot
+    s on shard s % n): [pipeline]'s gates, ATE and map RMS within 0.5 mm
+    of [pipeline]'s, resident chunks per shard within 10% of their mean;
+    [pipeline-textured]'s texture gates and its export; one texture
+    cycle through the sharded pool reader bit for bit against the same
+    cycle on the pool assembled on one card (sharded_cycle_check);
+    frames/s, the texture stages, the colour error and the share of
+    chunks (by id) with [pipeline-textured]'s label, beside
+    [pipeline-textured]'s (`textured`); K2 and F-frame launches per
+    shard, the largest position difference to [pipeline], keyframe and
+    loop-edge counts beside [pipeline]'s (and the first frame where their
+    keyframe decisions part); K2 and the F-frame mode against their plain
+    versions on one shard's rows."""
     from texturefusion_torch.ops import cuda_kernels
     from texturefusion_torch.utils.stopwatch import STOPWATCH
     _, poses, packed = frames
@@ -2190,13 +2282,32 @@ def phase_pipeline_sharded(frames, reference):
     STOPWATCH.reset()
     cuda_kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    pipe, loop, fin = run_pipeline(config, packed, "cuda", mesh=mesh)
+    pipe, loop, fin = run_pipeline(config, packed, "cuda", mesh=mesh, textured=True)
     launches = dict(cuda_kernels.LAUNCHES)
     shapes = dict(cuda_kernels.FRAME_SHAPES)
     k2_lanes = cuda_kernels.LANES["tsdf_integrate"] / max(launches["tsdf_integrate"], 1)
     name = "pipeline-sharded"
-    m = _pipeline_report(name, pipe, loop, fin, _bench_scene(), poses, launches, len(packed),
-                         shapes)
+    scene = _bench_scene()
+    m = _pipeline_report(name, pipe, loop, fin, scene, poses, launches, len(packed), shapes)
+    cycle = sharded_cycle_check(pipe)
+    _textured_report(name, pipe, scene, poses, m, textured, ref_name="pipeline-textured",
+                     geometry=False)
+    common = sorted(m["labels_by_id"].keys() & textured["labels_by_id"].keys())
+    same_label = float(np.mean([m["labels_by_id"][c] == textured["labels_by_id"][c]
+                                for c in common])) if common else 0.0
+    stages = {k: (m["tex_stages"].get(k), textured["tex_stages"].get(k))
+              for k in ("tex_device", "tex_fetch", "tex_host")}
+    log(f"[{name}] texture beside [pipeline-textured] (seconds, calls): {json.dumps(stages)}; "
+        f"texture {m['texture_s']:.3f} vs {textured['texture_s']:.3f} s, texture_final "
+        f"{m['texture_final_s']:.3f} vs {textured['texture_final_s']:.3f} s; exported colour "
+        f"median {m['colour_errors']['exported']['median']:.3f} vs "
+        f"{textured['colour_errors']['exported']['median']:.3f} levels; chunks by id "
+        f"{len(m['labels_by_id'])} vs {len(textured['labels_by_id'])}, common {len(common)}, "
+        f"same label {same_label:.4f}; one cycle through the sharded reader: "
+        f"{json.dumps(cycle)}")
+    if not cycle["exact"]:
+        raise AssertionError(f"[{name}] a texture cycle through the sharded pool differs from "
+                             f"the one-device cycle: {cycle['outputs']}")
     vol = pipe.volume
     n = mesh.size
     act = vol.active_slots()
@@ -2343,7 +2454,8 @@ def main() -> int:
            timed("checkpoint", phase_checkpoint, tracked_frames, runs[0])]
     timed("ba-sharded", phase_ba_sharded)
     cli.append(timed("multichip", phase_multichip))
-    runs.append(timed("pipeline-sharded", phase_pipeline_sharded, tracked_frames, runs[0]))
+    runs.append(timed("pipeline-sharded", phase_pipeline_sharded, tracked_frames, runs[0],
+                      runs[3]))
 
     def total(key, *extra):
         return (sum(r["launches"][key] for r in runs) + sum(c[key] for c in cli)

@@ -5,7 +5,10 @@ a voxel and once a chunk, and that the F-frame mode's counts per voxel do
 not depend on how many voxels a thread holds. Then the pure helpers of
 [cli-dataset] and [cli-synthetic] on the CPU: the packed-frame unpacking,
 the TUM directory writer and its bit-for-bit read-back, and the check of
-the command line's outputs."""
+the command line's outputs. Last, [pipeline-sharded]'s texture readers on
+a tiny textured run over eight CPU shards: the texture audit reads the
+sharded volume and pool as the unsharded ones, and sharded_cycle_check
+finds the cycle through the sharded reader exact."""
 
 import importlib.util
 import os
@@ -183,3 +186,24 @@ def test_check_cli_outputs_finds_what_is_missing(tmp_path):
     (tmp_path / "keyframes" / "000000.png").unlink()
     with pytest.raises(AssertionError, match="keyframes"):
         chip_smoke.check_cli_outputs(str(tmp_path), 2, textured=False)
+
+
+def test_texture_readers_of_a_sharded_pipeline():
+    import dataclasses
+
+    import torch
+
+    from texturefusion_torch.parallel.mesh import make_mesh
+    torch.set_num_threads(2)
+    cfg = chip_smoke._pipeline_config(small=True)
+    cfg = cfg.replace(parallel=dataclasses.replace(cfg.parallel, n_devices=8))
+    _, packed = chip_smoke._orbit_frames(cfg, 11)
+    shd = chip_smoke.run_pipeline(cfg, packed, "cpu", textured=True,
+                                  mesh=make_mesh(8, "cpu"))[0]
+    ref = chip_smoke.run_pipeline(cfg, packed, "cpu", textured=True)[0]
+    assert shd.volume.sharded and not ref.volume.sharded
+    audit = chip_smoke._texture_audit(shd)
+    assert audit == chip_smoke._texture_audit(ref) and audit["seen_whole"] > 0
+    check = chip_smoke.sharded_cycle_check(shd)
+    assert check["exact"] and check["shards"] == 8 and check["projected"] > 20, check
+    assert "ms" not in check                     # timed on the card only

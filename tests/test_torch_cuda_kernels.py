@@ -395,6 +395,20 @@ def test_texture_cycle_gpu_matches_cpu(cuda_device, seed, budget):
         np.testing.assert_allclose(g[i], c[i], atol=1e-4)
 
 
+@pytest.mark.cuda
+def test_texture_cycle_is_repeatable_on_the_card(cuda_device):
+    """The same cycle twice on the card gives the same bits: the
+    per-keyframe moment sums (texture/patch._segment_sum) add in one
+    order. Through index_add_'s atomics the colour transfers differed in
+    their last bits from call to call."""
+    inputs = texture_cycle_inputs(4, s=4096, n=2048)
+    (a, al, ast), (b, bl, bst) = (port_texture_cycle(inputs, 384, cuda_device)
+                                  for _ in range(2))
+    assert int(a[2]) >= 384
+    for x, y in zip(a + [al, ast], b + [bl, bst]):
+        np.testing.assert_array_equal(x, y)
+
+
 def test_wrappers_refuse_cpu_and_wrong_types():
     with pytest.raises(ValueError, match="CUDA"):
         cuda_kernels.bilateral_cuda(torch.zeros(8, 8))

@@ -197,6 +197,10 @@ import texturefusion_torch.parallel.ba
 import texturefusion_torch.parallel.mesh
 import texturefusion_torch.parallel.sharded_tsdf
 import texturefusion_torch.models.reconstruction
+import texturefusion_torch.fusion.mesher
+import texturefusion_torch.texture.manager
+import texturefusion_torch.texture.patch
+from texturefusion_torch.fusion.pipeline import TexturedPipeline
 from texturefusion_torch.parallel.dryrun import dryrun_multichip
 r = dryrun_multichip(2, device="cpu")
 assert r["pipeline_active"] > 0 and r["shards"] == 2
@@ -253,8 +257,9 @@ def test_port_command_line_never_imports_jax_or_image_libraries():
 
 
 def test_port_multi_device_layer_never_imports_jax_or_image_libraries():
-    """parallel/*, models.reconstruction and dryrun_multichip(2, "cpu")
-    with any import of jax, the JAX package, cv2 or PIL raising."""
+    """parallel/*, models.reconstruction, the texture stage's modules and
+    dryrun_multichip(2, "cpu") with any import of jax, the JAX package,
+    cv2 or PIL raising."""
     res = _run(["-c", MULTICHIP], ROOT)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "MULTICHIP_OK" in res.stdout, res.stdout

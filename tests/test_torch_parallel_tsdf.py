@@ -35,7 +35,6 @@ from texturefusion_tpu.parallel import mesh as jmesh
 from texturefusion_tpu.parallel import sharded_tsdf as jsharded
 from texturefusion_torch.fusion.chunkmap import TSDFVolume
 from texturefusion_torch.fusion.pipeline import ReconstructionPipeline as TPipeline
-from texturefusion_torch.fusion.pipeline import TexturedPipeline
 from texturefusion_torch.ops import marching_cubes as mc
 from texturefusion_torch.ops import raycast
 from texturefusion_torch.parallel import mesh as pmesh
@@ -233,11 +232,6 @@ def test_streaming_offloads_and_restores_sharded(seq):
             np.testing.assert_array_equal(x.numpy(), y.numpy())
     for a, b in zip(shd.mesher.full_mesh(), ref.mesher.full_mesh()):
         np.testing.assert_array_equal(a, b)
-
-
-def test_texturing_a_sharded_pool_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        TexturedPipeline(SHARDED, device="cpu")
 
 
 @pytest.fixture(scope="module")

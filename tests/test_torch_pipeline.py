@@ -352,8 +352,10 @@ def test_pipeline_entry_point_defaults_and_refusals():
     """The sharded TSDF was refused; it is ported: tsdf_sharded on the CPU
     shards the rows over its eight virtual devices, as the JAX package
     shards over its eight host devices (the sharded run's parity is
-    tests/test_torch_parallel_tsdf.py). Texturing a sharded pool is what
-    is still refused."""
+    tests/test_torch_parallel_tsdf.py). Texturing a sharded pool was
+    refused too; it is ported: TexturedPipeline builds the 8-shard volume,
+    with texture state of capacity + 1 rows, one for each pool row (the
+    textured sharded run's parity is tests/test_torch_textured_sharded.py)."""
     import inspect
 
     from texturefusion_torch.fusion.pipeline import TexturedPipeline
@@ -363,6 +365,10 @@ def test_pipeline_entry_point_defaults_and_refusals():
     pipe = TPipeline(sharded, device="cpu")
     assert pipe.volume.sharded and pipe.volume.mesh.size == 8
     assert (pipe.volume.cfg.capacity + 1) % 8 == 0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        TexturedPipeline(sharded, device="cpu")
+    textured = TexturedPipeline(sharded, device="cpu")
+    textured.texture._ensure_state(textured.mesher)
+    cap = textured.volume.cfg.capacity
+    assert textured.volume.sharded and textured.volume.mesh.size == 8
+    assert textured.texture._labels_dev.shape == (cap + 1,) == (textured.mesher.pool_rows.n_rows,)
+    assert textured.texture._stats_dev.shape[0] == textured.texture._failed_dev.shape[0] == cap + 1
     assert os.path.basename(tply.__file__) == "ply.py"

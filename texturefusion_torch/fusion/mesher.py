@@ -16,7 +16,9 @@ mesh). A sharded remesh meshes each shard's dirty chunks on that shard's
 device, after gathering the rows of the chunks and of their 7 corner
 neighbours, from whichever shard holds them, into a halo staging tensor
 whose last row is a reset row (RESET_SDF, weight 0) that every absent
-neighbour reads, as the unsharded trash row does.
+neighbour reads, as the unsharded trash row does. The texture stage reads
+the pool through `pool_reader`, sharded or not: the two count columns
+whole and the rows of the chunks a cycle projects, never the whole pool.
 """
 
 from __future__ import annotations
@@ -68,6 +70,17 @@ class IncrementalMesher:
                 "IncrementalMesher.pool is the one-device pool; a sharded pool is read "
                 "through mesher.pool_rows")
         return mc.MeshPool(*self.pool_rows.parts[0])
+
+    def pool_reader(self, device=None) -> mc.PoolReader:
+        """The texture cycle's view of the pool on `device` (the volume's
+        first by default), read through the container: the vcount and
+        tcount columns, and a gather of the verts and packed colours of a
+        slot tensor with no host read. On one device both index the pool
+        itself."""
+        rows = self.pool_rows
+        return mc.PoolReader(
+            rows.column(mc.POOL_VCOUNT, device), rows.column(mc.POOL_TCOUNT, device),
+            lambda slots: rows.gather_rows(slots, (mc.POOL_VERTS, mc.POOL_COLORS), device))
 
     def _neighbor_slots(self, slots: np.ndarray) -> np.ndarray:
         """[U, 8] slots of self + 7 positive-corner neighbours, trash
@@ -179,7 +192,7 @@ class IncrementalMesher:
             return
         self.vcount[slots] = 0
         self.tcount[slots] = 0
-        self.pool_rows.fill(slots, {4: 0, 5: 0})
+        self.pool_rows.fill(slots, {mc.POOL_VCOUNT: 0, mc.POOL_TCOUNT: 0})
         self._cache_valid = False
         if self.on_drop is not None:
             self.on_drop(slots)

@@ -557,7 +557,15 @@ class TexturedPipeline(ReconstructionPipeline):
     stages of tsdfFusion). Each fusion cycle runs one texture cycle after
     meshing (STOPWATCH "texture"); finish() re-selects and patches every
     meshed chunk against the final observations and poses
-    ("texture_final")."""
+    ("texture_final").
+
+    With a sharded volume (`mesh`, or parallel.tsdf_sharded) the texture
+    state and the keyframe stack stay on the pipeline's device, the
+    mesh's first, and each cycle gathers the pool rows of the chunks it
+    projects from their shards (IncrementalMesher.pool_reader). With the
+    fusion thread those gathers run on it, after each shard's remesh: a
+    copy between two cards follows the work queued on both cards'
+    current streams of the thread that makes it."""
 
     def __init__(self, config: PipelineConfig, device="cuda",
                  draw_fn: Optional[Callable] = None,
@@ -565,11 +573,6 @@ class TexturedPipeline(ReconstructionPipeline):
                  mesh: Optional[DeviceMesh] = None):
         super().__init__(config, device=device, draw_fn=draw_fn, frame_draws=frame_draws,
                          mesh=mesh)
-        if self.volume.sharded:
-            self.close()
-            raise NotImplementedError(
-                "texturing a sharded mesh pool is not ported (ROADMAP Queue 1 item 7: the "
-                "texture stage reads the one-device pool)")
         self.texture = TextureManager(config, device=self.device)
         self.mesher.on_drop = self.texture.release
         # per submitted cycle, in order: the newest keyframe and each

@@ -32,7 +32,7 @@ words' bits in int32 too (positions as their float32 bits).
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -284,6 +284,21 @@ class MeshPool:
     def __iter__(self):
         return iter((self.verts, self.col_packed, self.nrm_packed, self.tris,
                      self.vcount, self.tcount))
+
+
+# MeshPool's fields in order: the fields of the mesher's pool container
+POOL_VERTS, POOL_COLORS, POOL_VCOUNT, POOL_TCOUNT = 0, 1, 4, 5
+
+
+class PoolReader(NamedTuple):
+    """What the texture cycle reads of a mesh pool, on the cycle's
+    device: the per-slot vertex and triangle counts [S+1] in slot order,
+    and `rows(slots)`, the verts [M, P, 3] and packed colours [M, P] of a
+    slot tensor."""
+
+    vcount: torch.Tensor
+    tcount: torch.Tensor
+    rows: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
 
 def make_mesh_pool(capacity: int, p: int, t: int, device) -> MeshPool:

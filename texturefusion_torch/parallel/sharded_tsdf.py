@@ -19,7 +19,10 @@ result.
 rows in (one shard on one device when unsharded): gather rows by slot,
 put rows, fill rows, and `launch(fn, slots)`, which splits a slot list by
 owner, calls fn on each shard's rows with local indices, and
-reassembles fn's per-lane outputs in the listed order.
+reassembles fn's per-lane outputs in the listed order. A slot list the
+device chose (the texture cycle's projected chunks) is gathered by
+`gather_rows` without a host read, and a whole per-slot column by
+`column`.
 """
 
 from __future__ import annotations
@@ -56,6 +59,9 @@ class ShardedRows:
         self.rows_per_shard = int(parts[0][0].shape[0])
         # per (tag, shard): calls made by launch(), for the launch tables
         self.calls: Dict[Tuple[str, int], int] = collections.Counter()
+        # rows handed out by gather / gather_rows, and whole columns by column
+        self.rows_read = 0
+        self.columns_read = 0
 
     @classmethod
     def build(cls, mesh: DeviceMesh, n_rows: int,
@@ -110,6 +116,7 @@ class ShardedRows:
         fields = range(len(self.parts[0])) if fields is None else fields
         device = self.mesh.devices[0] if device is None else torch.device(device)
         pieces = self.split(slots)
+        self.rows_read += len(slots)
         if self.mesh.size == 1:
             _, _, idx = pieces[0]
             return tuple(self.parts[0][f][idx].to(device) for f in fields)
@@ -121,6 +128,46 @@ class ShardedRows:
                 out[torch.as_tensor(pos, device=device)] = self.parts[k][f][idx].to(device)
             outs.append(out)
         return tuple(outs)
+
+    def gather_rows(self, slots: torch.Tensor, fields: Sequence[int],
+                    device=None) -> Tuple[torch.Tensor, ...]:
+        """Copies of the rows of a slot tensor, in its order, on `device`
+        (the mesh's first by default), with no host read: every shard
+        gathers every lane, at its local row where it owns the slot and at
+        row 0 elsewhere, and the copies are merged by owner with
+        torch.where, so each lane holds its owner's row exactly. Each
+        shard moves len(slots) rows; one shard indexes its rows."""
+        device = self.mesh.devices[0] if device is None else torch.device(device)
+        n = self.mesh.size
+        self.rows_read += int(slots.numel())
+        if n == 1:
+            idx = slots.to(self.mesh.devices[0])
+            return tuple(self.parts[0][f][idx].to(device) for f in fields)
+        slots = slots.to(device)
+        owner, local = slots % n, slots // n
+        outs: List[Optional[torch.Tensor]] = [None] * len(fields)
+        for k, dev in enumerate(self.mesh.devices):
+            mine = owner == k
+            idx = torch.where(mine, local, 0).to(dev)
+            for i, f in enumerate(fields):
+                rows = self.parts[k][f][idx].to(device)
+                if outs[i] is None:
+                    outs[i] = rows
+                else:
+                    lanes = mine.reshape(mine.shape + (1,) * (rows.dim() - mine.dim()))
+                    outs[i] = torch.where(lanes, rows, outs[i])
+        return tuple(outs)
+
+    def column(self, field: int, device=None) -> torch.Tensor:
+        """The whole per-slot column `field` in slot order on `device` (the
+        mesh's first by default): the inverse of from_full's t[k::n],
+        shard k's row r being slot r·n + k."""
+        device = self.mesh.devices[0] if device is None else torch.device(device)
+        self.columns_read += 1
+        if self.mesh.size == 1:
+            return self.parts[0][field].to(device)
+        t = torch.stack([p[field].to(device) for p in self.parts], dim=1)
+        return t.reshape((self.n_rows,) + t.shape[2:])
 
     def put(self, slots: np.ndarray, values: Sequence[torch.Tensor],
             fields: Optional[Sequence[int]] = None) -> None:

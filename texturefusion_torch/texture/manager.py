@@ -16,7 +16,13 @@ every patched vertex.
 `update` is one synchronous cycle: the device program, one host read of
 its outputs, then the host work (atlas blits, uv and labels, poisoning,
 carry-over, transfers). The JAX package splits it into a dispatch and a
-consume one cycle later to hide its device link; the port does not.
+consume one cycle later to hide its device link; the port does not. The
+program reads the mesh pool through the mesher's reader, so a pool
+sharded over several devices is textured as one is: the texture state
+([S+1] labels, moments, failed) and the keyframe stack stay on the
+manager's device (the mesh's first), as the JAX package keeps them
+unsharded, and a cycle gathers the rows of the chunks it projects from
+their shards.
 Unlike the JAX package, the manager releases a slot's texture state
 (atlas patch, ChunkTexture, label, moment and failed rows, warm start)
 when the mesher drops the slot (GC, streaming), so a recycled slot
@@ -87,7 +93,7 @@ class TextureManager:
 
     def _ensure_state(self, mesher) -> None:
         if self._labels_dev is None:
-            s1 = mesher.pool.verts.shape[0]
+            s1 = mesher.pool_rows.n_rows
             self._labels_dev = torch.full((s1,), -1, dtype=torch.int32, device=self.device)
             self._stats_dev = torch.zeros((s1, patch_ops.STATS_W), device=self.device)
             self._failed_dev = torch.full((s1,), -1, dtype=torch.int32, device=self.device)
@@ -119,40 +125,60 @@ class TextureManager:
             return
         self._ensure_state(mesher)
         with STOPWATCH.time("tex_build"):
-            obs_q, obs_mask = volume.obs_arrays()
-            problem, slots, _ = self.selector.build_problem_arrays(
-                obs_q, obs_mask, meshed, nbr, volume.ids, newest_kf)
-            for kf in sorted(kf_states):
-                # a keyframe's images are written once, at the first cycle
-                # that sees it (the newest one's before tracking refines
-                # its depth), as the JAX package does
-                st = kf_states[kf]
-                if kf not in self.kf_stack.present:
-                    self.kf_stack.add(kf, st.rgb, st.depth, st.pose)
-                self.kf_stack.set_pose(kf, st.pose)
-            want = (remeshed or set()) | self._carry
-            rmask = np.zeros(len(slots), bool)
-            if want:
-                rmask = np.isin(slots, np.fromiter(want, np.int64, len(want)))
+            problem, slots, rmask, want = self.build_cycle(volume, meshed, nbr, kf_states,
+                                                           newest_kf, remeshed)
         with STOPWATCH.time("tex_device"):
             # the program and the wait for it (eigh reads cuSOLVER's error
-            # flag back inside it)
-            pool, dev = mesher.pool, self.device
-            out = patch_ops.texture_cycle_incremental(
-                problem, torch.as_tensor(slots, device=dev), self._labels_dev,
-                self._stats_dev, self._failed_dev, torch.as_tensor(rmask, device=dev), pool.verts,
-                pool.col_packed, pool.vcount, pool.tcount, self.kf_stack.rgb_packed,
-                self.kf_stack.depth, torch.as_tensor(self.kf_stack.poses, device=dev),
-                max(newest_kf - 1, 0), self.intr, self.cfg, self.cfg.mrf_sweeps,
-                self.cfg.patch_project_budget)
-            if dev.type == "cuda":
-                torch.cuda.current_stream(dev).synchronize()
+            # flag back inside it) and for the pool rows copied from the
+            # other shards' devices
+            out = self.run_cycle(problem, slots, rmask, newest_kf,
+                                 mesher.pool_reader(self.device))
+            for dev in dict.fromkeys((self.device,) + mesher.volume.mesh.devices):
+                if dev.type == "cuda":
+                    torch.cuda.current_stream(dev).synchronize()
         with STOPWATCH.time("tex_fetch"):
             (rows, proj_kf, n_changed, uv16, uv_ok, bmin, bmax, wrong,
              t_np, mt_np, mv_np) = _to_host(list(out))
         with STOPWATCH.time("tex_host"):
             self._consume(volume, mesher, kf_states, slots, want, rows, proj_kf,
                           int(n_changed), uv16, uv_ok, bmin, bmax, wrong, t_np, mt_np, mv_np)
+
+    def build_cycle(self, volume, meshed, nbr, kf_states, newest_kf: int,
+                    remeshed: Optional[set]):
+        """A cycle's host inputs: (the MRF problem over the meshed chunks,
+        its node slots, the mask of the nodes remeshed or carried over,
+        that set). Writes each keyframe's images into the stack once, and
+        every keyframe's current pose."""
+        obs_q, obs_mask = volume.obs_arrays()
+        problem, slots, _ = self.selector.build_problem_arrays(
+            obs_q, obs_mask, meshed, nbr, volume.ids, newest_kf)
+        for kf in sorted(kf_states):
+            # a keyframe's images are written once, at the first cycle
+            # that sees it (the newest one's before tracking refines
+            # its depth), as the JAX package does
+            st = kf_states[kf]
+            if kf not in self.kf_stack.present:
+                self.kf_stack.add(kf, st.rgb, st.depth, st.pose)
+            self.kf_stack.set_pose(kf, st.pose)
+        want = (remeshed or set()) | self._carry
+        rmask = np.zeros(len(slots), bool)
+        if want:
+            rmask = np.isin(slots, np.fromiter(want, np.int64, len(want)))
+        return problem, slots, rmask, want
+
+    def run_cycle(self, problem, slots, rmask, newest_kf: int, pool,
+                  state=None) -> patch_ops.IncrementalCycleOut:
+        """The cycle's device program over `pool` (a PoolReader), updating
+        the texture state in place: the manager's labels, moments and
+        failed rows, or the `state` triple given (copies, to compare)."""
+        dev = self.device
+        labels, stats, failed = state or (self._labels_dev, self._stats_dev, self._failed_dev)
+        return patch_ops.texture_cycle(
+            problem, torch.as_tensor(slots, device=dev), labels, stats, failed,
+            torch.as_tensor(rmask, device=dev), pool, self.kf_stack.rgb_packed,
+            self.kf_stack.depth, torch.as_tensor(self.kf_stack.poses, device=dev),
+            max(newest_kf - 1, 0), self.intr, self.cfg, self.cfg.mrf_sweeps,
+            self.cfg.patch_project_budget)
 
     def _consume(self, volume, mesher, kf_states, slots, want, rows, proj_kf, n_changed,
                  uv16, uv_ok, bmin, bmax, wrong, t_np, mt_np, mv_np) -> None:

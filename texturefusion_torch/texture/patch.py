@@ -13,6 +13,13 @@ per-keyframe colour transfers from every chunk's moments. Plain torch
 ops on the tensors' device: the JAX package has no Pallas kernel here.
 The host owns the patch records and the atlas (texture/atlas.py,
 texture/manager.py).
+
+The mesh pool comes in through a reader (ops/marching_cubes.PoolReader):
+the count columns, and the rows of the projected chunks, read only once
+the selection has chosen them, so that a pool sharded over several
+devices (IncrementalMesher.pool_reader) moves those rows alone.
+`texture_cycle_incremental` takes the four pool tensors of one device,
+as the JAX package's function does.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 from texturefusion_torch.config import TextureConfig
 from texturefusion_torch.core import camera as cam
 from texturefusion_torch.core import se3
+from texturefusion_torch.ops.marching_cubes import PoolReader
 from texturefusion_torch.texture import color as color_ops
 from texturefusion_torch.texture import mrf as mrf_ops
 
@@ -107,6 +115,28 @@ def wrong_mapping_tests(tex: torch.Tensor, d_kf: torch.Tensor, d_ok: torch.Tenso
 STATS_W = 25    # n, Σtex(3), Σvox(3), Σ tex·texᵀ(9), Σ vox·voxᵀ(9)
 
 
+def _segment_sum(seg: torch.Tensor, rows: torch.Tensor, n_seg: int,
+                 block: int = 128) -> torch.Tensor:
+    """rows [S, ...] summed into n_seg segments by seg [S], in one order on
+    every call: index_add_ on the CPU. On the card index_add_ adds with
+    atomics in whatever order the threads reach them; there each block of
+    `block` rows is summed by segment with index_put_(accumulate=True)
+    (index_add_'s form under torch.use_deterministic_algorithms: a stable
+    sort, then each segment's rows in order, one after another), and the
+    blocks' sums are added by a reduction over blocks. The blocks bound
+    the sequential run, which for the segment of the slots without a
+    label would be nearly every slot."""
+    if rows.device.type == "cpu":
+        out = torch.zeros((n_seg,) + rows.shape[1:], dtype=rows.dtype)
+        return out.index_add_(0, seg, rows)
+    n_blocks = -(-rows.shape[0] // block)
+    key = torch.arange(rows.shape[0], device=rows.device) // block * n_seg + seg
+    part = torch.zeros((n_blocks * n_seg,) + rows.shape[1:], dtype=rows.dtype,
+                       device=rows.device)
+    part.index_put_((key,), rows, accumulate=True)
+    return part.reshape((n_blocks, n_seg) + rows.shape[1:]).sum(0)
+
+
 def texture_cycle_incremental(
         problem: mrf_ops.MRFProblem,  # node i ↔ chunk slot_idx[i]
         slot_idx: torch.Tensor,       # [N] int64 chunk slot per node
@@ -118,6 +148,30 @@ def texture_cycle_incremental(
         pool_colpk: torch.Tensor,     # [S+1, P] int32 packed voxel colours
         pool_vcount: torch.Tensor,    # [S+1] int32
         pool_tcount: torch.Tensor,    # [S+1] int32
+        kf_rgbp: torch.Tensor,        # [K, H, W] int32 packed keyframe rgb
+        kf_depth: torch.Tensor,       # [K, H, W] f32
+        kf_poses: torch.Tensor,       # [K, 4, 4]
+        fallback_kf: int,             # label for chunks without a prior label
+        intr: cam.Intrinsics,
+        cfg: TextureConfig,
+        sweeps: int,
+        m_budget: int,
+) -> IncrementalCycleOut:
+    """texture_cycle on a one-device pool given as its four tensors."""
+    pool = PoolReader(pool_vcount, pool_tcount, lambda s: (pool_verts[s], pool_colpk[s]))
+    return texture_cycle(problem, slot_idx, labels_dev, stats_dev, failed_dev, remeshed_mask,
+                         pool, kf_rgbp, kf_depth, kf_poses, fallback_kf, intr, cfg, sweeps,
+                         m_budget)
+
+
+def texture_cycle(
+        problem: mrf_ops.MRFProblem,  # node i ↔ chunk slot_idx[i]
+        slot_idx: torch.Tensor,       # [N] int64 chunk slot per node
+        labels_dev: torch.Tensor,     # [S+1] int32 keyframe label per slot (updated in place)
+        stats_dev: torch.Tensor,      # [S+1, STATS_W] f32 colour moments (updated in place)
+        failed_dev: torch.Tensor,     # [S+1] int32 keyframe last found wrong (updated in place)
+        remeshed_mask: torch.Tensor,  # [N] bool — chunk remeshed this cycle
+        pool: PoolReader,             # the mesh pool's [S+1] counts and rows by slot
         kf_rgbp: torch.Tensor,        # [K, H, W] int32 packed keyframe rgb
         kf_depth: torch.Tensor,       # [K, H, W] f32
         kf_poses: torch.Tensor,       # [K, 4, 4]
@@ -145,7 +199,8 @@ def texture_cycle_incremental(
     Queue 3 fault 9); with failed_dev all -1 the two agree. Rows past the
     budget, and the lanes that are not projected, write the trash row
     (-1 and zeros, so duplicate writes agree), which the compensation
-    never reads."""
+    never reads. The pool's rows are read once, for the m_budget
+    projected lanes (the trash slot past the changed ones)."""
     dev = slot_idx.device
     n = problem.unary.shape[0]
     trash = labels_dev.shape[0] - 1
@@ -155,7 +210,7 @@ def texture_cycle_incremental(
     kf_sel = torch.gather(problem.label_kf, 1, sol[:, None])[:, 0]     # [N]
     old = labels_dev[slot_idx]
     kf_new = torch.where(kf_sel >= 0, kf_sel, torch.where(old >= 0, old, fallback_kf))
-    node_ok = (slot_idx != trash) & (pool_vcount[slot_idx] > 0)
+    node_ok = (slot_idx != trash) & (pool.vcount[slot_idx] > 0)
     moved = (kf_new != old) & (kf_new != failed_dev[slot_idx])
     changed = node_ok & (moved | remeshed_mask)
 
@@ -168,10 +223,10 @@ def texture_cycle_incremental(
     csl = torch.where(row_ok, slot_idx[rows], trash)                   # [M]
 
     # ---- projection of the changed chunks into their new keyframes
-    verts = pool_verts[csl]                                            # [M, P, 3]
-    vert_color = _unpack(pool_colpk[csl]) / 255.0
+    verts, colpk = pool.rows(csl)                                      # [M, P, 3], [M, P]
+    vert_color = _unpack(colpk) / 255.0
     p = verts.shape[1]
-    vert_valid = torch.arange(p, device=dev)[None, :] < pool_vcount[csl][:, None]
+    vert_valid = torch.arange(p, device=dev)[None, :] < pool.vcount[csl][:, None]
     kfr = torch.clamp(kf_new[rows], 0, k - 1).to(torch.int64)          # [M]
     w2c = se3.inverse(kf_poses)[kfr]
     pts_cam = torch.einsum("uij,upj->upi", w2c[:, :3, :3], verts) + w2c[:, None, :3, 3]
@@ -208,10 +263,10 @@ def texture_cycle_incremental(
     stats_dev[torch.where(adopt, csl, trash)] = torch.where(adopt[:, None], stat_rows, 0.0)
 
     # ---- per-keyframe colour compensation from every chunk's moments
-    seg_ok = (labels_dev >= 0) & (pool_tcount > 0)
+    seg_ok = (labels_dev >= 0) & (pool.tcount > 0)
     seg_ok[trash] = False
     seg = torch.where(seg_ok, torch.clamp(labels_dev, 0, k - 1), k).to(torch.int64)
-    agg = torch.zeros((k + 1, STATS_W), device=dev).index_add_(0, seg, stats_dev)[:k]
+    agg = _segment_sum(seg, stats_dev, k + 1)[:k]
     cnt = torch.clamp(agg[:, 0], min=1e-6)[:, None]
     mean_t = agg[:, 1:4] / cnt
     mean_v = agg[:, 4:7] / cnt
