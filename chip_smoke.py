@@ -56,7 +56,7 @@ non-zero):
                 draws: at least 4 keyframes and one loop-closure edge on
                 each, keyframes within 1, same origins, trajectories
                 within 1 mm
- 10. profile-tracked - 20 tracked frames under torch.profiler (no gate)
+ 10. profile-tracked - 10 tracked frames under torch.profiler (no gate)
  11. pipeline - ReconstructionPipeline (fusion/pipeline.py) on the same
                 120 hardened frames (after a 10-frame warm-up): tracking,
                 keyframe integration at the tracked poses (K2), the local
@@ -88,35 +88,49 @@ non-zero):
                 consistent; prints the texture stages, why the wrong chunks
                 are wrong, and the colour error against the scene's colour
                 (voxel, raw atlas and exported colours)
- 15. pipeline-small - TexturedPipeline on the tiny config (10 orbit frames),
-                GPU against CPU with the same draws, geometry and texture
- 16. profile-pipeline - 20 pipeline frames under torch.profiler (no gate)
- 17. cli-synthetic - `python -m texturefusion_torch "" "" 0.02 4 --max-frames
+ 15. pipeline-bench - TexturedPipeline with bench.py's config exactly
+                (bench.py:162-184: the fusion thread, the default tracker,
+                pipelined at depth 2 with deferred promotion and the
+                stale-frame refinement; cut: the deferred cycle results
+                and the discovery prefetch) on the same 120 frames, then
+                flush_tracking, finish and the textured export:
+                [pipeline]'s gates, at least one stale-finalized frame and
+                one adopted refinement, [pipeline-textured]'s texture
+                gates; frames/s beside [pipeline]'s and
+                [pipeline-textured]'s, t_stats_sync, the frames that rode
+                past the depth, the most in flight, promotions consumed
+                late
+ 16. pipeline-small - TexturedPipeline on the tiny config (10 orbit frames),
+                GPU against CPU with the same draws, geometry and texture;
+                then the pipelined tracker (depth 2, deferred promotion,
+                20 orbit frames) the same way, its fetches landed at once
+ 17. profile-pipeline - 10 pipeline frames under torch.profiler (no gate)
+ 18. cli-synthetic - `python -m texturefusion_torch "" "" 0.02 4 --max-frames
                 30` in process (VGA, textured): exit 0, a trajectory line a
                 frame, stat.txt and chunk.txt, fused.ply with vertices, a
                 .cam and a .png a keyframe, model.obj / .mtl / .png;
                 frames/s and launches
- 18. cli-dataset - [slice]'s 120 frames written as a TUM directory through
+ 19. cli-dataset - [slice]'s 120 frames written as a TUM directory through
                 io/png (Paeth rows; associate, calib with distortion,
                 groundtruth), read back bit for bit (PNG decode ms a
                 frame), each frame uploaded pageable and pinned (ms), then
-                the command line on it, textured: its outputs as in 17, and
+                the command line on it, textured: its outputs as in 18, and
                 its trajectory.txt against groundtruth.txt, ATE <= 25 mm
- 19. checkpoint - [pipeline]'s config and frames to frame 60, save_pipeline,
+ 20. checkpoint - [pipeline]'s config and frames to frame 60, save_pipeline,
                 load_pipeline into a fresh pipeline: TSDF rows, slot map,
                 poses, keypoint DB and edges bit for bit; frames 60-119 and
                 finish() there: new keyframes and edges, one map origin,
                 ATE <= 25 mm, map RMS <= 32 mm; save / load seconds, bytes
- 20. ba-sharded - distributed_gn and schur_gn (sep_budget 24) over 4 shards
+ 21. ba-sharded - distributed_gn and schur_gn (sep_budget 24) over 4 shards
                 (4 cards where the machine has them, else 4 shards of the
                 one card) against the dense fastba.gauss_newton_rounds on a
                 64-keyframe chain: poses within rtol 2e-3, atol 2e-4 of the
                 dense ones; ms a round for each, edges per shard, separators
- 21. multichip - dryrun_multichip over the same 4 shards (one full map
+ 22. multichip - dryrun_multichip over the same 4 shards (one full map
                 cycle with K2 on every shard, then the live pipeline,
                 tsdf_sharded, on three tiny frames): its asserts; the map
                 cycle on the card against the same cycle on 8 CPU shards
- 22. pipeline-sharded - TexturedPipeline on [pipeline]'s config and 120
+ 23. pipeline-sharded - TexturedPipeline on [pipeline]'s config and 120
                 frames with the TSDF rows, the mesh pool and BA's edges
                 sharded over the 4 shards (slot s on shard s % 4), then
                 export_textured: [pipeline]'s gates, ATE and map RMS within
@@ -143,9 +157,14 @@ at +1; F = 6 and 12 as a drift reintegration, half the frames at -1, the
 other half at +1 at poses moved 6 mm / 0.5 deg) against their plain
 versions, and times the F-frame mode alone.
 The line before the last is a JSON object with each kernel's launches
-over the phases that drive it (5, 8, 11-14, 17-19, 21-22), its error against the plain
+over the phases that drive it (5, 8, 11-15, 18-20, 22-23), its error against the plain
 version and its times, bound and share; the last line is
 {"ok": true, "device": {...}}.
+
+Phases 8-14, 16's first run, 20 and 23 run the synchronous tracker
+(defer_promote=False, pipelined_tracking=False), which the earlier PRs'
+numbers were taken with; 15, 16's second run, the command line (18, 19)
+and [multichip]'s three tiny frames (22) run the default, pipelined one.
 
 Imports nothing of jax or of the JAX package. Builds into texturefusion_torch/_build/.
 """
@@ -1137,17 +1156,28 @@ def phase_small():
         raise AssertionError("GPU slice disagrees with the CPU slice on a small input")
 
 
-def _tracked_config(small: bool):
-    from texturefusion_torch.config import BAConfig, CameraConfig, PipelineConfig, TrackingConfig
+def _tracked_config(small: bool, pipelined: bool = False):
+    """bench.py's camera, blur gate and BA setting (bench.py:171; BA from
+    schur_min_keyframes on is the JAX package's Schur BA, on one device
+    the dense solve), or the tiny config with `small`. The tracker is the
+    synchronous one (no deferred promotion, each frame decided in the
+    call that takes it) unless `pipelined`: then it is the default
+    tracker, pipelined at depth 2 with deferred promotion and the
+    stale-frame refinement, as bench.py runs it."""
+    import dataclasses
+
+    from texturefusion_torch.config import (BAConfig, CameraConfig, ParallelConfig,
+                                            PipelineConfig, TrackingConfig, tiny_test_config)
     if small:
-        from texturefusion_torch.config import tiny_test_config
-        return tiny_test_config()
-    # bench.py's camera, blur gate and BA setting (bench.py:171): BA from
-    # schur_min_keyframes on is the JAX package's Schur BA, on one device
-    # the dense solve
-    return PipelineConfig(camera=CameraConfig(far_plane=6.0, d0=-0.03, d1=0.005),
-                          tracking=TrackingConfig(blur_threshold=3.0),
-                          ba=BAConfig(schur_min_keyframes=BA_MIN_KEYFRAMES))
+        config = tiny_test_config()
+    else:
+        config = PipelineConfig(camera=CameraConfig(far_plane=6.0, d0=-0.03, d1=0.005),
+                                tracking=TrackingConfig(blur_threshold=3.0),
+                                ba=BAConfig(schur_min_keyframes=BA_MIN_KEYFRAMES))
+    if pipelined:
+        return config
+    return config.replace(tracking=dataclasses.replace(config.tracking, defer_promote=False),
+                          parallel=ParallelConfig(pipelined_tracking=False))
 
 
 def _frame_draws(draw_fn, tcfg):
@@ -1194,6 +1224,7 @@ def run_tracked(config, packed, device, draw_fn=None):
     STOPWATCH.reset()
     for i, frame in enumerate(packed):
         pipe.process_frame(frame, timestamp=float(i))
+    pipe.flush_tracking()
     with STOPWATCH.time("final_ba"):
         pipe.slam.final_ba()
         _sync(device)
@@ -1280,13 +1311,48 @@ def _orbit_frames(config, n_frames):
                               (c * 255).astype(np.uint8)) for d, c in zip(depths, rgbs)]
 
 
-def phase_tracked_small(n_frames=30):
+def _feature_compare(config, packed) -> dict:
+    """One frame's grey image and features on the GPU and on the CPU from
+    the same packed bytes. The grey image, and the keypoints' levels,
+    validity and descriptors, must agree bit for bit (core/exact.py);
+    returns the largest keypoint position (px) and 3-D point (m)
+    differences, which follow the depth (K1's exp against the CPU's)."""
+    from texturefusion_torch.core import camera as cam
+    from texturefusion_torch.ops import preprocess
+    from texturefusion_torch.slam.features import extract_features
+    intr = cam.Intrinsics.from_config(config.camera)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        b = preprocess.preprocess_bundle(torch.as_tensor(packed).to(dev), None, intr,
+                                         depth_scale=config.camera.depth_scale)
+        kp = extract_features(b[3], b[0], config.tracking, intr)
+        out[dev] = (b[3].cpu(), kp._replace(**{f: getattr(kp, f).cpu() for f in kp._fields}))
+    (gg, kg), (gc, kc) = out["cuda"], out["cpu"]
+    if not (torch.equal(gg, gc) and all(torch.equal(getattr(kg, f), getattr(kc, f))
+                                        for f in ("level", "valid", "desc"))):
+        raise AssertionError("GPU and CPU features differ on the same frame")
+    return {"uv_px": float((kg.uv - kc.uv).abs().max()),
+            "points_m": float((kg.points3d - kc.points3d).abs().max()),
+            "has_depth_differ": int((kg.has_depth != kc.has_depth).sum())}
+
+
+def phase_tracked_small(frames, n_frames=30):
     """The tracked path on the tiny config, GPU against CPU, fed the same
     RANSAC draws (drawn on the CPU from one generator, then moved). 30
     orbit frames promote 6 keyframes, so promotion, the loop-closure
-    probe, BA and the final BA run on both devices."""
+    probe, BA and the final BA run on both devices. First every tiny
+    frame's features, and those of three of [tracked]'s VGA frames
+    (`frames`: the first, one of the blur burst, one of the exposure
+    step), GPU against CPU (_feature_compare)."""
     config = _tracked_config(small=True)
     poses, packed = _orbit_frames(config, n_frames)
+    vga_config, _, vga_packed = frames
+    feats = [_feature_compare(config, p) for p in packed]
+    feats_vga = [_feature_compare(vga_config, vga_packed[i]) for i in (0, 47, 70)]
+    log(f"[tracked-small] features GPU vs CPU: grey images, levels, validity and descriptors "
+        f"bit for bit on {len(feats)} tiny and {len(feats_vga)} VGA frames; largest "
+        f"differences tiny {json.dumps({k: max(f[k] for f in feats) for k in feats[0]})} "
+        f"VGA {json.dumps({k: max(f[k] for f in feats_vga) for k in feats_vga[0]})}")
     runs = {dev: _tracking_metrics(run_tracked(config, packed, dev,
                                                cpu_draw_fn(config.tracking))[0], poses)
             for dev in ("cuda", "cpu")}
@@ -1304,7 +1370,7 @@ def phase_tracked_small(n_frames=30):
         raise AssertionError("GPU tracked path disagrees with the CPU's on a small input")
 
 
-def phase_profile_tracked(frames, first=60, n=20):
+def phase_profile_tracked(frames, first=60, n=10):
     """torch.profiler over n tracked frames (a fresh GCSLAM): device busy
     share and the device ops that take most of the time. No gate."""
     from torch.profiler import ProfilerActivity, profile
@@ -1317,18 +1383,18 @@ def phase_profile_tracked(frames, first=60, n=20):
     log(f"[profile-tracked] {n} frames wall={wall:.4f} s " + _device_time(prof, wall, 12, n))
 
 
-def _pipeline_config(small=False, async_fusion=False, **tsdf):
+def _pipeline_config(small=False, async_fusion=False, pipelined=False, **tsdf):
     """[tracked]'s camera, blur gate and BAConfig (bench.py's
     schur_min_keyframes = 16), [slice]'s TSDF sizes and the fusion thread
-    on or off; `small`: the tiny config."""
+    on or off; `small`: the tiny config. The tracker as _tracked_config's:
+    synchronous unless `pipelined`, then bench.py's ParallelConfig
+    (pipeline_depth 2)."""
     import dataclasses
-
-    from texturefusion_torch.config import ParallelConfig
-    base = _tracked_config(small)
+    base = _tracked_config(small, pipelined)
     if not small:
         base = base.replace(tsdf=_slice_config(small=False).tsdf)
     return base.replace(tsdf=dataclasses.replace(base.tsdf, **tsdf),
-                        parallel=ParallelConfig(async_fusion=async_fusion))
+                        parallel=dataclasses.replace(base.parallel, async_fusion=async_fusion))
 
 
 def run_pipeline(config, packed, device, draw_fn=None, on_frame=None, textured=False,
@@ -1344,6 +1410,7 @@ def run_pipeline(config, packed, device, draw_fn=None, on_frame=None, textured=F
         pipe.process_frame(frame, timestamp=float(i), host_packed=frame)
         if on_frame is not None:
             on_frame(pipe)
+    pipe.flush_tracking()
     pipe._drain_fusion()
     _sync(device)
     loop = time.perf_counter() - t0
@@ -1493,6 +1560,59 @@ def phase_pipeline(frames, async_fusion=False, max_resident=0, reference=None,
         if abs(m["verts"] - reference["verts"]) > 0.05 * reference["verts"]:
             raise AssertionError(f"[{name}] {m['verts']} vertices, [pipeline] "
                                  f"{reference['verts']}: more than 5% apart")
+    return m
+
+
+def phase_pipeline_bench(frames, reference, textured_reference):
+    """TexturedPipeline with bench.py's config exactly (bench.py:162-184:
+    ParallelConfig(async_fusion=True, pipeline_depth=2), the default
+    TrackingConfig but blur_threshold = 3.0, so deferred promotion and the
+    stale-frame refinement are on) on [tracked]'s 120 hardened frames,
+    then flush_tracking() and finish(), and the textured export. Cut
+    against bench.py: the deferred cycle results and the discovery
+    prefetch (async_cycle_results is read and ignored). Gates:
+    [pipeline]'s (ATE, map RMS and median, a loop edge, a reintegration,
+    BA over 16 keyframes, the kernels launched), at least one
+    stale-finalized frame and one adopted refinement, and
+    [pipeline-textured]'s texture gates. Prints frames/s beside
+    [pipeline]'s and [pipeline-textured]'s, t_stats_sync, the calls in
+    which a frame rode past the depth, the most frames in flight and the
+    promotions consumed late."""
+    from texturefusion_torch.ops import cuda_kernels
+    from texturefusion_torch.utils.stopwatch import STOPWATCH
+    name = "pipeline-bench"
+    _, poses, packed = frames
+    config = _pipeline_config(async_fusion=True, pipelined=True)
+    STOPWATCH.reset()
+    cuda_kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    pipe, loop, fin = run_pipeline(config, packed, "cuda", textured=True)
+    launches = dict(cuda_kernels.LAUNCHES)
+    shapes = dict(cuda_kernels.FRAME_SHAPES)
+    scene = _bench_scene()
+    m = _pipeline_report(name, pipe, loop, fin, scene, poses, launches, len(packed), shapes)
+    _textured_report(name, pipe, scene, poses, m, textured_reference,
+                     ref_name="pipeline-textured", geometry=False)
+    pipe.close()
+    slam, par = pipe.slam, config.parallel
+    m.update(launches=launches, stale=len(slam.stale_frames),
+             refine_adopted=slam.refine_adopted, rode=pipe.rode,
+             max_inflight=pipe.max_inflight, promote_late=slam.promote_late,
+             t_stats_sync=STOPWATCH.totals["t_stats_sync"])
+    log(f"[{name}] pipelined_tracking={par.pipelined_tracking} pipeline_depth="
+        f"{par.pipeline_depth} pipeline_max_ride={par.pipeline_max_ride} async_fusion="
+        f"{par.async_fusion} defer_promote={config.tracking.defer_promote} refine_stale="
+        f"{config.tracking.refine_stale}: frames/s {m['fps']:.3f} vs [pipeline] "
+        f"{reference['fps']:.3f} vs [pipeline-textured] {textured_reference['fps']:.3f}; "
+        f"t_stats_sync {m['t_stats_sync']:.4f} s ([pipeline] reads its stats inside "
+        f"the frame step); stale_frames={m['stale']} refine_dispatched="
+        f"{slam.refine_dispatched} refine_adopted={m['refine_adopted']} rode={m['rode']} "
+        f"max_inflight={m['max_inflight']} promotions_late={m['promote_late']}; ate_mm "
+        f"{m['ate_mm']:.3f} vs {reference['ate_mm']:.3f} / {textured_reference['ate_mm']:.3f}, "
+        f"map_rms_mm {m['map_rms_mm']:.3f} vs {reference['map_rms_mm']:.3f}, keyframes "
+        f"{m['keyframes']} vs {reference['keyframes']}, launches={json.dumps(launches)}")
+    if m["stale"] < 1 or m["refine_adopted"] < 1:
+        raise AssertionError(f"[{name}] no stale-finalized frame or no adopted refinement")
     return m
 
 
@@ -1669,7 +1789,7 @@ def _bench_scene():
     return synthetic.BoxRoomScene(room_min=(-2.6, -1.5, -2.6), room_max=(2.6, 1.5, 2.6))
 
 
-def phase_profile_pipeline(frames, first=60, n=20):
+def phase_profile_pipeline(frames, first=60, n=10):
     """torch.profiler over n frames of a fresh pipeline: device busy share
     and the device ops that take most of the time. No gate."""
     from torch.profiler import ProfilerActivity, profile
@@ -1683,15 +1803,47 @@ def phase_profile_pipeline(frames, first=60, n=20):
         + _device_time(prof, wall, 12, n))
 
 
-def phase_pipeline_small(n_frames=10):
-    """TexturedPipeline on the tiny config (10 orbit frames: one keyframe
-    and its six local frames, integrated and textured at finish), GPU
-    against CPU with the same RANSAC draws: keyframes within 1 and the
-    same origins, positions within 1 mm, chunk sets and vertex counts
-    within 1%, and at most 0.1% of the observed voxels of the common
-    chunks with sdf more than 1e-4 apart (as [small]); then the texture
-    (_texture_compare)."""
-    config = _pipeline_config(small=True)
+class LandedFetch:
+    """A fetch handle read when it is made: swapped in for
+    async_fetch.fetch_async, every decision of the pipelined tracker sees
+    its fetches landed, on any device, as on the CPU."""
+
+    def __init__(self, tensor):
+        self._value = tensor.detach().cpu().numpy()
+
+    def done(self):
+        return True
+
+    def result(self):
+        return self._value
+
+
+def phase_pipeline_small(n_frames=10, n_pipelined=20):
+    """TexturedPipeline on the tiny config, GPU against CPU with the same
+    RANSAC draws: the synchronous tracker on 10 orbit frames (one keyframe
+    and its six local frames, integrated and textured at finish), then the
+    pipelined tracker at depth 2 with deferred promotion and the
+    stale-frame refinement on 20 (five keyframes, BA, stale frames,
+    refinements), its fetches landed at once on both devices (LandedFetch).
+    Each run is held to _small_compare's gates."""
+    from texturefusion_torch.utils import async_fetch
+    _small_compare("pipeline-small", _pipeline_config(small=True), n_frames)
+    fetch_async = async_fetch.fetch_async
+    async_fetch.fetch_async = LandedFetch
+    try:
+        _small_compare("pipeline-small pipelined", _pipeline_config(small=True, pipelined=True),
+                       n_pipelined)
+    finally:
+        async_fetch.fetch_async = fetch_async
+
+
+def _small_compare(name, config, n_frames):
+    """One tiny-config TexturedPipeline run on the GPU and on the CPU with
+    the same draws, compared: the same keyframes, stale-finalized frames
+    and adopted refinements, keyframe counts within 1 and the same
+    origins, positions within 1 mm, chunk sets and vertex counts within
+    1%, at most 0.1% of the observed voxels of the common chunks with sdf
+    more than 1e-4 apart (as [small]), then the texture (_texture_compare)."""
     poses, packed = _orbit_frames(config, n_frames)
     runs = {dev: run_pipeline(config, packed, dev, cpu_draw_fn(config.tracking),
                               textured=True)[0]
@@ -1710,20 +1862,26 @@ def phase_pipeline_small(n_frames=10):
     frac = float(((g.volume.batch.sdf[gi].cpu() - c.volume.batch.sdf[ci]).abs()
                   > 1e-4)[seen].float().mean())
     nv_g, nv_c = len(g.mesher.full_mesh()[0]), len(c.mesher.full_mesh()[0])
-    log(f"[pipeline-small] 160x120 x{n_frames} orbit frames: keyframes gpu={kg} cpu={kc} "
+    decisions = [(p.slam.stale_frames, p.slam.refine_adopted,
+                  [k.frame_index for k in p.slam.keyframes]) for p in (g, c)]
+    log(f"[{name}] 160x120 x{n_frames} orbit frames: keyframes gpu={kg} cpu={kc} "
         f"origins gpu={g.slam.origin_count} cpu={c.slam.origin_count} "
         f"position_diff_mm={diff_mm:.4f} chunks gpu={len(g_of)} cpu={len(c_of)} "
         f"differing={n_diff} observed_voxels={int(seen.sum())} sdf_frac_over_1e-4={frac:.2e} "
         f"verts gpu={nv_g} cpu={nv_c} reintegrations gpu={g.stats['reintegrations']} "
-        f"cpu={c.stats['reintegrations']}")
+        f"cpu={c.stats['reintegrations']} stale_frames gpu={g.slam.stale_frames} "
+        f"cpu={c.slam.stale_frames} refine_adopted gpu={g.slam.refine_adopted} "
+        f"cpu={c.slam.refine_adopted}")
     if not (abs(kg - kc) <= SMALL_KF_DIFF and g.slam.origin_count == c.slam.origin_count
             and diff_mm <= SMALL_TRAJ_MM and n_diff <= len(c_of) // 100 and frac <= 1e-3
-            and nv_c > 0 and abs(nv_g - nv_c) <= nv_c // 100):
-        raise AssertionError("GPU pipeline disagrees with the CPU pipeline on a small input")
-    _texture_compare(g, c)
+            and nv_c > 0 and abs(nv_g - nv_c) <= nv_c // 100
+            and decisions[0] == decisions[1]):
+        raise AssertionError(f"[{name}] GPU pipeline disagrees with the CPU pipeline on a "
+                             f"small input")
+    _texture_compare(g, c, name)
 
 
-def _texture_compare(g, c):
+def _texture_compare(g, c, name="pipeline-small"):
     """The GPU's texture state against the CPU's, by chunk id: labels equal
     on ≥ 99% of the chunks both have; patched chunk sets within 1%; uv16
     within 1 on ≥ 99% of the valid vertices of the common patched chunks
@@ -1749,12 +1907,13 @@ def _texture_compare(g, c):
         tile_ok.append((np.abs(tiles[0] - tiles[1]) <= 2).ravel())
     uv_frac = float(np.mean(np.concatenate(uv_ok))) if uv_ok else 0.0
     tile_frac = float(np.mean(np.concatenate(tile_ok))) if tile_ok else 0.0
-    log(f"[pipeline-small] texture: chunks gpu={len(gt)} cpu={len(ct)} common={len(common)} "
+    log(f"[{name}] texture: chunks gpu={len(gt)} cpu={len(ct)} common={len(common)} "
         f"labels_equal={labels_same:.4f} patched gpu={len(gp)} cpu={len(cp)} "
         f"differing={len(gp ^ cp)} uv16_within_1={uv_frac:.4f} tiles_within_2={tile_frac:.4f}")
     if not (common and labels_same >= 0.99 and len(gp ^ cp) <= len(cp) // 100
             and len(cp) > 0 and uv_frac >= 0.99 and tile_frac >= 0.99):
-        raise AssertionError("GPU texture state disagrees with the CPU's on a small input")
+        raise AssertionError(f"[{name}] GPU texture state disagrees with the CPU's on a small "
+                             f"input")
 
 
 def _atlas_tile(atlas, rec):
@@ -2436,7 +2595,7 @@ def main() -> int:
     timed("small", phase_small)
     timed("profile", phase_profile, frames)
     tracked_launches, tracked_frames = timed("tracked", phase_tracked)
-    timed("tracked-small", phase_tracked_small)
+    timed("tracked-small", phase_tracked_small, tracked_frames)
     timed("profile-tracked", phase_profile_tracked, tracked_frames)
     runs = [timed("pipeline", phase_pipeline, tracked_frames)]
     k2f.update(timed("k2-frames-path", phase_k2_frames_path, runs[0]["frame_shapes"]))
@@ -2447,6 +2606,7 @@ def main() -> int:
                       max_resident=runs[0]["active"] // 2, reference=runs[0]))
     runs.append(timed("pipeline-textured", phase_pipeline, tracked_frames, reference=runs[0],
                       textured=True))
+    runs.append(timed("pipeline-bench", phase_pipeline_bench, tracked_frames, runs[0], runs[3]))
     timed("pipeline-small", phase_pipeline_small)
     timed("profile-pipeline", phase_profile_pipeline, tracked_frames)
     cli = [timed("cli-synthetic", phase_cli_synthetic),
@@ -2478,7 +2638,7 @@ def main() -> int:
     ]
     log(f"[launches] per phase: slice {json.dumps(launches)}, tracked "
         f"{json.dumps(tracked_launches)}, pipeline / pipeline-async / pipeline-stream / "
-        f"pipeline-textured / pipeline-sharded "
+        f"pipeline-textured / pipeline-bench / pipeline-sharded "
         f"{json.dumps([r['launches'] for r in runs])}, cli-synthetic / cli-dataset / "
         f"checkpoint / multichip {json.dumps(cli)}")
     log(f"[phase-seconds] {json.dumps(seconds)}")

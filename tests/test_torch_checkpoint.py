@@ -5,10 +5,17 @@
   fusion cycles (one before the checkpoint, one after), so that drift
   reintegration runs on both sides of it; GC frees slots on both sides
   too. Saved at frame 8 and continued in a fresh pipeline, the run equals
-  the uninterrupted one exactly: poses, TSDF rows, slot map, keyframes,
+  the uninterrupted one that flushed its pipelined tracking at frame 8 (a
+  save finalizes the frames in flight) exactly: poses, TSDF rows, slot map, keyframes,
   edges and the reintegration counts (the resumed run reuses the recorded
   chunk set, where a checkpoint without it, as the JAX package writes,
   takes the full path and draws other RANSAC hypotheses: faults 11, 12).
+- The pipelined tracker's pending state: saved at frame 60 of a 64-frame
+  orbit and resumed, the run equals the uninterrupted one that flushed at
+  frame 60, on two orbits whose tracking holds, at the save, a deferred
+  promotion, or BA's poses not yet adopted and a stale frame's
+  re-registration in flight. The JAX checkpoint drops the promotion and
+  the re-registrations (fault 15).
 - The assertions of tests/test_checkpoint_cli.py's two checkpoint tests,
   on the port.
 - A JAX checkpoint (the JAX package's synchronous pipeline, 8 frames)
@@ -27,8 +34,11 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_gcslam import jax_pipelined_tracker
 from test_torch_pipeline import CFG as SYNC_CFG
 from test_torch_pipeline import JaxSyncPipeline
+from texturefusion_tpu.config import ParallelConfig as JParallelConfig
+from texturefusion_tpu.config import tiny_test_config as jax_tiny_config
 from texturefusion_tpu.io import synthetic as jsyn
 from texturefusion_tpu.utils import checkpoint as jcheckpoint
 from texturefusion_torch.config import tiny_test_config
@@ -47,13 +57,20 @@ N, CUT = 16, 8
 MOVES = {1: (0.03, -0.01, 0.02), 3: (-0.02, 0.02, 0.01)}
 
 
-@pytest.fixture(scope="module")
-def frames():
-    poses = synthetic.orbit_trajectory(N, angle_range=3.0)
+PIPELINED_N, PIPELINED_CUT = 64, 60
+
+
+def _orbit(n, angle_range):
+    poses = synthetic.orbit_trajectory(n, angle_range=angle_range)
     depths, rgbs = synthetic.render_sequence(synthetic.BoxRoomScene(), INTR, poses,
                                              device="cpu")
     return [pack_frame((d * CFG.camera.depth_scale).astype(np.uint16),
                        (c * 255).astype(np.uint8)) for d, c in zip(depths, rgbs)]
+
+
+@pytest.fixture(scope="module")
+def frames():
+    return _orbit(N, 3.0)
 
 
 class Moved(ReconstructionPipeline):
@@ -96,8 +113,11 @@ def _resumed(frames, tmp_path, drop=()):
 
 @pytest.fixture(scope="module")
 def whole(frames):
+    """The uninterrupted run, its tracking flushed at CUT as a save does."""
     pipe = Moved(CFG, device="cpu")
-    _feed(pipe, frames)
+    _feed(pipe, frames[:CUT])
+    pipe.flush_tracking()
+    _feed(pipe, frames[CUT:], CUT)
     pipe.finish()
     return pipe
 
@@ -125,6 +145,90 @@ def test_resume_equals_the_uninterrupted_run(frames, whole, tmp_path):
     assert st["reintegrations_reuse"] > before.stats["reintegrations_reuse"]
     assert before.volume.released
     _assert_same_run(whole, resumed)
+
+
+def _pending(slam) -> set:
+    return ({"promote"} if slam._pending_promote is not None else set()) | (
+        {"refine"} if slam._pending_refine else set()) | (
+        {"poses"} if slam._poses_pending is not None else set())
+
+
+@pytest.mark.parametrize("angle_range, pending", [(11.0, {"promote"}),
+                                                  (10.0, {"poses", "refine"})])
+def test_pipelined_resume_equals_the_run_flushed_there(tmp_path, angle_range, pending):
+    """The default (pipelined) tracker saved at frame 60 with its pending
+    state, resumed in a fresh pipeline: the same run, exactly, as the
+    uninterrupted one that flushed its tracking at frame 60."""
+    frames = _orbit(PIPELINED_N, angle_range)
+    cut = PIPELINED_CUT
+    whole = ReconstructionPipeline(CFG, device="cpu")
+    _feed(whole, frames[:cut])
+    whole.flush_tracking()
+    assert _pending(whole.slam) == pending
+    _feed(whole, frames[cut:], cut)
+    whole.finish()
+    pipe = ReconstructionPipeline(CFG, device="cpu")
+    _feed(pipe, frames[:cut])
+    path = str(tmp_path / "pipelined.ckpt")
+    checkpoint.save_pipeline(pipe, path)
+    resumed = ReconstructionPipeline(CFG, device="cpu")
+    checkpoint.load_pipeline(resumed, path)
+    assert _pending(resumed.slam) == pending
+    np.testing.assert_array_equal(resumed.slam._poses_np, pipe.slam._poses_np)
+    _feed(resumed, frames[cut:], cut)
+    resumed.finish()
+    _assert_same_run(whole, resumed)
+    for name in ("stale_frames", "refine_dispatched", "refine_adopted"):
+        assert getattr(resumed.slam, name) == getattr(whole.slam, name), name
+    assert whole.slam.stale_frames and whole.slam.refine_adopted >= 1
+
+
+def test_jax_checkpoint_drops_the_pending_tracker_state(tmp_path):
+    """Fault 15: the JAX checkpoint flushes the pipelined tracker's frames
+    in flight but saves neither a deferred promotion nor the stale frames'
+    re-registrations: a resumed JAX run never adds that promotion's edges
+    nor runs its BA, and never adopts those re-registrations. (It adopts
+    BA's pending poses, reading `poses` to save them.) Fetches land at
+    once and the deferred probe is repaired (test_torch_gcslam); a first
+    run finds the first deferred promotion k and the first stale frame s,
+    and a save right after each holds it pending (a frame's decisions do
+    not depend on when the frames after it are dispatched)."""
+    cfg = jax_tiny_config().replace(parallel=JParallelConfig(async_fusion=False,
+                                                             async_cycle_results=False))
+    poses = jsyn.orbit_trajectory(N, angle_range=3.0)
+    depths, rgbs = jsyn.render_sequence(jsyn.BoxRoomScene(), INTR, poses)
+
+    def fed(n):
+        pipe = JaxSyncPipeline(cfg)
+        for i in range(n):
+            pipe.process_frame(jnp.asarray(depths[i]), jnp.asarray(rgbs[i]), timestamp=float(i))
+        return pipe
+
+    def saved_and_restored(pipe, name):
+        path = str(tmp_path / name)
+        jcheckpoint.save_pipeline(pipe, path)
+        restored = JaxSyncPipeline(cfg)
+        jcheckpoint.load_pipeline(restored, path)
+        return restored
+
+    with pytest.MonkeyPatch.context() as mp:
+        jax_pipelined_tracker(mp)
+        probe = fed(N)
+        k, s = probe.slam.deferred[0], probe.slam.stale_frames[0]
+        jpipe = fed(k + 1)
+        a = saved_and_restored(jpipe, "a.ckpt")
+        assert jpipe.slam._pending_promote is not None and a.slam._pending_promote is None
+        edges = a.slam.n_edges
+        a.slam.consume_pending_promote()
+        jpipe.slam.consume_pending_promote()
+        assert a.slam.n_edges == edges < jpipe.slam.n_edges
+        jpipe = fed(s + 1)
+        b = saved_and_restored(jpipe, "b.ckpt")
+        assert jpipe.slam._pending_refine and jpipe.slam.stale_frames[-1] == s
+        assert not b.slam._pending_refine and b.slam.refine_dispatched == 0
+        b.slam.consume_pending_refine(force=True)
+        jpipe.slam.consume_pending_refine(force=True)
+        assert b.slam.refine_adopted == 0 < jpipe.slam.refine_adopted
 
 
 def test_a_checkpoint_without_the_chunk_sets_and_draws_diverges(frames, whole, tmp_path):

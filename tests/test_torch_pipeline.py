@@ -1,14 +1,16 @@
 """ReconstructionPipeline, port against the JAX package.
 
 The sequence of tests/test_pipeline.py (tiny_test_config, 10 orbit
-frames rendered by the JAX package) goes through both pipelines in the
-synchronous settings: defer_promote=False and ParallelConfig(
-async_fusion=False, pipelined_tracking=False, async_cycle_results=False).
-Both sides take the same random draws (the JAX key path replayed,
+frames rendered by the JAX package) goes through both pipelines with the
+synchronous tracker: defer_promote=False and ParallelConfig(
+async_fusion=False, pipelined_tracking=False, async_cycle_results=False)
+(tests/test_torch_pipelined.py runs the pipelined one). Both sides take
+the same random draws (the JAX key path replayed,
 tests/test_torch_draws.py) and discover a keyframe's chunks when they
 integrate it: the JAX side is a test-side subclass whose discovery
 prefetch is cleared before each fusion cycle and never refreshed, and
-whose BA poses are synced first (the port has no pending pose fetch).
+whose pending BA poses are synced first, as the port's cycle does (the
+JAX package's drift pass peeks them).
 Its bilateral step is the TPU kernel in interpret mode, which the port
 follows (ROADMAP fault 3.2), patched in for this file only.
 

@@ -12,7 +12,9 @@ JAX passes, -1 at the old poses then +1 at the new (each with one sign,
 where JAX's batched pass is right): the port's single pass sums the
 same terms, and differs only where the sequential passes reset a voxel
 whose weight fell to 0 between them and by the 1e-4 regulariser of the
-running average (sdf 1e-4).
+running average (sdf 1e-4). The last test shows JAX fault 17 (an
+offloaded chunk exported with a mesh its rows no longer hold) and the
+port's repair.
 """
 
 import dataclasses
@@ -246,3 +248,57 @@ def test_streaming_pipeline_keeps_offloaded_surface(sweep):
     n_frozen = sum(len(pipe.mesher.frozen[c][0]) for c in frozen_out)
     assert len(pipe.mesher.full_mesh()[0]) == n_resident + n_frozen
     assert set(frozen_out) <= set(pipe.streamer.cold)
+
+
+def _offload_restore_empty_offload(vol, mesher, streamer, to_dev, depth, rgb, pose):
+    """The pipeline's streaming steps on one frame's chunks: integrate and
+    mesh; offload them all and freeze their meshes (as fusion_cycle does);
+    restore them and de-integrate the frame, so that their meshes empty;
+    offload and freeze again. Returns the vertex counts exported after
+    the first offload and after the second."""
+    slots = vol.integrate_frame(to_dev(depth), to_dev(rgb), to_dev(np.zeros_like(depth)),
+                                to_dev(pose), keyframe_id=0)
+    ids = vol.ids[slots].copy()
+    counts = []
+    for step in range(2):
+        mesher.update_meshes()
+        before = vol.active_slots()
+        streamer.offload_cold(pose[:3, 3])
+        mesher.freeze(np.setdiff1d(before, vol.active_slots()))
+        counts.append(len(mesher.full_mesh()[0]))
+        if step == 0:
+            assert streamer.ensure_resident(ids) == len(ids)
+            vol.integrate_frame(to_dev(depth), to_dev(rgb), to_dev(np.zeros_like(depth)),
+                                to_dev(pose), keyframe_id=0, sign=-1.0,
+                                slots=vol.lookup(ids))
+    return counts
+
+
+def test_an_emptied_chunk_offloaded_again_exports_no_old_mesh_fault_17():
+    """JAX fault 17: IncrementalMesher.freeze stores the mesh of each
+    offloaded chunk that has one, and leaves the entry of one that has
+    none. A chunk offloaded with a mesh, restored, emptied (a drift
+    reintegration de-integrates it) and offloaded again is exported with
+    the mesh of its first offload. The port's mesher forgets a chunk's
+    frozen mesh when the streamer restores it (ChunkStreamer.on_restore,
+    wired by ReconstructionPipeline)."""
+    from texturefusion_tpu.fusion.mesher import IncrementalMesher as JMesher
+    from texturefusion_tpu.fusion.streaming import ChunkStreamer as JStreamer
+    from texturefusion_torch.fusion.mesher import IncrementalMesher as TMesher
+    pose = jsyn.orbit_trajectory(1)[0]
+    depth, rgb = (np.array(a) for a in jsyn.render_frame(jsyn.BoxRoomScene(), JI,
+                                                         jnp.asarray(pose)))
+    jv = JVolume(CFG)
+    jm, js = JMesher(jv), JStreamer(jv, max_resident=8, offload_radius=0.0)
+    jv.streamer = js
+    jcounts = _offload_restore_empty_offload(jv, jm, js, jnp.asarray, depth, rgb, pose)
+    tv = TVolume(CFG, device="cpu")
+    tm, ts = TMesher(tv), ChunkStreamer(tv, max_resident=8, offload_radius=0.0)
+    tv.streamer, ts.on_restore = ts, tm.thaw
+    tcounts = _offload_restore_empty_offload(tv, tm, ts, torch.as_tensor, depth, rgb, pose)
+    assert jcounts[0] == tcounts[0] > 1000
+    assert jcounts[1] == jcounts[0]          # the old meshes, exported again
+    assert tcounts[1] == 0
+    pipe = ReconstructionPipeline(CFG.replace(tsdf=dataclasses.replace(
+        CFG.tsdf, max_resident_chunks=8)), device="cpu")
+    assert pipe.streamer.on_restore == pipe.mesher.thaw

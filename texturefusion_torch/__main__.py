@@ -12,7 +12,9 @@ Writes trajectory.txt (TUM format), stat.txt and chunk.txt, keyframes/
 (%06d.cam + %06d.png), fused.ply and the textured model.obj / .mtl / .png
 into OUT_DIR, and prints the ATE in dataset mode (InputMode 0) when the
 dataset has a groundtruth.txt. It runs on the GPU unless --device names
-another device; --device cuda on a machine without CUDA raises.
+another device; --device cuda on a machine without CUDA raises. Its
+config's tracker is the JAX CLI's default: pipelined tracking at
+pipeline_depth 2, deferred promotion and the stale-frame refinement.
 """
 
 from __future__ import annotations

@@ -186,6 +186,15 @@ class IncrementalMesher:
             self.frozen[tuple(self.volume.ids[s].tolist())] = m
         self.drop(slots)
 
+    def thaw(self, ids) -> None:
+        """Forget the frozen meshes of chunks brought back from the host:
+        a restored chunk is meshed from its slot, and if it were offloaded
+        again with no mesh (de-integrated meanwhile), a mesh frozen before
+        would be exported for rows that no longer hold it (ROADMAP, JAX
+        fault 17)."""
+        for cid in ids:
+            self.frozen.pop(tuple(cid), None)
+
     def drop(self, slots) -> None:
         slots = np.atleast_1d(slots).astype(np.int64)
         if len(slots) == 0:
@@ -223,7 +232,8 @@ class IncrementalMesher:
     def full_mesh(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """All chunk meshes concatenated, the resident ones in slot order,
         then the frozen ones of offloaded chunks in chunk-id order (a
-        chunk restored since is exported from its new slot):
+        restored chunk is exported from its slot; `thaw` forgets its
+        frozen mesh):
         (verts, faces, colors, normals)."""
         vs, fs, cs, ns = [], [], [], []
         base = 0

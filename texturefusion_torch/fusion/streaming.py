@@ -30,6 +30,9 @@ class ChunkStreamer:
         self.cold: Dict[Tuple[int, int, int], tuple] = {}
         self.offloaded = 0        # chunks moved to the host, in all
         self.restored = 0         # chunks brought back, in all
+        # called with the ids of the chunks each restore brought back (the
+        # pipeline's mesher forgets their frozen meshes)
+        self.on_restore = None
 
     def n_cold(self) -> int:
         return len(self.cold)
@@ -80,4 +83,6 @@ class ChunkStreamer:
             vol.set_obs_row(int(s), r[4])
             vol.dirty_mesh.add(int(s))
         self.restored += len(kept)
+        if self.on_restore is not None:
+            self.on_restore(kept)
         return len(kept)

@@ -11,7 +11,9 @@ framePreprocess :942, extractNormalMapSIMD :849, refineDepthUseNormalSIMD
     CPU tensor its plain version below;
   * normals difference the point map with a wrap-around roll, as
     `jnp.roll` does;
-  * Sobel and Laplacian stencils replicate the edge pixels.
+  * Sobel and Laplacian stencils replicate the edge pixels;
+  * the unpacking divides exactly (core/exact.py), so a frame's depth
+    and grey image have the same bits on the CPU and on a CUDA device.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from texturefusion_torch.core import camera as cam
+from texturefusion_torch.core import exact
 from texturefusion_torch.ops import cuda_kernels
 
 
@@ -288,13 +291,13 @@ def preprocess_bundle(depth_raw: torch.Tensor, rgb, intr: cam.Intrinsics,
     float) and rgb (uint8 or float 0..1)."""
     if rgb is None:
         packed = depth_raw
-        depth_raw = (packed[..., 0].to(torch.float32)
-                     + packed[..., 1].to(torch.float32) * 256.0) / depth_scale
-        rgb = packed[..., 2:5].to(torch.float32) / 255.0
+        depth_raw = exact.div(packed[..., 0].to(torch.float32)
+                              + packed[..., 1].to(torch.float32) * 256.0, depth_scale)
+        rgb = exact.div(packed[..., 2:5].to(torch.float32), 255.0)
     if depth_raw.dtype != torch.float32:
-        depth_raw = depth_raw.to(torch.float32) / depth_scale
+        depth_raw = exact.div(depth_raw.to(torch.float32), depth_scale)
     if rgb.dtype != torch.float32:
-        rgb = rgb.to(torch.float32) / 255.0
+        rgb = exact.div(rgb.to(torch.float32), 255.0)
     depth = frame_preprocess(depth_raw, intr)
     normals = extract_normal_map(depth, intr)
     depth_refined = refine_depth_with_normals(depth, normals, intr)

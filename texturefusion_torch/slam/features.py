@@ -12,6 +12,14 @@ replicate edge pixels, the descriptor box blur wraps around (jnp.roll),
 and patch starts follow jax.lax.dynamic_slice (negative starts count
 from the end, then clamp into the image). Ties in the top-k go to the
 lowest index, as jax.lax.top_k does.
+
+Every float step from the grey image to the descriptor bits rounds the
+same on the CPU and on a CUDA device (core/exact.py): the pyramid resize
+is written as its weighted taps, summed in order; the blur divides
+exactly; the intensity-centroid moments are summed pairwise; the
+descriptor's rotation takes its cosine and sine from the moments
+(m10 / r, m01 / r) rather than from the library's cos and sin of the
+angle. So a frame has the same keypoints and descriptors on both devices.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch.nn.functional as F
 
 from texturefusion_torch.config import TrackingConfig
 from texturefusion_torch.core import camera as cam
+from texturefusion_torch.core import exact
 from texturefusion_torch.ops import hamming
 
 # FAST circle of radius 3 (16-offset Bresenham circle), (dx, dy)
@@ -70,7 +79,7 @@ def _consts(device) -> dict:
     if c is None:
         pat = torch.as_tensor(_PATTERN)
         c = _CONSTS[device] = {k: v.to(device) for k, v in {
-            "ic_dx": torch.as_tensor(_IC_DX), "ic_dy": torch.as_tensor(_IC_DY),
+            "ic_w": torch.as_tensor(np.stack([_IC_DX, _IC_DY]).reshape(2, -1)),
             "xs": torch.cat([pat[:, 0], pat[:, 2]]), "ys": torch.cat([pat[:, 1], pat[:, 3]]),
             "bit": (1 << torch.arange(16, dtype=torch.int32))[:, None, None],
             "starts": torch.arange(16, dtype=torch.int32)[:, None, None, None]}.items()}
@@ -133,7 +142,7 @@ def _box_blur(img: torch.Tensor, r: int = 2) -> torch.Tensor:
         acc = torch.zeros_like(out)
         for s in range(-r, r + 1):
             acc = acc + torch.roll(out, s, axis)
-        out = acc / k
+        out = exact.div(acc, k)
     return out
 
 
@@ -154,20 +163,27 @@ def _extract_patches(blur: torch.Tensor, vy: torch.Tensor, vx: torch.Tensor) -> 
     return blur[(y0[:, None] + r)[:, :, None], (x0[:, None] + r)[:, None, :]]
 
 
-def _ic_angle_patch(patches: torch.Tensor) -> torch.Tensor:
-    """Intensity-centroid orientation (ref: ORBextractor IC_Angle)."""
+def _ic_moments(patches: torch.Tensor):
+    """Intensity-centroid moments (m10, m01) over the disc (ref:
+    ORBextractor IC_Angle), summed pairwise; the angle is atan2(m01, m10)."""
     c = _consts(patches.device)
-    m10 = torch.sum(patches * c["ic_dx"], dim=(1, 2))
-    m01 = torch.sum(patches * c["ic_dy"], dim=(1, 2))
-    return torch.atan2(m01, m10)
+    m = exact.tree_sum(patches.reshape(patches.shape[0], 1, -1) * c["ic_w"])
+    return m[:, 0], m[:, 1]
 
 
-def _descriptors_patch(patches: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
-    """Rotated point-pair comparisons, nearest-rounded inside the patch
-    (ref: ORBextractor.cpp GET_VALUE) -> [K, 8] int32 words."""
+def _descriptors_patch(patches: torch.Tensor, m10: torch.Tensor,
+                       m01: torch.Tensor) -> torch.Tensor:
+    """Point pairs rotated by the intensity-centroid angle, compared
+    nearest-rounded inside the patch (ref: ORBextractor.cpp GET_VALUE)
+    -> [K, 8] int32 words. cos and sin of atan2(m01, m10) are m10 / r and
+    m01 / r (1 and 0 where both moments are 0, as atan2(0, 0) = 0)."""
     c = _consts(patches.device)
     xs, ys = c["xs"], c["ys"]
-    ca, sa = torch.cos(angle), torch.sin(angle)
+    r = torch.sqrt(m10 * m10 + m01 * m01)
+    ok = r > 0
+    rs = torch.where(ok, r, 1.0)
+    ca = torch.where(ok, m10 / rs, 1.0)
+    sa = torch.where(ok, m01 / rs, 0.0)
     rx = ca[:, None] * xs[None] - sa[:, None] * ys[None] + _PATCH_C
     ry = sa[:, None] * xs[None] + ca[:, None] * ys[None] + _PATCH_C
     ix = torch.clamp(torch.round(rx).to(torch.int64), 0, _PATCH - 1)
@@ -186,11 +202,56 @@ def level_budgets(cfg: TrackingConfig) -> np.ndarray:
     return budgets
 
 
+def _linear_taps(n_in: int, n_out: int):
+    """jax.image.resize's "linear" weights along one axis (a triangle
+    filter, widened by n_in / n_out when downsampling, each output's
+    weights normalized to sum to 1) as each output's nonzero taps in input
+    order: (input index [n_out, T], weight [n_out, T]), zero-padded."""
+    f32 = np.float32
+    inv_scale = f32(1.0) / f32(n_out / n_in)
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - x)
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(f32).eps,
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    w = np.where((sample >= -0.5) & (sample <= n_in - 0.5), w, f32(0.0)).astype(f32).T
+    n_taps = max(int((w != 0).sum(axis=1).max()), 1)
+    idx = np.zeros((n_out, n_taps), np.int64)
+    wt = np.zeros((n_out, n_taps), f32)
+    for o in range(n_out):
+        nz = np.nonzero(w[o])[0]
+        idx[o, :len(nz)], wt[o, :len(nz)] = nz, w[o, nz]
+    return idx, wt
+
+
+_TAPS: dict = {}      # (n_in, n_out, device) -> resize taps, made once
+
+
+def _taps(n_in: int, n_out: int, device):
+    key = (n_in, n_out, device)
+    if key not in _TAPS:
+        idx, wt = _linear_taps(n_in, n_out)
+        _TAPS[key] = (torch.as_tensor(idx).to(device), torch.as_tensor(wt).to(device))
+    return _TAPS[key]
+
+
 def resize_linear(img: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
-    """jax.image.resize(img, (nh, nw), "linear"): a triangle filter,
-    widened (antialiased) when downsampling."""
-    return F.interpolate(img[None, None], size=(nh, nw), mode="bilinear",
-                         align_corners=False, antialias=True)[0, 0]
+    """jax.image.resize(img, (nh, nw), "linear"), antialiased when
+    downsampling: rows, then columns, each output a sum of its weighted
+    taps in input order."""
+    idx, wt = _taps(img.shape[0], nh, img.device)
+    taps = img[idx] * wt[..., None]                    # [nh, T, W]
+    out = taps[:, 0]
+    for t in range(1, taps.shape[1]):
+        out = out + taps[:, t]
+    idx, wt = _taps(img.shape[1], nw, img.device)
+    taps = out[:, idx] * wt                            # [nh, nw, T]
+    out = taps[..., 0]
+    for t in range(1, taps.shape[-1]):
+        out = out + taps[..., t]
+    return out
 
 
 def extract_features(gray: torch.Tensor, depth: torch.Tensor,
@@ -237,11 +298,12 @@ def extract_features(gray: torch.Tensor, depth: torch.Tensor,
         resp, win = resp[:k], win[:k]
         vy, vx = wy[win], wx[win]
         patches = _extract_patches(_box_blur(img), vy, vx)
-        ang = _ic_angle_patch(patches)
+        m10, m01 = _ic_moments(patches)
+        ang = torch.atan2(m01, m10)
         out["uv"].append(torch.stack([vx, vy], dim=-1) * scale)
         out["resp"].append(resp)
         out["ang"].append(ang)
-        out["desc"].append(_descriptors_patch(patches, ang))
+        out["desc"].append(_descriptors_patch(patches, m10, m01))
         out["ok"].append(resp > 0)
         out["lvl"].append(torch.full((k,), lvl, dtype=torch.int32, device=dev))
 

@@ -13,14 +13,25 @@ blocked (ref: BasicAPI.cpp:1256). When every candidate registration
 fails, a new map origin starts (ref: GCSLAM.cpp:149-161), and a later
 keyframe that registers to two origins merges them.
 
-What the JAX package adds to hide a high-latency device link is not
-carried: deferred promotion (`defer_promote` is ignored: promotion is
-synchronous), the pipelined tracker's stale-reference path, async pose
-fetches and the BA bucket floors (BA runs at the true keyframe and edge
-counts). The branch that is not ported raises NotImplementedError: a
-`res_kf_slot` that is not the last keyframe. On one device the JAX
-package's Schur BA is the dense solve; over a DeviceMesh BA is
-edge-sharded (`_run_ba`, parallel/ba.py).
+The JAX package's pipelined tracker is carried. With `defer_promote` a
+steady-state promotion adopts the keyframe at once, at the tracked pose
+composed onto the last keyframe's peeked pose, and the loop-closure
+probe it dispatches is consumed a frame later (`consume_pending_promote`:
+edges, the pose recomposed from the synced parent, the DB gate, BA). A
+frame registered against a keyframe since superseded (`res_kf_slot` not
+the last keyframe, the pipelined tracker's stale reference) is
+re-anchored by composition and, with `refine_stale`, re-registered
+against the adopted keyframe, adopted when the result lands
+(`consume_pending_refine`). BA's poses are held pending as a fetch
+(utils/async_fetch.py) and adopted at the first read of `poses`;
+`keyframe_pose_peek` reads without adopting. One fault of the JAX
+package is not copied (ROADMAP fault 16): its deferred probe takes the
+new keyframe, adopted just before, as its candidate 0, so the tracked
+registration becomes an edge from the keyframe to itself; the port
+probes against the superseded keyframe, as the synchronous path does.
+Not carried: the BA bucket floors (BA runs at the true keyframe and edge
+counts). On one device the JAX package's Schur BA is the dense solve;
+over a DeviceMesh BA is edge-sharded (`_run_ba`, parallel/ba.py).
 
 Random draws: every registration takes Gumbel draws from `draw_fn(cfg,
 n)` ([R, H, 4, K], or [n, R, H, 4, K] for n candidates). By default they
@@ -31,6 +42,7 @@ package splits its key.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -43,8 +55,11 @@ from texturefusion_torch.parallel import ba as pba
 from texturefusion_torch.parallel.mesh import DeviceMesh, config_mesh, pad_to_multiple
 from texturefusion_torch.slam import fastba, loopclosure, promote
 from texturefusion_torch.slam.features import Keypoints, extract_features
-from texturefusion_torch.slam.matching import (TwoViewResult, ransac_draws, register_frames,
-                                               register_frames_batch, stack_keypoints)
+from texturefusion_torch.slam.matching import (TwoViewResult, lite_config, ransac_draws,
+                                               register_frames, register_frames_batch,
+                                               stack_keypoints)
+from texturefusion_torch.utils import async_fetch
+from texturefusion_torch.utils.stopwatch import STOPWATCH
 
 
 @dataclasses.dataclass
@@ -88,7 +103,11 @@ class GCSLAM:
         self.keyframes: List[KeyframeRecord] = []
         max_kf = config.ba.max_keyframes
         pad = config.tracking.max_features_pad
-        self.poses = np.tile(np.eye(4, dtype=np.float32), (max_kf, 1, 1))
+        # keyframe poses; BA's newest are pending until the first read of
+        # `poses` (the fusion thread reads them too, hence the lock)
+        self._poses_np = np.tile(np.eye(4, dtype=np.float32), (max_kf, 1, 1))
+        self._poses_pending = None        # (fetch handle, rows active at dispatch)
+        self._pose_lock = threading.Lock()
         self.edges = fastba.make_edges(config.ba.max_edges, self.device)
         self.n_edges = 0
         # raw per-edge matches: finalBA re-pre-integrates edges with Huber
@@ -108,8 +127,18 @@ class GCSLAM:
         self.base_seed = 7
         self._gen = torch.Generator(device=self.device).manual_seed(42)
         self._draw_fn = draw_fn or self._generator_draws
-        self.last_ba_errors: List[np.ndarray] = []
+        self._ba_errors = None       # the last BA's [rounds, 2] errors: a fetch handle or an array
         self.ba_keyframes = 0        # the most keyframes a BA has run over
+        # deferred promotion: the probe dispatched at adoption, consumed
+        # (edges, pose correction, BA) one frame later
+        self._pending_promote: Optional[dict] = None
+        self.promote_late = 0        # promotions consumed after their first chance
+        # frames finalized against a superseded keyframe, and their
+        # re-registrations against the adopted one, adopted when they land
+        self.stale_frames: List[int] = []
+        self._pending_refine: List[dict] = []
+        self.refine_dispatched = 0
+        self.refine_adopted = 0
         self._kf_depth = None        # last keyframe depth/normals, for ICP only
         self._kf_normals = None
         self._prev_kp = None         # previous frame's keypoints: f2f fallback
@@ -127,11 +156,50 @@ class GCSLAM:
         return register_frames(kp_ref, kp, self._draws(self.cfg), self.cfg, self.intr)
 
     @property
+    def poses(self) -> np.ndarray:
+        """Keyframe pose array; adopts a pending BA result first."""
+        self._sync_poses()
+        return self._poses_np
+
+    @poses.setter
+    def poses(self, value: np.ndarray) -> None:
+        with self._pose_lock:
+            self._poses_pending = None
+            self._poses_np = value
+
+    def _sync_poses(self) -> None:
+        # called from the tracking and the fusion threads
+        with self._pose_lock:
+            if self._poses_pending is not None:
+                handle, n_active = self._poses_pending
+                self._poses_pending = None
+                # only the rows active at dispatch: a keyframe promoted
+                # while the fetch was in flight keeps its own pose
+                fetched = async_fetch.resolve(handle).reshape(-1, 4, 4)
+                self._poses_np[:n_active] = fetched[:n_active]
+
+    def keyframe_pose_peek(self, slot: int) -> np.ndarray:
+        """A keyframe's pose without adopting a pending BA result (at
+        most one BA round stale), for provisional uses that are validated
+        against the synced pose later."""
+        with self._pose_lock:
+            return self._poses_np[slot].copy()
+
+    @property
+    def last_ba_errors(self) -> List[np.ndarray]:
+        """The last BA's (error before, error after) per round; read on demand."""
+        return [] if self._ba_errors is None else list(async_fetch.resolve(self._ba_errors))
+
+    @last_ba_errors.setter
+    def last_ba_errors(self, value) -> None:
+        self._ba_errors = np.asarray(value, np.float32) if len(value) else None
+
+    @property
     def last_keyframe(self) -> Optional[KeyframeRecord]:
         return self.keyframes[-1] if self.keyframes else None
 
     def keyframe_pose(self, slot: int) -> np.ndarray:
-        return self.poses[slot].copy()
+        return self.poses[slot].copy()       # a copy: read from two threads
 
     def frame_pose(self, idx: int) -> np.ndarray:
         """World pose of any frame: keyframe pose ∘ stored relative pose
@@ -143,6 +211,7 @@ class GCSLAM:
         return np.asarray(kf_pose @ f.rel_to_keyframe)
 
     def trajectory(self) -> np.ndarray:
+        self.consume_pending_refine(force=True)
         return np.stack([self.frame_pose(i) for i in range(len(self.frames))])
 
     # ------------------------------------------------------------ edges
@@ -203,8 +272,10 @@ class GCSLAM:
             return
         cfg = self.config.ba
         edges = self.edges.head(self.n_edges)
+        with STOPWATCH.time("t_ba_possync"):
+            current = self.poses[:n_kf]
         if self.mesh is None:
-            poses = torch.as_tensor(self.poses[:n_kf], device=self.device)
+            poses = torch.as_tensor(current, device=self.device)
             active = torch.ones(n_kf, dtype=torch.bool, device=self.device)
             new_poses, edges, errs = fastba.optimize(poses, edges, n_kf, active, cfg)
             valid = edges.valid
@@ -214,16 +285,22 @@ class GCSLAM:
             # identity rows past the true count: the pose array need not
             # hold n_pad rows when the mesh size does not divide its capacity
             pad = np.tile(np.eye(4, dtype=np.float32), (n_pad - n_kf, 1, 1))
-            poses = torch.as_tensor(np.concatenate([self.poses[:n_kf], pad]), device=dev0)
+            poses = torch.as_tensor(np.concatenate([current, pad]), device=dev0)
             active = torch.arange(n_pad, device=dev0) < n_kf
             new_poses, valid, errs = pba.ba_rounds(
                 poses, edges, n_pad, active, cfg, self.mesh,
                 use_schur=n_kf >= cfg.schur_min_keyframes,
                 sep_budget=cfg.schur_separator_budget)
             new_poses = new_poses[:n_kf]
-        self.last_ba_errors = list(errs.cpu().numpy())
+        # the errors stay on the device until read; the poses are fetched
+        # without waiting and adopted at the next read of `poses`
+        self._ba_errors = async_fetch.fetch_async(errs)
         self.ba_keyframes = max(self.ba_keyframes, n_kf)
-        self.poses[:n_kf] = new_poses.cpu().numpy()
+        handle = async_fetch.fetch_async(new_poses.reshape(-1))
+        # published under the lock: _sync_poses on the fusion thread reads
+        # and clears the same field
+        with self._pose_lock:
+            self._poses_pending = (handle, n_kf)
         self.edges.valid[:self.n_edges] = valid.to(self.device)
 
     # ------------------------------------------------------------ keyframes
@@ -231,7 +308,10 @@ class GCSLAM:
     def _promote_keyframe(self, frame: FrameRecord, kp: Keypoints,
                           pose_world: np.ndarray) -> KeyframeRecord:
         slot = len(self.keyframes)
-        self.poses[slot] = pose_world
+        # stored without adopting a pending BA result: its rows stop
+        # below this slot
+        with self._pose_lock:
+            self._poses_np[slot] = pose_world
         kf = KeyframeRecord(frame_index=frame.index, slot=slot,
                             origin_index=frame.origin_index)
         self.keyframes.append(kf)
@@ -252,6 +332,13 @@ class GCSLAM:
         origins take the legacy path, which also probes each other
         origin's newest keyframe."""
         last_slot = self.last_keyframe.slot
+        if (self.cfg.defer_promote and tracked is not None and tracked_stats is not None
+                and self.origin_count == 1 and len(self.db) > 0):
+            # steady state with the tracked pose on the host: adopt the
+            # keyframe now, consume the probe a frame later (the
+            # reference blocks its tracking thread here, GCSLAM.cpp:52-185)
+            self._promote_dispatch(frame, kp, tracked_stats)
+            return
         probe = None
         if self.origin_count == 1 and len(self.db) > 0:
             results, probe = self._probe_candidates(kp, tracked_stats)
@@ -329,19 +416,26 @@ class GCSLAM:
         if len(self.db) > row:
             self._row_to_slot[row] = slot
 
-    def _probe_candidates(self, kp: Keypoints, tracked_stats: Optional[np.ndarray]):
-        """Candidate selection + registration + edge pre-integration
-        (slam/promote.py). Returns ([(KeyframeRecord, stats[21], row)], probe)."""
+    def _dispatch_probe(self, kp: Keypoints, tracked_stats: Optional[np.ndarray],
+                        last_slot: int):
+        """Launch the promotion probe (candidate selection, registration,
+        edge pre-integration; slam/promote.py) with `last_slot` as its
+        candidate 0; returns (probe, n_cand, fetch handle of its results)."""
         n_cand = max(self.cfg.max_candidates, 2)
         have_tracked = tracked_stats is not None
         ts = torch.as_tensor(np.asarray(tracked_stats, np.float32) if have_tracked
                              else np.zeros(21, np.float32), device=self.device)
         probe = promote.promote_probe(
             self.kp_db.kp, self.db.desc, self.db.valid, self._row_to_slot, len(self.db),
-            self.last_keyframe.slot, kp, ts, have_tracked, self._draws(self.cfg, n_cand),
+            last_slot, kp, ts, have_tracked, self._draws(self.cfg, n_cand),
             self.cfg.salient_score_threshold, self.config.ba.huber_delta, self.cfg,
             self.intr, n_cand)
-        fetched = probe.fetch.cpu().numpy().reshape(n_cand, 25)
+        return probe, n_cand, async_fetch.fetch_async(probe.fetch)
+
+    def _probe_results(self, n_cand: int, fetched: np.ndarray):
+        """The probe's fetched rows -> [(KeyframeRecord, stats[21], row)]:
+        the successful candidates, each slot once."""
+        fetched = fetched.reshape(n_cand, 25)
         results = []
         seen = set()
         for i in range(n_cand):
@@ -350,7 +444,14 @@ class GCSLAM:
                 continue
             seen.add(slot)
             results.append((self.keyframes[slot], fetched[i, 2:23], i))
-        return results, probe
+        return results
+
+    def _probe_candidates(self, kp: Keypoints, tracked_stats: Optional[np.ndarray]):
+        """The promotion probe against the last keyframe, read at once.
+        Returns ([(KeyframeRecord, stats[21], row)], probe)."""
+        probe, n_cand, handle = self._dispatch_probe(kp, tracked_stats,
+                                                     self.last_keyframe.slot)
+        return self._probe_results(n_cand, async_fetch.resolve(handle)), probe
 
     def _append_probe_edges(self, probe: promote.PromoteProbe, rows: List[int],
                             kf_slot: int) -> int:
@@ -369,6 +470,78 @@ class GCSLAM:
         self._edge_has[n0:n0 + n] = True
         self.n_edges += n
         return n
+
+    def _promote_dispatch(self, frame: FrameRecord, kp: Keypoints,
+                          tracked_stats: np.ndarray) -> None:
+        """Adopt the keyframe now at the tracked pose, dispatch the
+        loop-closure probe, and leave edges, the pose correction and BA to
+        consume_pending_promote (usually the next frame)."""
+        with STOPWATCH.time("pd_consume"):
+            self.consume_pending_promote()           # at most one in flight
+        last_slot = self.last_keyframe.slot
+        rel = tracked_stats[5:21].reshape(4, 4).astype(np.float32)
+        # peeked parent (at most one BA round stale): the consume step
+        # recomposes this pose from the synced parent before BA, whose
+        # initial poses must agree with what it reads (the JAX package
+        # measured 32 -> 758 mm ATE from a stale-against-synced mismatch)
+        pose_prov = (self.keyframe_pose_peek(last_slot) @ rel).astype(np.float32)
+        frame.origin_index = self.keyframes[last_slot].origin_index
+        frame.tracking_success = True
+        kf = self._promote_keyframe(frame, kp, pose_prov)
+        # candidate 0 is the superseded keyframe, the one `tracked_stats`
+        # registered against (ROADMAP fault 16: the JAX package passes the
+        # new keyframe here)
+        with STOPWATCH.time("pd_probe"):
+            probe, n_cand, handle = self._dispatch_probe(kp, tracked_stats, last_slot)
+        self._pending_promote = {"probe": probe, "n_cand": n_cand, "handle": handle,
+                                 "kf_slot": kf.slot, "last_slot": last_slot, "rel": rel,
+                                 "frame": len(self.frames)}
+        self.fail_count = 0
+
+    def consume_pending_promote(self, force: bool = True) -> None:
+        """Apply a deferred promotion's probe: loop-closure edges, the
+        minimum-disparity pose, the descriptor-DB gate, BA (the deferred
+        tail of ref GCSLAM.cpp:52-185). Idempotent. With force=False it
+        waits while the probe's results have not landed, for up to three
+        frames."""
+        pend = self._pending_promote
+        if pend is None:
+            return
+        waited = len(self.frames) - pend["frame"]
+        if not force and not pend["handle"].done() and waited < 3:
+            return
+        self._pending_promote = None
+        self.promote_late += waited > 0
+        with STOPWATCH.time("t_promote_consume"):
+            fetched = async_fetch.resolve(pend["handle"])
+        results = self._probe_results(pend["n_cand"], fetched)
+        kf = self.keyframes[pend["kf_slot"]]
+        fr = self.frames[kf.frame_index]
+        if not results:
+            # candidate 0 carries the tracked stats validated at dispatch,
+            # so even the tracked registration failed: a new map origin, as
+            # the synchronous path (ref: GCSLAM.cpp:149-161), before this
+            # keyframe's fusion cycle (only origin 0 fuses)
+            self.origin_count += 1
+            kf.origin_index = self.origin_count - 1
+            fr.origin_index = kf.origin_index
+            fr.tracking_success = False
+            self._db_add(kf.slot, fr.keypoints)
+            return
+        # the minimum-disparity match (ref: GCSLAM.cpp:124-147), composed
+        # from the synced parent
+        best = min(results, key=lambda r: float(r[1][3]))
+        if best[0].slot != pend["last_slot"]:
+            pose_world = self.poses[best[0].slot] @ best[1][5:21].reshape(4, 4)
+        else:
+            pose_world = self.poses[pend["last_slot"]] @ pend["rel"]
+        self.poses[kf.slot] = pose_world.astype(np.float32)
+        self._append_probe_edges(pend["probe"], [r[2] for r in results], kf.slot)
+        kf.reg_success_count = len(results)
+        if len(results) < 4:          # ref: GCSLAM.cpp:171-177 DB insertion gate
+            self._db_add(kf.slot, fr.keypoints)
+        with STOPWATCH.time("cpp_ba"):
+            self._run_ba()
 
     def _legacy_candidates(self, kp: Keypoints, tracked: Optional[TwoViewResult],
                            tracked_stats: Optional[np.ndarray], last_slot: int):
@@ -434,8 +607,14 @@ class GCSLAM:
         `blurred` is a bool or a zero-argument callable, evaluated only
         at promotion time. `kp`/`res`/`stats` (and `res_ff`/`stats_ff`,
         vs the previous frame) accept frame_step_tracked2's results;
-        `res_kf_slot` names the keyframe `res` was computed against and
-        must be the last keyframe."""
+        `res_kf_slot` names the keyframe `res` was computed against: when
+        a newer keyframe exists by now (the pipelined tracker dispatches
+        frames ahead of its decisions), the frame takes the stale-reference
+        path. A deferred promotion and landed refinements are consumed
+        first."""
+        with STOPWATCH.time("t_u_pp"):
+            self.consume_pending_promote(force=False)
+            self.consume_pending_refine()
         frame = FrameRecord(index=len(self.frames), timestamp=timestamp)
         self.frames.append(frame)
         if kp is None:
@@ -451,9 +630,9 @@ class GCSLAM:
 
         last_kf = self.last_keyframe
         if res is not None and res_kf_slot is not None and res_kf_slot != last_kf.slot:
-            raise NotImplementedError(
-                f"res was registered against keyframe {res_kf_slot}, not the last keyframe "
-                f"{last_kf.slot}: the pipelined tracker's stale-reference path is not ported")
+            if stats is None:
+                stats = res.stats.cpu().numpy()
+            return self._update_frame_stale(frame, kp, res_kf_slot, last_kf, stats, stats_ff)
         kp_ref = self.frames[last_kf.frame_index].keypoints
         if res is None:
             res = self._register(kp_ref, kp)
@@ -544,6 +723,82 @@ class GCSLAM:
         self._prev_kp = kp
         return frame
 
+    def _update_frame_stale(self, frame: FrameRecord, kp: Keypoints, res_kf_slot: int,
+                            last_kf: KeyframeRecord, stats: np.ndarray,
+                            stats_ff: Optional[np.ndarray]) -> FrameRecord:
+        """Finalize a frame registered against a keyframe that has been
+        superseded since (the pipelined tracker). Its pose re-anchors by
+        composition p_new_kf^-1 · p_old_kf · rel; the promotion gates are
+        skipped for it (its disparity is against the old keyframe)."""
+        self.stale_frames.append(frame.index)
+        frame.keyframe_slot = last_kf.slot
+        frame.origin_index = last_kf.origin_index
+        frame.is_keyframe = False
+        prev = self.frames[-2] if len(self.frames) > 1 else None
+        prev_rel = (prev.rel_to_keyframe if prev is not None and prev.keyframe_slot == last_kf.slot
+                    else None)
+        if stats[0] > 0.5:
+            # one peeked snapshot for both keyframes: only their relative
+            # transform matters, and the re-registration below replaces
+            # the composition anyway
+            with self._pose_lock:
+                pose_old_kf = self._poses_np[res_kf_slot].copy()
+                pose_new_kf = self._poses_np[last_kf.slot].copy()
+            rel = np.linalg.inv(pose_new_kf) @ pose_old_kf @ stats[5:21].reshape(4, 4)
+            frame.tracking_success = True
+            frame.rel_to_keyframe = rel.astype(np.float32)
+            last_kf.local_frames.append(frame.index)
+            self.fail_count = 0
+        elif stats_ff is not None and stats_ff[0] > 0.5 and prev_rel is not None:
+            # the registration against the superseded keyframe failed:
+            # chain through the frame-to-frame result
+            frame.tracking_success = True
+            frame.rel_to_keyframe = (prev_rel @ stats_ff[5:21].reshape(4, 4)).astype(np.float32)
+            last_kf.local_frames.append(frame.index)
+            self.fail_count = 0
+        else:
+            # or hold the previous pose
+            self.fail_count += 1
+            frame.tracking_success = False
+            frame.rel_to_keyframe = (prev_rel.copy() if prev_rel is not None
+                                     else np.eye(4, dtype=np.float32))
+        if self.cfg.refine_stale:
+            # re-register directly against the adopted keyframe off the
+            # critical path, adopted when it lands
+            self._dispatch_refine(frame, kp, last_kf)
+        self._prev_kp = kp
+        return frame
+
+    def _dispatch_refine(self, frame: FrameRecord, kp: Keypoints,
+                         last_kf: KeyframeRecord) -> None:
+        """Re-register a stale-finalized frame against its adopted keyframe
+        with the lite settings (a quarter of the hypotheses, no fine
+        search: the baseline is at most a keyframe interval)."""
+        kp_ref = self.frames[last_kf.frame_index].keypoints
+        cfg_lite = lite_config(self.cfg)
+        res = register_frames(kp_ref, kp, self._draws(cfg_lite), cfg_lite, self.intr)
+        self._pending_refine.append({"frame": frame.index, "kf_slot": last_kf.slot,
+                                     "fetch": async_fetch.fetch_async(res.stats)})
+        self.refine_dispatched += 1
+
+    def consume_pending_refine(self, force: bool = False) -> None:
+        """Adopt the landed re-registrations of stale-finalized frames: the
+        direct relative pose replaces the composed one; a failed one keeps
+        it. Waits for none unless force=True."""
+        keep = []
+        for p in self._pending_refine:
+            if not force and not p["fetch"].done():
+                keep.append(p)
+                continue
+            st = async_fetch.resolve(p["fetch"])
+            f = self.frames[p["frame"]]
+            if st[0] > 0.5 and not f.is_keyframe and f.keyframe_slot == p["kf_slot"]:
+                f.rel_to_keyframe = st[5:21].reshape(4, 4).astype(np.float32).copy()
+                f.rel_pose_dev = None
+                f.tracking_success = True     # a failed stale registration is rescued
+                self.refine_adopted += 1
+        self._pending_refine = keep
+
     def _store_icp_reference(self, depth: torch.Tensor) -> None:
         if self.cfg.use_icp:
             from texturefusion_torch.ops import preprocess
@@ -552,7 +807,10 @@ class GCSLAM:
 
     def final_ba(self) -> None:
         """Final global optimization (ref: GCSLAM.h:32-39 finalBA): re-weight
-        every edge with Huber norms at the CURRENT poses, then BA."""
+        every edge with Huber norms at the CURRENT poses, then BA. A
+        deferred promotion and every refinement are consumed first."""
+        self.consume_pending_promote()
+        self.consume_pending_refine(force=True)
         n = self.n_edges
         if n > 0 and self._edge_has[:n].any():
             n_kf = max(len(self.keyframes), 1)

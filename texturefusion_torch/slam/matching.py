@@ -24,6 +24,7 @@ import torch
 
 from texturefusion_torch.config import TrackingConfig
 from texturefusion_torch.core import camera as cam
+from texturefusion_torch.core import exact
 from texturefusion_torch.core import se3
 from texturefusion_torch.ops import hamming
 from texturefusion_torch.slam.features import Keypoints
@@ -132,7 +133,7 @@ def _rotation_histogram_filter(ok: torch.Tensor, ang_src: torch.Tensor,
     histogram bins (ref: RefineByRotation MultiViewGeometry.h:554-594)."""
     two_pi = 2 * torch.pi
     delta = torch.remainder(ang_ref - ang_src + torch.pi, two_pi)
-    bins = torch.clamp((delta / two_pi * n_bins).to(torch.int64), 0, n_bins - 1)
+    bins = torch.clamp((exact.div(delta, two_pi) * n_bins).to(torch.int64), 0, n_bins - 1)
     hist = torch.zeros(n_bins, dtype=torch.int64, device=ok.device).scatter_add_(
         0, bins, ok.to(torch.int64))
     top = torch.topk(hist, n_keep).values[-1]

@@ -21,6 +21,14 @@ chunk is remeshed at the next cycle. A TexturedPipeline's texture state
 is not saved (nor in the JAX package): a resumed run textures its
 chunks again from the restored keyframes.
 
+The pipelined tracker's frames in flight are finalized first, as in the
+JAX package; what is still pending after that is saved with its value
+and resumes as landed: BA's poses not yet adopted (beside the adopted
+array), a deferred promotion's probe and the stale-frame
+re-registrations. So a resumed run equals an uninterrupted one that
+flushed its tracking at the same frame. The JAX checkpoint drops the
+promotion and the re-registrations (fault 15).
+
 A streaming map (tsdf.max_resident_chunks > 0) is refused: its
 offloaded chunks live in the streamer's host store, which the JAX
 checkpoint does not save either, so such a file could not resume.
@@ -75,20 +83,71 @@ def _kp_from(prefix: str, arrays, device, index=None):
         device=device) for name in Keypoints._fields})
 
 
+def _tracker_state(slam, arrays: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """What the pipelined tracker holds pending, with its values (into
+    `arrays`); returns its meta entries."""
+    from texturefusion_torch.utils.async_fetch import resolve
+    with slam._pose_lock:
+        arrays["poses"] = slam._poses_np.copy()
+        if slam._poses_pending is not None:
+            handle, n_active = slam._poses_pending
+            arrays["poses_pending"] = resolve(handle).reshape(-1, 4, 4)[:n_active]
+    promote = None
+    pend = slam._pending_promote
+    if pend is not None:
+        for name, a in zip(pend["probe"]._fields, pend["probe"]):
+            arrays[f"promote_{name}"] = _np(a)
+        arrays["promote_fetched"] = resolve(pend["handle"])
+        promote = {k: pend[k] for k in ("n_cand", "kf_slot", "last_slot", "rel", "frame")}
+    return {"pending_promote": promote,
+            "pending_refine": [{"frame": p["frame"], "kf_slot": p["kf_slot"],
+                                "stats": resolve(p["fetch"])} for p in slam._pending_refine],
+            "refine_dispatched": slam.refine_dispatched, "refine_adopted": slam.refine_adopted,
+            "stale_frames": list(slam.stale_frames), "promote_late": slam.promote_late}
+
+
+def _restore_tracker(slam, arrays, meta: Dict[str, Any], device) -> None:
+    from texturefusion_torch.slam.promote import PromoteProbe
+    from texturefusion_torch.utils.async_fetch import fetch_async
+
+    def landed(a):
+        return fetch_async(torch.as_tensor(np.asarray(a)))
+
+    slam.poses = np.array(arrays["poses"], np.float32)
+    if "poses_pending" in arrays:
+        rows = np.asarray(arrays["poses_pending"], np.float32)
+        slam._poses_pending = (landed(rows.reshape(-1)), len(rows))
+    promote = meta.get("pending_promote")
+    if promote is not None:
+        probe = PromoteProbe(*(torch.as_tensor(np.asarray(arrays[f"promote_{name}"]),
+                                               device=device)
+                               for name in PromoteProbe._fields))
+        slam._pending_promote = dict(promote, probe=probe,
+                                     handle=landed(arrays["promote_fetched"]))
+    slam._pending_refine = [{"frame": int(p["frame"]), "kf_slot": int(p["kf_slot"]),
+                             "fetch": landed(p["stats"])}
+                            for p in meta.get("pending_refine", [])]
+    slam.refine_dispatched = int(meta.get("refine_dispatched", 0))
+    slam.refine_adopted = int(meta.get("refine_adopted", 0))
+    slam.stale_frames = [int(i) for i in meta.get("stale_frames", [])]
+    slam.promote_late = int(meta.get("promote_late", 0))
+
+
 def pipeline_state(pipe) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
     """(arrays, meta) of a ReconstructionPipeline / TexturedPipeline, after
-    its fusion thread is joined."""
+    its frames in flight are finalized and its fusion thread is joined."""
     if pipe.streamer is not None:
         raise NotImplementedError(
             "a streaming map (tsdf.max_resident_chunks > 0) cannot be checkpointed: its "
             "offloaded chunks are in the streamer's host store, which is not saved")
+    pipe.flush_tracking()
     pipe._drain_fusion()
     vol, slam = pipe.volume, pipe.slam
     batch, origins = vol.dense_batch()
     arrays: Dict[str, np.ndarray] = {
         "sdf": _np(batch.sdf), "weight": _np(batch.weight),
         "color": _np(batch.color), "color_count": _np(batch.color_count),
-        "origins": _np(origins), "poses": slam.poses.copy(),
+        "origins": _np(origins),
         "chunk_ids": vol.ids.copy(), "used": vol.used.copy(),
         "db_desc": _np(slam.db.desc), "db_valid": _np(slam.db.valid),
         "row_to_slot": _np(slam._row_to_slot),
@@ -141,6 +200,7 @@ def pipeline_state(pipe) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
         "stats": dict(pipe.stats),
         "dispatch_count": pipe._dispatch_count,
         "gen_device": slam._gen.device.type,
+        **_tracker_state(slam, arrays),
     }
     return arrays, meta
 
@@ -181,7 +241,7 @@ def restore_pipeline_state(pipe, arrays, meta: Dict[str, Any]) -> None:
                         if "new_since_gc" in arrays else set())
 
     slam = pipe.slam
-    slam.poses = np.array(arrays["poses"], np.float32)
+    _restore_tracker(slam, arrays, meta, dev)
     for dst, name in zip(slam.edges, slam.edges._fields):
         put(dst, f"edge_{name}")
     slam.n_edges = int(meta["n_edges"])
