@@ -88,49 +88,65 @@ non-zero):
                 consistent; prints the texture stages, why the wrong chunks
                 are wrong, and the colour error against the scene's colour
                 (voxel, raw atlas and exported colours)
- 15. pipeline-bench - TexturedPipeline with bench.py's config exactly
+ 15. pipeline-deferred - [pipeline-textured] with async_cycle_results=True
+                (the mesh counts, texture outputs, GC probe and
+                observation qualities of a cycle consumed at the start of
+                the next; finish() catches up): [pipeline-textured]'s
+                gates ([pipeline]'s, ATE and vertices beside [pipeline]'s,
+                the texture's); map RMS, vertices,
+                patched share, colour error and frames/s beside
+                [pipeline-textured]'s, and the deferral counts
+ 16. pipeline-bench - TexturedPipeline with bench.py's config exactly
                 (bench.py:162-184: the fusion thread, the default tracker,
                 pipelined at depth 2 with deferred promotion and the
-                stale-frame refinement; cut: the deferred cycle results
-                and the discovery prefetch) on the same 120 frames, then
-                flush_tracking, finish and the textured export:
-                [pipeline]'s gates, at least one stale-finalized frame and
-                one adopted refinement, [pipeline-textured]'s texture
-                gates; frames/s beside [pipeline]'s and
-                [pipeline-textured]'s, t_stats_sync, the frames that rode
-                past the depth, the most in flight, promotions consumed
-                late
- 16. pipeline-small - TexturedPipeline on the tiny config (10 orbit frames),
+                stale-frame refinement, the cycle results consumed a cycle
+                late; no cut) on the same 120 frames, then flush_tracking,
+                finish and the textured export: [pipeline]'s gates, at
+                least one stale-finalized frame and one adopted
+                refinement, [pipeline-textured]'s texture gates; frames/s
+                beside [pipeline]'s and [pipeline-textured]'s,
+                t_stats_sync, the frames that rode past the depth, the
+                most in flight, promotions consumed late; the deferral
+                counts: prefetches used / deferred / missed, deferred
+                integrations, count and observation batches consumed late
+                and the consumes that found a handle not ready, texture
+                dispatches skipped, GC probes deferred, and the chunks each
+                prefetch lacked against a discovery at integration, with
+                the share of the keyframe's band weight they hold (that
+                audit made after the run, outside its clocks)
+ 17. pipeline-small - TexturedPipeline on the tiny config (10 orbit frames),
                 GPU against CPU with the same draws, geometry and texture;
                 then the pipelined tracker (depth 2, deferred promotion,
-                20 orbit frames) the same way, its fetches landed at once
- 17. profile-pipeline - 10 pipeline frames under torch.profiler (no gate)
- 18. cli-synthetic - `python -m texturefusion_torch "" "" 0.02 4 --max-frames
+                20 orbit frames) the same way, its fetches landed at once,
+                each cycle reading its own results, and again with the
+                cycle results deferred (the same deferral counts)
+ 18. profile-pipeline - 10 pipeline frames under torch.profiler (no gate)
+ 19. cli-synthetic - `python -m texturefusion_torch "" "" 0.02 4 --max-frames
                 30` in process (VGA, textured): exit 0, a trajectory line a
                 frame, stat.txt and chunk.txt, fused.ply with vertices, a
                 .cam and a .png a keyframe, model.obj / .mtl / .png;
                 frames/s and launches
- 19. cli-dataset - [slice]'s 120 frames written as a TUM directory through
+ 20. cli-dataset - [slice]'s 120 frames written as a TUM directory through
                 io/png (Paeth rows; associate, calib with distortion,
                 groundtruth), read back bit for bit (PNG decode ms a
                 frame), each frame uploaded pageable and pinned (ms), then
                 the command line on it, textured: its outputs as in 18, and
                 its trajectory.txt against groundtruth.txt, ATE <= 25 mm
- 20. checkpoint - [pipeline]'s config and frames to frame 60, save_pipeline,
+ 21. checkpoint - [pipeline]'s config and frames to frame 60, save_pipeline,
                 load_pipeline into a fresh pipeline: TSDF rows, slot map,
                 poses, keypoint DB and edges bit for bit; frames 60-119 and
                 finish() there: new keyframes and edges, one map origin,
                 ATE <= 25 mm, map RMS <= 32 mm; save / load seconds, bytes
- 21. ba-sharded - distributed_gn and schur_gn (sep_budget 24) over 4 shards
+ 22. ba-sharded - distributed_gn and schur_gn (sep_budget 24) over 4 shards
                 (4 cards where the machine has them, else 4 shards of the
                 one card) against the dense fastba.gauss_newton_rounds on a
                 64-keyframe chain: poses within rtol 2e-3, atol 2e-4 of the
                 dense ones; ms a round for each, edges per shard, separators
- 22. multichip - dryrun_multichip over the same 4 shards (one full map
+ 23. multichip - dryrun_multichip over the same 4 shards (one full map
                 cycle with K2 on every shard, then the live pipeline,
                 tsdf_sharded, on three tiny frames): its asserts; the map
                 cycle on the card against the same cycle on 8 CPU shards
- 23. pipeline-sharded - TexturedPipeline on [pipeline]'s config and 120
+ 24. pipeline-sharded - TexturedPipeline on [pipeline]'s config and 120
                 frames with the TSDF rows, the mesh pool and BA's edges
                 sharded over the 4 shards (slot s on shard s % 4), then
                 export_textured: [pipeline]'s gates, ATE and map RMS within
@@ -157,14 +173,18 @@ at +1; F = 6 and 12 as a drift reintegration, half the frames at -1, the
 other half at +1 at poses moved 6 mm / 0.5 deg) against their plain
 versions, and times the F-frame mode alone.
 The line before the last is a JSON object with each kernel's launches
-over the phases that drive it (5, 8, 11-15, 18-20, 22-23), its error against the plain
+over the phases that drive it (5, 8, 11-16, 19-21, 23-24), its error against the plain
 version and its times, bound and share; the last line is
 {"ok": true, "device": {...}}.
 
-Phases 8-14, 16's first run, 20 and 23 run the synchronous tracker
+Phases 8-15, 17's first run, 21 and 24 run the synchronous tracker
 (defer_promote=False, pipelined_tracking=False), which the earlier PRs'
-numbers were taken with; 15, 16's second run, the command line (18, 19)
-and [multichip]'s three tiny frames (22) run the default, pipelined one.
+numbers were taken with, and, but 15, read each fusion cycle's results
+in the cycle (async_cycle_results=False); 16, 17's second and third
+runs, the command line (19, 20) and [multichip]'s three tiny frames (23)
+run the default, pipelined tracker, and 16, 17's third run, 19, 20 and
+23 the deferred cycle results. Every pipeline prefetches each
+keyframe's chunk discovery at its promotion, as the JAX package does.
 
 Imports nothing of jax or of the JAX package. Builds into texturefusion_torch/_build/.
 """
@@ -1161,9 +1181,11 @@ def _tracked_config(small: bool, pipelined: bool = False):
     schur_min_keyframes on is the JAX package's Schur BA, on one device
     the dense solve), or the tiny config with `small`. The tracker is the
     synchronous one (no deferred promotion, each frame decided in the
-    call that takes it) unless `pipelined`: then it is the default
-    tracker, pipelined at depth 2 with deferred promotion and the
-    stale-frame refinement, as bench.py runs it."""
+    call that takes it) and each fusion cycle reads its own results
+    (async_cycle_results=False), unless `pipelined`: then it is the
+    default ParallelConfig, as bench.py runs it: the tracker pipelined at
+    depth 2 with deferred promotion and the stale-frame refinement, the
+    cycle results consumed a cycle late."""
     import dataclasses
 
     from texturefusion_torch.config import (BAConfig, CameraConfig, ParallelConfig,
@@ -1177,7 +1199,8 @@ def _tracked_config(small: bool, pipelined: bool = False):
     if pipelined:
         return config
     return config.replace(tracking=dataclasses.replace(config.tracking, defer_promote=False),
-                          parallel=ParallelConfig(pipelined_tracking=False))
+                          parallel=ParallelConfig(pipelined_tracking=False,
+                                                  async_cycle_results=False))
 
 
 def _frame_draws(draw_fn, tcfg):
@@ -1189,10 +1212,14 @@ def _frame_draws(draw_fn, tcfg):
     return lambda i: tuple(draw_fn(c, None) for c in (tcfg, lite_config(tcfg)))
 
 
-def _pipeline(config, device, draw_fn=None, fuse=True, textured=False, mesh=None):
+def _pipeline(config, device, draw_fn=None, fuse=True, textured=False, mesh=None,
+              audit=False):
     """A ReconstructionPipeline (TexturedPipeline with `textured`) whose
     RANSAC draws all come from draw_fn (when given); with fuse=False its
-    fusion cycles do nothing, which leaves the pipeline's tracking half."""
+    fusion cycles do nothing, which leaves the pipeline's tracking half.
+    With `audit`, each integration over a prefetched chunk set keeps its
+    prefetch, depth and pose in pipe.prefetch_audit, for _audit_prefetch
+    to hold against a discovery after the run (deferral_counts)."""
     from texturefusion_torch.fusion.pipeline import ReconstructionPipeline, TexturedPipeline
 
     class TrackingOnly(ReconstructionPipeline):
@@ -1200,8 +1227,77 @@ def _pipeline(config, device, draw_fn=None, fuse=True, textured=False, mesh=None
             pass
 
     cls = TexturedPipeline if textured else ReconstructionPipeline if fuse else TrackingOnly
-    return cls(config, device=device, draw_fn=draw_fn,
-               frame_draws=_frame_draws(draw_fn, config.tracking), mesh=mesh)
+
+    class Audited(cls):
+        def _integrate_keyframe(self, st, sign, prefetched=None):
+            super()._integrate_keyframe(st, sign, prefetched=prefetched)
+            if prefetched is not None and sign > 0:
+                self.prefetch_audit.append((st.kf_slot, prefetched, st.depth,
+                                            st.integrated_pose))
+
+    pipe = (Audited if audit else cls)(config, device=device, draw_fn=draw_fn,
+                                       frame_draws=_frame_draws(draw_fn, config.tracking),
+                                       mesh=mesh)
+    pipe.prefetch_audit = []
+    return pipe
+
+
+def _band_weight(vol, ids, depth, pose) -> float:
+    """Σ|weight| that one depth frame at `pose` puts into the chunks `ids`
+    from empty rows: K2's plain version on the CPU, so no launch counts."""
+    from texturefusion_torch.ops import tsdf
+    if not len(ids):
+        return 0.0
+    n = len(ids)
+    batch = tsdf.make_empty_batch(n + 1, vol.n_voxels, "cpu")
+    origins = torch.zeros((n + 1, 3))
+    origins[:n] = torch.as_tensor(np.asarray(ids, np.float32) * vol.extent)
+    tsdf.integrate_frame_fused_plain(batch, origins, torch.arange(n), None, depth.cpu(), None,
+                                     None, torch.as_tensor(pose, dtype=torch.float32), 1.0,
+                                     vol.intr, vol.cfg, with_color=False)
+    return float(batch.weight[:n].abs().sum())
+
+
+def _audit_prefetch(pipe, kf, prefetched, depth, pose) -> dict:
+    """A keyframe that integrated over its prefetched chunks (found at its
+    promotion, from the depth then and the peeked pose), with the
+    (refined) depth and the pose it integrated at: the chunks a discovery
+    from these would add and drop, and the band weight its depth puts
+    into the chunks the prefetch lacks, beside that into the prefetched
+    ones. Run after the loop, so its reads are not in the loop's time."""
+    vol = pipe.volume
+    ids, n = prefetched[0].result()
+    pre = {tuple(r) for r in ids[:int(n)].tolist()}
+    depth = depth.to(pipe.device)
+    ids, n = vol.dispatch_discovery(depth, pose)[0].result()
+    now = {tuple(r) for r in ids[:int(n)].tolist()}
+    lacked = sorted(now - pre)
+    return {"kf": kf, "prefetched": len(pre), "lacked": len(lacked),
+            "dropped": len(pre - now), "w_lacked": _band_weight(vol, lacked, depth, pose),
+            "w_prefetched": _band_weight(vol, sorted(pre), depth, pose)}
+
+
+def deferral_counts(pipe) -> dict:
+    """The fusion side's deferrals over a run (STOPWATCH counts since its
+    reset) and the sums of the prefetch audit, made here."""
+    from texturefusion_torch.utils.stopwatch import STOPWATCH
+    c = STOPWATCH.counts.copy()
+    audit = [_audit_prefetch(pipe, *rec) for rec in pipe.prefetch_audit]
+    return {
+        "prefetch_used": c["disco_pref_used"], "prefetch_deferred": c["disco_pref_defer"],
+        "prefetch_missed": c["disco_pref_miss"],
+        "integrations_deferred": c["integration_deferred"],
+        "count_batches_late": c["counts_late"], "count_consumes_not_ready": c["counts_not_ready"],
+        "obs_batches_late": c["obs_late"], "obs_flushes_not_ready": c["obs_not_ready"],
+        "texture_dispatches_skipped": c["tex_skipped"],
+        "texture_consumes_not_ready": c["tex_not_ready"], "gc_probes_deferred": c["gc_deferred"],
+        "audited_integrations": len(audit),
+        "prefetch_lacked_chunks": [a["lacked"] for a in audit],
+        "prefetch_dropped_chunks": sum(a["dropped"] for a in audit),
+        "prefetched_chunks": sum(a["prefetched"] for a in audit),
+        "lacked_band_weight_share": (sum(a["w_lacked"] for a in audit)
+                                     / max(sum(a["w_prefetched"] + a["w_lacked"]
+                                               for a in audit), 1e-9))}
 
 
 def _sync(device):
@@ -1398,13 +1494,13 @@ def _pipeline_config(small=False, async_fusion=False, pipelined=False, **tsdf):
 
 
 def run_pipeline(config, packed, device, draw_fn=None, on_frame=None, textured=False,
-                 mesh=None):
+                 mesh=None, audit=False):
     """The pipeline's main path: ReconstructionPipeline (TexturedPipeline
     with `textured`; its rows, mesh pool and BA sharded over `mesh` when
     given) .process_frame on each packed frame (with its host copy), the
     fusion thread joined, then finish(). Returns (pipe, loop seconds,
     finish seconds); both clocks end in a synchronize."""
-    pipe = _pipeline(config, device, draw_fn, textured=textured, mesh=mesh)
+    pipe = _pipeline(config, device, draw_fn, textured=textured, mesh=mesh, audit=audit)
     t0 = time.perf_counter()
     for i, frame in enumerate(packed):
         pipe.process_frame(frame, timestamp=float(i), host_packed=frame)
@@ -1567,17 +1663,19 @@ def phase_pipeline_bench(frames, reference, textured_reference):
     """TexturedPipeline with bench.py's config exactly (bench.py:162-184:
     ParallelConfig(async_fusion=True, pipeline_depth=2), the default
     TrackingConfig but blur_threshold = 3.0, so deferred promotion and the
-    stale-frame refinement are on) on [tracked]'s 120 hardened frames,
-    then flush_tracking() and finish(), and the textured export. Cut
-    against bench.py: the deferred cycle results and the discovery
-    prefetch (async_cycle_results is read and ignored). Gates:
+    stale-frame refinement are on, and the default async_cycle_results:
+    the cycle results consumed a cycle late) on [tracked]'s 120 hardened
+    frames, then flush_tracking() and finish(), and the textured export;
+    no cut. Each integration over a prefetched chunk set is audited
+    after the run (_audit_prefetch: its discovery and the plain K2 on the
+    CPU run after the clocks stop). Gates:
     [pipeline]'s (ATE, map RMS and median, a loop edge, a reintegration,
     BA over 16 keyframes, the kernels launched), at least one
     stale-finalized frame and one adopted refinement, and
     [pipeline-textured]'s texture gates. Prints frames/s beside
     [pipeline]'s and [pipeline-textured]'s, t_stats_sync, the calls in
-    which a frame rode past the depth, the most frames in flight and the
-    promotions consumed late."""
+    which a frame rode past the depth, the most frames in flight, the
+    promotions consumed late, and the deferral counts (deferral_counts)."""
     from texturefusion_torch.ops import cuda_kernels
     from texturefusion_torch.utils.stopwatch import STOPWATCH
     name = "pipeline-bench"
@@ -1586,7 +1684,7 @@ def phase_pipeline_bench(frames, reference, textured_reference):
     STOPWATCH.reset()
     cuda_kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    pipe, loop, fin = run_pipeline(config, packed, "cuda", textured=True)
+    pipe, loop, fin = run_pipeline(config, packed, "cuda", textured=True, audit=True)
     launches = dict(cuda_kernels.LAUNCHES)
     shapes = dict(cuda_kernels.FRAME_SHAPES)
     scene = _bench_scene()
@@ -1595,6 +1693,9 @@ def phase_pipeline_bench(frames, reference, textured_reference):
                      ref_name="pipeline-textured", geometry=False)
     pipe.close()
     slam, par = pipe.slam, config.parallel
+    m["deferrals"] = deferral_counts(pipe)
+    log(f"[{name}] async_cycle_results={par.async_cycle_results} deferrals "
+        f"{json.dumps(m['deferrals'])}")
     m.update(launches=launches, stale=len(slam.stale_frames),
              refine_adopted=slam.refine_adopted, rode=pipe.rode,
              max_inflight=pipe.max_inflight, promote_late=slam.promote_late,
@@ -1613,6 +1714,49 @@ def phase_pipeline_bench(frames, reference, textured_reference):
         f"{m['keyframes']} vs {reference['keyframes']}, launches={json.dumps(launches)}")
     if m["stale"] < 1 or m["refine_adopted"] < 1:
         raise AssertionError(f"[{name}] no stale-finalized frame or no adopted refinement")
+    return m
+
+
+def phase_pipeline_deferred(frames, reference, textured_reference):
+    """[pipeline-textured]'s config (the synchronous tracker, no fusion
+    thread) with async_cycle_results=True: this slice's deferrals alone,
+    the tracker's apart. The same 120 frames, finish() and the textured
+    export; [pipeline-textured]'s gates: [pipeline]'s, the ATE and
+    vertices beside [pipeline]'s, and the texture's. Prints the map RMS,
+    vertices, patched share, colour error and frames/s beside
+    [pipeline-textured]'s, and the deferral counts."""
+    import dataclasses
+
+    from texturefusion_torch.ops import cuda_kernels
+    from texturefusion_torch.utils.stopwatch import STOPWATCH
+    name = "pipeline-deferred"
+    _, poses, packed = frames
+    base = _pipeline_config()
+    config = base.replace(parallel=dataclasses.replace(base.parallel, async_cycle_results=True))
+    STOPWATCH.reset()
+    cuda_kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    pipe, loop, fin = run_pipeline(config, packed, "cuda", textured=True)
+    launches = dict(cuda_kernels.LAUNCHES)
+    shapes = dict(cuda_kernels.FRAME_SHAPES)
+    scene = _bench_scene()
+    m = _pipeline_report(name, pipe, loop, fin, scene, poses, launches, len(packed), shapes)
+    _textured_report(name, pipe, scene, poses, m, reference)
+    pipe.close()
+    m.update(launches=launches, deferrals=deferral_counts(pipe))
+    t = textured_reference
+    labels = [m["labels_by_id"].get(k) == v for k, v in t["labels_by_id"].items()]
+    log(f"[{name}] beside [pipeline-textured]: frames/s {m['fps']:.3f} vs {t['fps']:.3f}, "
+        f"map_rms_mm {m['map_rms_mm']:.3f} vs {t['map_rms_mm']:.3f}, verts {m['verts']} vs "
+        f"{t['verts']}, ate_mm {m['ate_mm']:.4f} vs {t['ate_mm']:.4f}, reintegrations "
+        f"{m['reintegrations']} vs {t['reintegrations']}, patched_not_wrong "
+        f"{m['patched_share']:.4f} vs {t['patched_share']:.4f}, exported colour error median "
+        f"{m['colour_errors']['exported']['median']:.3f} vs "
+        f"{t['colour_errors']['exported']['median']:.3f} mean "
+        f"{m['colour_errors']['exported']['mean']:.3f} vs "
+        f"{t['colour_errors']['exported']['mean']:.3f}, same label by chunk id "
+        f"{np.mean(labels):.4f}, texture {m['texture_s']:.3f} s vs {t['texture_s']:.3f} s; "
+        f"deferrals {json.dumps(m['deferrals'])}")
     return m
 
 
@@ -1770,6 +1914,7 @@ def _textured_report(name, pipe, scene, poses, m, reference, ref_name="pipeline"
     ids = pipe.volume.ids
     m.update(texture_s=STOPWATCH.totals["texture"], texture_final_s=STOPWATCH.totals[
         "texture_final"], export_s=export_s, colour_errors=errors, tex_stages=stages,
+        patched_share=len(good) / max(len(meshed), 1),
         labels_by_id={tuple(ids[s].tolist()): t.label for s, t in tm.chunk_tex.items()})
     if geometry and (abs(m["ate_mm"] - reference["ate_mm"]) > TEX_ATE_MM or
                      abs(m["verts"] - reference["verts"]) > TEX_VERTS_FRAC * reference["verts"]):
@@ -1805,11 +1950,15 @@ def phase_profile_pipeline(frames, first=60, n=10):
 
 class LandedFetch:
     """A fetch handle read when it is made: swapped in for
-    async_fetch.fetch_async, every decision of the pipelined tracker sees
-    its fetches landed, on any device, as on the CPU."""
+    async_fetch.fetch_async, every decision of the pipelined tracker and
+    every deferred consume of the fusion side sees its fetches landed, on
+    any device, as on the CPU. Takes a tensor or a tuple of tensors."""
 
-    def __init__(self, tensor):
-        self._value = tensor.detach().cpu().numpy()
+    def __init__(self, value):
+        if isinstance(value, (tuple, list)):
+            self._value = tuple(t.detach().cpu().numpy() for t in value)
+        else:
+            self._value = value.detach().cpu().numpy()
 
     def done(self):
         return True
@@ -1824,15 +1973,23 @@ def phase_pipeline_small(n_frames=10, n_pipelined=20):
     and its six local frames, integrated and textured at finish), then the
     pipelined tracker at depth 2 with deferred promotion and the
     stale-frame refinement on 20 (five keyframes, BA, stale frames,
-    refinements), its fetches landed at once on both devices (LandedFetch).
-    Each run is held to _small_compare's gates."""
+    refinements), each cycle reading its own results, then the same with
+    the cycle results consumed a cycle late (async_cycle_results, the
+    default: the deferred run); the last two with their fetches landed at
+    once on both devices (LandedFetch). Each run is held to
+    _small_compare's gates."""
+    import dataclasses
+
     from texturefusion_torch.utils import async_fetch
     _small_compare("pipeline-small", _pipeline_config(small=True), n_frames)
     fetch_async = async_fetch.fetch_async
     async_fetch.fetch_async = LandedFetch
     try:
-        _small_compare("pipeline-small pipelined", _pipeline_config(small=True, pipelined=True),
-                       n_pipelined)
+        deferred = _pipeline_config(small=True, pipelined=True)
+        in_order = deferred.replace(parallel=dataclasses.replace(deferred.parallel,
+                                                                 async_cycle_results=False))
+        _small_compare("pipeline-small pipelined", in_order, n_pipelined)
+        _small_compare("pipeline-small deferred", deferred, n_pipelined)
     finally:
         async_fetch.fetch_async = fetch_async
 
@@ -1843,11 +2000,16 @@ def _small_compare(name, config, n_frames):
     and adopted refinements, keyframe counts within 1 and the same
     origins, positions within 1 mm, chunk sets and vertex counts within
     1%, at most 0.1% of the observed voxels of the common chunks with sdf
-    more than 1e-4 apart (as [small]), then the texture (_texture_compare)."""
+    more than 1e-4 apart (as [small]), the same deferral counts
+    (deferral_counts), then the texture (_texture_compare)."""
+    from texturefusion_torch.utils.stopwatch import STOPWATCH
     poses, packed = _orbit_frames(config, n_frames)
-    runs = {dev: run_pipeline(config, packed, dev, cpu_draw_fn(config.tracking),
-                              textured=True)[0]
-            for dev in ("cuda", "cpu")}
+    runs, deferrals = {}, {}
+    for dev in ("cuda", "cpu"):
+        STOPWATCH.reset()
+        runs[dev] = run_pipeline(config, packed, dev, cpu_draw_fn(config.tracking),
+                                 textured=True)[0]
+        deferrals[dev] = deferral_counts(runs[dev])
     g, c = runs["cuda"], runs["cpu"]
     kg, kc = len(g.slam.keyframes), len(c.slam.keyframes)
     diff_mm = np.abs(g.trajectory()[:, :3, 3] - c.trajectory()[:, :3, 3]).max() * 1e3
@@ -1863,7 +2025,8 @@ def _small_compare(name, config, n_frames):
                   > 1e-4)[seen].float().mean())
     nv_g, nv_c = len(g.mesher.full_mesh()[0]), len(c.mesher.full_mesh()[0])
     decisions = [(p.slam.stale_frames, p.slam.refine_adopted,
-                  [k.frame_index for k in p.slam.keyframes]) for p in (g, c)]
+                  [k.frame_index for k in p.slam.keyframes], deferrals[dev])
+                 for dev, p in (("cuda", g), ("cpu", c))]
     log(f"[{name}] 160x120 x{n_frames} orbit frames: keyframes gpu={kg} cpu={kc} "
         f"origins gpu={g.slam.origin_count} cpu={c.slam.origin_count} "
         f"position_diff_mm={diff_mm:.4f} chunks gpu={len(g_of)} cpu={len(c_of)} "
@@ -1871,7 +2034,8 @@ def _small_compare(name, config, n_frames):
         f"verts gpu={nv_g} cpu={nv_c} reintegrations gpu={g.stats['reintegrations']} "
         f"cpu={c.stats['reintegrations']} stale_frames gpu={g.slam.stale_frames} "
         f"cpu={c.slam.stale_frames} refine_adopted gpu={g.slam.refine_adopted} "
-        f"cpu={c.slam.refine_adopted}")
+        f"cpu={c.slam.refine_adopted} async_cycle_results={config.parallel.async_cycle_results} "
+        f"deferrals gpu={json.dumps(deferrals['cuda'])} cpu={json.dumps(deferrals['cpu'])}")
     if not (abs(kg - kc) <= SMALL_KF_DIFF and g.slam.origin_count == c.slam.origin_count
             and diff_mm <= SMALL_TRAJ_MM and n_diff <= len(c_of) // 100 and frac <= 1e-3
             and nv_c > 0 and abs(nv_g - nv_c) <= nv_c // 100
@@ -2606,6 +2770,8 @@ def main() -> int:
                       max_resident=runs[0]["active"] // 2, reference=runs[0]))
     runs.append(timed("pipeline-textured", phase_pipeline, tracked_frames, reference=runs[0],
                       textured=True))
+    runs.append(timed("pipeline-deferred", phase_pipeline_deferred, tracked_frames, runs[0],
+                      runs[3]))
     runs.append(timed("pipeline-bench", phase_pipeline_bench, tracked_frames, runs[0], runs[3]))
     timed("pipeline-small", phase_pipeline_small)
     timed("profile-pipeline", phase_profile_pipeline, tracked_frames)
@@ -2638,7 +2804,7 @@ def main() -> int:
     ]
     log(f"[launches] per phase: slice {json.dumps(launches)}, tracked "
         f"{json.dumps(tracked_launches)}, pipeline / pipeline-async / pipeline-stream / "
-        f"pipeline-textured / pipeline-bench / pipeline-sharded "
+        f"pipeline-textured / pipeline-deferred / pipeline-bench / pipeline-sharded "
         f"{json.dumps([r['launches'] for r in runs])}, cli-synthetic / cli-dataset / "
         f"checkpoint / multichip {json.dumps(cli)}")
     log(f"[phase-seconds] {json.dumps(seconds)}")

@@ -5,11 +5,23 @@
   fusion cycles (one before the checkpoint, one after), so that drift
   reintegration runs on both sides of it; GC frees slots on both sides
   too. Saved at frame 8 and continued in a fresh pipeline, the run equals
-  the uninterrupted one that flushed its pipelined tracking at frame 8 (a
-  save finalizes the frames in flight) exactly: poses, TSDF rows, slot map, keyframes,
+  the uninterrupted one that flushed at frame 8 (a save finalizes the
+  frames in flight and applies the deferred cycle results) exactly:
+  poses, TSDF rows, slot map, keyframes,
   edges and the reintegration counts (the resumed run reuses the recorded
   chunk set, where a checkpoint without it, as the JAX package writes,
   takes the full path and draws other RANSAC hypotheses: faults 11, 12).
+- The fusion side's deferrals pending at a save: the same run with
+  keyframe 2's prefetch gone stale (its recorded pose moved 0.5 m, as a
+  BA correction would move it), saved at frame 13, after that keyframe's
+  integration was deferred: the observation queue, the mesh counts, the
+  GC probe, the prefetch and the deferred integration are all pending.
+  The save applies them all but the prefetch, which it saves, and the
+  resumed run equals the uninterrupted one that flushed at frame 13
+  exactly. The JAX checkpoint drops the deferred integration, the GC
+  probe with its candidates and the prefetches (fault 18): its keyframe
+  stays unintegrated where the run it was saved from integrates it, and
+  the probe's empty chunks are never freed.
 - The pipelined tracker's pending state: saved at frame 60 of a 64-frame
   orbit and resumed, the run equals the uninterrupted one that flushed at
   frame 60, on two orbits whose tracking holds, at the save, a deferred
@@ -39,6 +51,7 @@ from test_torch_pipeline import CFG as SYNC_CFG
 from test_torch_pipeline import JaxSyncPipeline
 from texturefusion_tpu.config import ParallelConfig as JParallelConfig
 from texturefusion_tpu.config import tiny_test_config as jax_tiny_config
+from texturefusion_tpu.fusion.pipeline import ReconstructionPipeline as JPipeline
 from texturefusion_tpu.io import synthetic as jsyn
 from texturefusion_tpu.utils import checkpoint as jcheckpoint
 from texturefusion_torch.config import tiny_test_config
@@ -84,6 +97,35 @@ class Moved(ReconstructionPipeline):
         super().fusion_cycle(finished_slot)
 
 
+STALE_SLOT, STALE_CUT = 2, 13
+
+
+def _stale_prefetch(pipe, finished_slot):
+    """Move keyframe STALE_SLOT's recorded prefetch pose 0.5 m, past 0.75 of
+    a chunk: its cycle defers its integration to the next one."""
+    if finished_slot == STALE_SLOT and finished_slot in pipe._disco_prefetch:
+        pre, pose = pipe._disco_prefetch[finished_slot]
+        pose = np.array(pose, copy=True)
+        pose[:3, 3] += 0.5
+        pipe._disco_prefetch[finished_slot] = (pre, pose)
+
+
+class MovedStale(Moved):
+    def fusion_cycle(self, finished_slot):
+        _stale_prefetch(self, finished_slot)
+        super().fusion_cycle(finished_slot)
+
+
+class JaxMovedStale(JPipeline):
+    """MovedStale on the JAX package's pipeline."""
+
+    def fusion_cycle(self, finished_slot):
+        if finished_slot in MOVES:
+            self.slam.poses[0][:3, 3] += np.asarray(MOVES[finished_slot], np.float32)
+        _stale_prefetch(self, finished_slot)
+        super().fusion_cycle(finished_slot)
+
+
 def _feed(pipe, packed, start=0):
     for i, f in enumerate(packed, start):
         pipe.process_frame(f, timestamp=float(i), host_packed=f)
@@ -113,10 +155,10 @@ def _resumed(frames, tmp_path, drop=()):
 
 @pytest.fixture(scope="module")
 def whole(frames):
-    """The uninterrupted run, its tracking flushed at CUT as a save does."""
+    """The uninterrupted run, flushed at CUT as a save does."""
     pipe = Moved(CFG, device="cpu")
     _feed(pipe, frames[:CUT])
-    pipe.flush_tracking()
+    pipe.flush()
     _feed(pipe, frames[CUT:], CUT)
     pipe.finish()
     return pipe
@@ -147,6 +189,94 @@ def test_resume_equals_the_uninterrupted_run(frames, whole, tmp_path):
     _assert_same_run(whole, resumed)
 
 
+def _deferrals(pipe) -> dict:
+    gc = pipe._gc_pending
+    return {"deferred": sorted(pipe._deferred_integration),
+            "prefetch": sorted(pipe._disco_prefetch),
+            "obs": [(p[0].tolist(), p[2], p[3]) for p in pipe.volume._pending_obs],
+            "counts": [(p[0], p[1].tolist()) for p in pipe.mesher._pending_counts],
+            "gc": None if gc is None else gc["cand"].tolist()}
+
+
+def test_resume_with_the_deferrals_pending_equals_the_uninterrupted_run(frames, tmp_path):
+    whole = MovedStale(CFG, device="cpu")
+    _feed(whole, frames[:STALE_CUT])
+    whole.flush()
+    _feed(whole, frames[STALE_CUT:], STALE_CUT)
+    whole.finish()
+    pipe = MovedStale(CFG, device="cpu")
+    _feed(pipe, frames[:STALE_CUT])
+    pending = _deferrals(pipe)
+    assert pending["deferred"] == [STALE_SLOT] and not pipe.kf_states[STALE_SLOT].integrated
+    assert all(pending.values()) and pipe.volume.released
+    path = str(tmp_path / "deferred.ckpt")
+    checkpoint.save_pipeline(pipe, path)
+    # the save applied every cycle result; the prefetches stay pending
+    flushed = _deferrals(pipe)
+    assert flushed == dict(deferred=[], prefetch=pending["prefetch"], obs=[], counts=[], gc=None)
+    assert pipe.kf_states[STALE_SLOT].integrated
+    resumed = MovedStale(CFG, device="cpu")
+    checkpoint.load_pipeline(resumed, path)
+    assert _deferrals(resumed) == flushed
+    for s in flushed["prefetch"]:
+        (got, max_got), pose_got = resumed._disco_prefetch[s]
+        (want, max_want), pose_want = pipe._disco_prefetch[s]
+        for x, y in zip(got.result(), want.result()):
+            np.testing.assert_array_equal(x, y)
+        assert max_got == max_want
+        np.testing.assert_array_equal(pose_got, pose_want)
+    _feed(resumed, frames[STALE_CUT:], STALE_CUT)
+    resumed.finish()
+    _assert_same_run(whole, resumed)
+    assert resumed.kf_states[STALE_SLOT].integrated
+    np.testing.assert_array_equal(resumed.kf_states[STALE_SLOT].integrated_ids,
+                                  whole.kf_states[STALE_SLOT].integrated_ids)
+
+
+def test_jax_checkpoint_drops_the_fusion_deferrals(frames, tmp_path):
+    """Fault 18, the same run on the JAX package (fetches landed at once,
+    fault 16 repaired, as test_torch_gcslam does). Saved at frame 9, its
+    checkpoint holds neither the GC probe of the last cycle with its
+    candidates (nor new_since_gc) nor the prefetch: by frame 13 the run it
+    was saved from has freed the probe's empty chunks, the resumed run has
+    not. Saved again at frame 13, it does not hold keyframe 2's deferred
+    integration: at the next cycle (run here directly, for keyframe 3) the
+    run integrates keyframe 2, the resumed run does not."""
+    cfg = jax_tiny_config()
+
+    def restored(pipe, name):
+        path = str(tmp_path / name)
+        jcheckpoint.save_pipeline(pipe, path)
+        back = JaxMovedStale(cfg)
+        jcheckpoint.load_pipeline(back, path)
+        assert not back._gc_pending and not back._disco_prefetch
+        assert not back._deferred_integration and not back.volume.new_since_gc
+        return back
+
+    def feed(pipe, start, stop):
+        for i in range(start, stop):
+            pipe.process_frame(jnp.asarray(frames[i]), timestamp=float(i))
+
+    cut = 9
+    with pytest.MonkeyPatch.context() as mp:
+        jax_pipelined_tracker(mp)
+        jpipe = JaxMovedStale(cfg)
+        feed(jpipe, 0, cut)
+        a = restored(jpipe, "a.ckpt")
+        assert jpipe._gc_pending is not None and jpipe._disco_prefetch
+        cand = jpipe._gc_pending["cand"]
+        for p in (jpipe, a):
+            feed(p, cut, STALE_CUT)
+        freed = [s for s in cand.tolist() if not jpipe.volume.used[s]]
+        assert freed and all(a.volume.used[s] for s in freed)
+        b = restored(jpipe, "b.ckpt")
+        assert list(jpipe._deferred_integration) == [STALE_SLOT]
+        for p in (jpipe, b):
+            p.fusion_cycle(STALE_SLOT + 1)
+    assert jpipe.kf_states[STALE_SLOT].integrated
+    assert not b.kf_states[STALE_SLOT].integrated
+
+
 def _pending(slam) -> set:
     return ({"promote"} if slam._pending_promote is not None else set()) | (
         {"refine"} if slam._pending_refine else set()) | (
@@ -163,7 +293,7 @@ def test_pipelined_resume_equals_the_run_flushed_there(tmp_path, angle_range, pe
     cut = PIPELINED_CUT
     whole = ReconstructionPipeline(CFG, device="cpu")
     _feed(whole, frames[:cut])
-    whole.flush_tracking()
+    whole.flush()
     assert _pending(whole.slam) == pending
     _feed(whole, frames[cut:], cut)
     whole.finish()

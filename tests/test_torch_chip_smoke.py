@@ -207,3 +207,33 @@ def test_texture_readers_of_a_sharded_pipeline():
     check = chip_smoke.sharded_cycle_check(shd)
     assert check["exact"] and check["shards"] == 8 and check["projected"] > 20, check
     assert "ms" not in check                     # timed on the card only
+
+
+def test_deferral_counts_and_the_prefetch_audit():
+    """[pipeline-bench]'s counters on the CPU at the tiny size: the default
+    config defers the cycle results and prefetches every keyframe's
+    discovery; each integration over a prefetch is audited, after the
+    run, against a discovery from the depth and pose it integrated at;
+    CPU fetches land at once, so no consume finds a handle not ready. LandedFetch takes a tensor or a tuple."""
+    import torch
+
+    from texturefusion_torch.utils.stopwatch import STOPWATCH
+    torch.set_num_threads(2)
+    cfg = chip_smoke._pipeline_config(small=True, pipelined=True)
+    assert cfg.parallel.async_cycle_results
+    assert not chip_smoke._pipeline_config(small=True).parallel.async_cycle_results
+    _, packed = chip_smoke._orbit_frames(cfg, 20)
+    STOPWATCH.reset()
+    pipe = chip_smoke.run_pipeline(cfg, packed, "cpu", textured=True, audit=True)[0]
+    c = chip_smoke.deferral_counts(pipe)
+    assert c["prefetch_used"] == c["audited_integrations"] == len(pipe.slam.keyframes) >= 4
+    assert c["prefetch_missed"] == c["prefetch_deferred"] == c["integrations_deferred"] == 0
+    assert c["count_batches_late"] >= 3 and c["obs_batches_late"] >= 3
+    assert c["count_consumes_not_ready"] == c["obs_flushes_not_ready"] == 0
+    assert c["texture_consumes_not_ready"] == c["texture_dispatches_skipped"] == 0
+    assert c["prefetched_chunks"] > 100 and 0.0 <= c["lacked_band_weight_share"] <= 1.0
+    assert len(c["prefetch_lacked_chunks"]) == c["audited_integrations"]
+    one = chip_smoke.LandedFetch(torch.ones(3))
+    two = chip_smoke.LandedFetch((torch.ones(2), torch.zeros(1, dtype=torch.int64)))
+    assert one.done() and one.result().tolist() == [1.0, 1.0, 1.0]
+    assert [a.tolist() for a in two.result()] == [[1.0, 1.0], [0]]

@@ -8,16 +8,15 @@ frames at that camera, as tests/test_checkpoint_cli.py does, each frame
 rendered by the JAX package (the renderers agree to within a uint8
 level, tests/test_torch_slice.py; the draws here must see equal frames).
 Both read one settings file (fewer features and RANSAC rounds, to keep
-the CPU run short). Both CLIs track with their default tracker, pipelined
-at depth 2 with deferred promotion and the stale-frame refinement. The
-JAX CLI's pipelines defer cycle results, which the port does not carry;
-here they are the test-side pipelines of tests/test_torch_pipeline.py
-(ParallelConfig(async_fusion=False, async_cycle_results=False), discovery
-at integration, the TPU kernel's bilateral step), patched in for the
-CLI's configuration, with every fetch landed at once and the deferred
-probe repaired as the port's (test_torch_gcslam.jax_pipelined_tracker,
-ROADMAP fault 16). The port takes the JAX package's RANSAC draws
-(tests/test_torch_draws.py) and runs with --device cpu.
+the CPU run short). Both CLIs run their real default pipelines: the
+tracker pipelined at depth 2 with deferred promotion and the stale-frame
+refinement, the discovery prefetch, and the cycle results consumed a
+cycle late (async_cycle_results). On the JAX side only these are
+patched: every fetch lands at once, the deferred probe is repaired as
+the port's (test_torch_gcslam.jax_pipelined_tracker, ROADMAP fault 16),
+and the bilateral step is the TPU kernel's in interpret mode. The port
+takes the JAX package's RANSAC draws (tests/test_torch_draws.py) and
+runs with --device cpu.
 
 Tolerances: the same keyframes, every trajectory position within 1 mm,
 the same output files, and the welded PLY's vertex count within 1% (the
@@ -36,13 +35,11 @@ import torch
 
 from test_torch_draws import JaxKeyDraws, tracked2_draws
 from test_torch_gcslam import jax_pipelined_tracker
-from test_torch_pipeline import JaxSyncPipeline, _pallas_bilateral
-from test_torch_textured_pipeline import JaxSyncTextured
+from test_torch_pipeline import _pallas_bilateral
 from test_tum_format import _write_dataset
 from texturefusion_tpu import __main__ as jmain
 from texturefusion_tpu.config import PipelineConfig as JPipelineConfig
 from texturefusion_tpu.config import tiny_test_config
-from texturefusion_tpu.fusion import pipeline as jpipeline
 from texturefusion_tpu.core import camera as jcam
 from texturefusion_tpu.io import sensors as jsensors
 from texturefusion_tpu.io import synthetic as jsyn
@@ -69,21 +66,6 @@ YAML = ("%YAML:1.0\n\nmax_feature_num: 800\n"
         "minimum_disparity:        0.2\n"
         "hamming_distance_threshold:       40\n"
         "far_plane_distance:               5\n")
-
-
-def _cycles_in_order(config):
-    return config.replace(parallel=dataclasses.replace(config.parallel, async_fusion=False,
-                                                       async_cycle_results=False))
-
-
-class JaxCliPipeline(JaxSyncPipeline):
-    def __init__(self, config, **kw):
-        super().__init__(_cycles_in_order(config), **kw)
-
-
-class JaxCliTextured(JaxSyncTextured):
-    def __init__(self, config, **kw):
-        super().__init__(_cycles_in_order(config), **kw)
 
 
 def _with_draws(cls):
@@ -144,8 +126,6 @@ def cli_runs(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         jax_pipelined_tracker(mp)
         mp.setattr(jpre, "bilateral_filter", _pallas_bilateral)
-        mp.setattr(jpipeline, "ReconstructionPipeline", JaxCliPipeline)
-        mp.setattr(jpipeline, "TexturedPipeline", JaxCliTextured)
         mp.setattr(tpipeline, "ReconstructionPipeline",
                    _with_draws(tpipeline.ReconstructionPipeline))
         mp.setattr(tpipeline, "TexturedPipeline", _with_draws(tpipeline.TexturedPipeline))

@@ -7,10 +7,11 @@ async_fusion=False, pipelined_tracking=False, async_cycle_results=False)
 (tests/test_torch_pipelined.py runs the pipelined one). Both sides take
 the same random draws (the JAX key path replayed,
 tests/test_torch_draws.py) and discover a keyframe's chunks when they
-integrate it: the JAX side is a test-side subclass whose discovery
-prefetch is cleared before each fusion cycle and never refreshed, and
-whose pending BA poses are synced first, as the port's cycle does (the
-JAX package's drift pass peeks them).
+integrate it: each side is a test-side subclass whose discovery
+prefetch is cleared before each fusion cycle and never refreshed
+(JaxSyncPipeline, PortSyncPipeline), and the JAX side's pending BA poses
+are synced first, as the port's cycle does (the JAX package's drift pass
+peeks them). tests/test_torch_deferred.py runs both with the prefetch.
 Its bilateral step is the TPU kernel in interpret mode, which the port
 follows (ROADMAP fault 3.2), patched in for this file only.
 
@@ -78,6 +79,18 @@ class JaxSyncPipeline(JPipeline):
         super().fusion_cycle(finished_slot)
 
 
+class PortSyncPipeline(TPipeline):
+    """The port discovering each keyframe's chunks at integration, as
+    JaxSyncPipeline does."""
+
+    def _refresh_disco_prefetch(self):
+        pass
+
+    def fusion_cycle(self, finished_slot):
+        self._disco_prefetch.clear()
+        super().fusion_cycle(finished_slot)
+
+
 def _pallas_bilateral(depth, radius=4, sigma_space=4.5, sigma_range=0.03):
     return pallas_kernels.bilateral_filter_pallas(depth, radius=radius,
                                                   sigma_space=sigma_space,
@@ -92,7 +105,7 @@ def seq():
 
 
 def _port(cfg, depths, rgbs, **kw):
-    pipe = TPipeline(cfg, device="cpu", draw_fn=JaxKeyDraws(),
+    pipe = PortSyncPipeline(cfg, device="cpu", draw_fn=JaxKeyDraws(),
                      frame_draws=lambda i: tracked2_draws(jax.random.PRNGKey(7), i,
                                                           cfg.tracking), **kw)
     for i, (d, c) in enumerate(zip(depths, rgbs)):

@@ -9,9 +9,9 @@ re-registrations are adopted, promotions consume their probe a frame
 later. Both sides take the same draws (tests/test_torch_draws.py); on the
 JAX side every fetch lands at once and its deferred probe is repaired as
 the port's (test_torch_gcslam.jax_pipelined_tracker, ROADMAP fault 16),
-and it discovers chunks at integration at synced poses
-(test_torch_pipeline.JaxSyncPipeline), with the TPU kernel's bilateral
-step. Tolerances of test_torch_pipeline.py's run with local frames: the
+and both discover chunks at integration, the JAX side at synced poses
+(test_torch_pipeline.JaxSyncPipeline, PortSyncPipeline), with the TPU
+kernel's bilateral step. Tolerances of test_torch_pipeline.py's run with local frames: the
 same keyframes, origins, stale-finalized frames and refinement counts,
 every frame position within 1 mm, the same chunk ids, weight mass within
 0.1% and vertex counts within 1%.
@@ -35,7 +35,7 @@ import torch
 import chip_smoke
 from test_torch_draws import JaxKeyDraws, tracked2_draws
 from test_torch_gcslam import count_port_deferrals, jax_pipelined_tracker
-from test_torch_pipeline import JI, SCENE, JaxSyncPipeline, _pallas_bilateral
+from test_torch_pipeline import JI, SCENE, JaxSyncPipeline, PortSyncPipeline, _pallas_bilateral
 from texturefusion_tpu.config import ParallelConfig as JParallelConfig
 from texturefusion_tpu.config import tiny_test_config as jax_tiny_config
 from texturefusion_tpu.io import synthetic as jsyn
@@ -80,7 +80,7 @@ def runs(request, seq):
             jp.finish()
         finally:
             jax.clear_caches()
-        tp = TPipeline(cfg, device="cpu", draw_fn=JaxKeyDraws(),
+        tp = PortSyncPipeline(cfg, device="cpu", draw_fn=JaxKeyDraws(),
                        frame_draws=lambda i: tracked2_draws(jax.random.PRNGKey(7), i,
                                                             cfg.tracking))
         for i, (d, c) in enumerate(zip(depths, rgbs)):

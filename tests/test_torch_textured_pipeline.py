@@ -2,8 +2,8 @@
 
 tests/test_torch_pipeline.py's synchronous setting carries over: the
 rows config (local_frames_per_keyframe = 0), the same RANSAC draws on
-both sides, and on the JAX side its test-side discovery at integration,
-pose sync and the TPU kernel's bilateral step. The JAX side here is a
+both sides, the test-side discovery at integration on both sides, and on
+the JAX side its pose sync and the TPU kernel's bilateral step. The JAX side here is a
 TexturedPipeline with those overrides whose finish() ends with the
 texture catch-up (the JAX package runs it only with async_cycle_results,
 the port always). Chunks are matched by chunk id.
@@ -29,7 +29,8 @@ import pytest
 import torch
 
 from test_torch_draws import JaxKeyDraws, tracked2_draws
-from test_torch_pipeline import CFG0, JI, SCENE, SYNC, JaxSyncPipeline, _pallas_bilateral
+from test_torch_pipeline import (CFG0, JI, SCENE, SYNC, JaxSyncPipeline, PortSyncPipeline,
+                                 _pallas_bilateral)
 from texturefusion_tpu.fusion.pipeline import TexturedPipeline as JTextured
 from texturefusion_tpu.io import synthetic as jsyn
 from texturefusion_tpu.ops import preprocess as jpre
@@ -47,8 +48,12 @@ class JaxSyncTextured(JaxSyncPipeline, JTextured):
         self._texture_final()
 
 
+class PortSyncTextured(PortSyncPipeline, TexturedPipeline):
+    """PortSyncPipeline's discovery at integration, with texturing."""
+
+
 def _port(cfg, depths, rgbs):
-    pipe = TexturedPipeline(cfg, device="cpu", draw_fn=JaxKeyDraws(),
+    pipe = PortSyncTextured(cfg, device="cpu", draw_fn=JaxKeyDraws(),
                             frame_draws=lambda i: tracked2_draws(jax.random.PRNGKey(7), i,
                                                                  cfg.tracking))
     for i, (d, c) in enumerate(zip(depths, rgbs)):

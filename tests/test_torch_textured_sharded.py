@@ -35,7 +35,6 @@ from test_torch_pipeline import JI, SCENE, SYNC, _pallas_bilateral
 from test_torch_textured_pipeline import CFG0, _jax, _port
 from texturefusion_tpu.io import synthetic as jsyn
 from texturefusion_tpu.ops import preprocess as jpre
-from texturefusion_torch import TexturedPipeline
 from texturefusion_torch.ops import marching_cubes as mc
 from texturefusion_torch.parallel.mesh import DeviceMesh, make_mesh
 from texturefusion_torch.parallel.sharded_tsdf import ShardedRows
@@ -188,7 +187,7 @@ def test_textured_pipeline_on_an_explicit_mesh(seqs, ports, tmp_path):
     the texture state on its first device sized to the pool's rows, and
     runs to export_textured: the 8-shard mesh gives the tsdf_sharded run."""
     depths, rgbs = seqs[10]
-    pipe = TexturedPipeline(UNSHARDED0, device="cpu", mesh=make_mesh(8, "cpu"),
+    pipe = ttp.PortSyncTextured(UNSHARDED0, device="cpu", mesh=make_mesh(8, "cpu"),
                             draw_fn=JaxKeyDraws(),
                             frame_draws=lambda i: tracked2_draws(jax.random.PRNGKey(7), i,
                                                                  UNSHARDED0.tracking))

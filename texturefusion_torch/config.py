@@ -210,10 +210,13 @@ class ParallelConfig:
     tsdf_sharded: bool = False
     pipeline_depth: int = 2
     pipeline_max_ride: int = 0
-    # the JAX package's deferred cycle results (a fusion cycle consumes the
-    # previous cycle's mesh counts, texture outputs and GC probe): read and
-    # ignored by the port, whose cycles, texture stage included, read
-    # their own results
+    # deferred cycle results: a fusion cycle only dispatches its remesh,
+    # texture cycle and GC probe and starts their copies, and consumes the
+    # previous cycles' results (mesh counts, texture outputs, GC probe,
+    # observation qualities, deferred integrations) at its start, once
+    # they have landed; texture labels and GC then lag a keyframe and
+    # finish() catches up. Off: each cycle reads its own results. The
+    # discovery prefetch runs either way (fusion/pipeline.py)
     async_cycle_results: bool = True
 
 

@@ -54,6 +54,7 @@ class ChunkStreamer:
         if len(victims) == 0:
             return 0
         rows = vol.rows.gather(victims, fields=TSDF_FIELDS, device="cpu")
+        vol.flush_observations()    # the offloaded rows carry their final entries
         for r, s in enumerate(victims.tolist()):
             self.cold[tuple(vol.ids[s].tolist())] = tuple(a[r] for a in rows) + (
                 vol.obs_row(s),)

@@ -402,15 +402,32 @@ def candidate_chunks_unique(depth: torch.Tensor, cam_to_world: torch.Tensor,
     (ids [max_out, 3] int32 in ascending key order, n_unique) with
     n_unique capped at max_out; callers check n_unique == max_out for
     overflow. Rows past n_unique hold the decoded sentinel, as in JAX."""
+    ids, n = candidate_chunks_unique_dev(depth, cam_to_world, intr, cfg, stride=stride,
+                                         n_band=n_band, max_out=max_out)
+    return ids, int(n)
+
+
+def candidate_chunks_unique_dev(depth: torch.Tensor, cam_to_world: torch.Tensor,
+                                intr: cam.Intrinsics, cfg: TSDFConfig,
+                                stride: int = 1, n_band: int = 5,
+                                max_out: int = 4096) -> Tuple[torch.Tensor, torch.Tensor]:
+    """candidate_chunks_unique with the count left on the device: (ids
+    [max_out, 3] int32, n_unique 0-d int64), compacted by a sort and a
+    prefix sum as the JAX package does, so nothing waits for the device
+    (a chunk discovery can be dispatched now and read a cycle later)."""
     ids, mask = candidate_chunk_coords(depth, cam_to_world, intr, cfg,
                                        stride=stride, n_band=n_band)
     xyz = torch.clamp(ids + _KEY_OFF, 0, 2 * _KEY_OFF - 1)
     in_range = (torch.abs(ids) < _KEY_OFF).all(dim=-1)
     key = (xyz[:, 0] << (2 * _KEY_BITS)) | (xyz[:, 1] << _KEY_BITS) | xyz[:, 2]
-    key = torch.where(mask & in_range, key, _KEY_SENTINEL)
-    uniq = torch.unique(key, sorted=True)
-    uniq = uniq[uniq != _KEY_SENTINEL][:max_out]
-    n = int(uniq.numel())
-    out = torch.full((max_out,), _KEY_SENTINEL, dtype=torch.int32, device=depth.device)
-    out[:n] = uniq
-    return _decode_keys(out), n
+    key = torch.where(mask & in_range, key, _KEY_SENTINEL).to(torch.int32)
+    skey = torch.sort(key).values
+    first = torch.ones_like(skey, dtype=torch.bool)
+    first[1:] = skey[1:] != skey[:-1]
+    first &= skey != _KEY_SENTINEL
+    pos = torch.cumsum(first, 0) - 1
+    dest = torch.where(first & (pos < max_out), pos, max_out)
+    out = torch.full((max_out + 1,), _KEY_SENTINEL, dtype=torch.int32, device=depth.device)
+    out.scatter_reduce_(0, dest, torch.where(first, skey, _KEY_SENTINEL), reduce="amin")
+    n = torch.clamp(first.sum(), max=max_out)
+    return _decode_keys(out[:max_out]), n

@@ -13,11 +13,15 @@ live in a device stack written once per keyframe; per-chunk colour
 moments stay on the device, so the per-keyframe compensation still sees
 every patched vertex.
 
-`update` is one synchronous cycle: the device program, one host read of
-its outputs, then the host work (atlas blits, uv and labels, poisoning,
-carry-over, transfers). The JAX package splits it into a dispatch and a
-consume one cycle later to hide its device link; the port does not. The
-program reads the mesh pool through the mesher's reader, so a pool
+A cycle is a dispatch and a consume, as in the JAX package:
+`update_dispatch` builds the MRF problem, launches the device program
+and starts the copy of its outputs (one handle); `update_consume` reads
+them and does the host work (atlas blits, uv and labels, poisoning,
+carry-over, transfers). With parallel.async_cycle_results the pipeline
+consumes at the start of the next fusion cycle, and a dispatch while a
+cycle is still pending is skipped, its remeshed chunks carried over;
+`update` is a dispatch and a consume at once. The program reads the mesh
+pool through the mesher's reader, so a pool
 sharded over several devices is textured as one is: the texture state
 ([S+1] labels, moments, failed) and the keyframe stack stay on the
 manager's device (the mesh's first), as the JAX package keeps them
@@ -43,6 +47,7 @@ from texturefusion_torch.texture import patch as patch_ops
 from texturefusion_torch.texture.atlas import Atlas
 from texturefusion_torch.texture.kfstack import KeyframeStack
 from texturefusion_torch.texture.mrf import ViewSelector
+from texturefusion_torch.utils import async_fetch
 from texturefusion_torch.utils.stopwatch import STOPWATCH
 
 
@@ -60,15 +65,6 @@ class ChunkTexture:
         self.uv_valid: Optional[np.ndarray] = None      # [P]
         self.color_adjust: Optional[np.ndarray] = None  # [P, 3], set by the export
         self.wrong = False
-
-
-def _to_host(tensors):
-    """Copy tensors to the host behind one synchronisation."""
-    if all(t.device.type == "cpu" for t in tensors):
-        return [t.numpy() for t in tensors]
-    host = [t.to("cpu", non_blocking=True) for t in tensors]
-    torch.cuda.current_stream(tensors[0].device).synchronize()
-    return [h.numpy() for h in host]
 
 
 class TextureManager:
@@ -90,6 +86,7 @@ class TextureManager:
         self._failed_dev: Optional[torch.Tensor] = None  # [S+1] int32 keyframe found wrong
         self._carry: set = set()       # changed chunks left past the projection budget
         self._kf_transfer: Optional[dict] = None
+        self._pending_cycle: Optional[dict] = None   # dispatched, not consumed
 
     def _ensure_state(self, mesher) -> None:
         if self._labels_dev is None:
@@ -114,11 +111,20 @@ class TextureManager:
 
     # ------------------------------------------------------------- cycle
 
-    def update(self, volume, mesher, kf_states: Dict[int, object], newest_kf: int,
-               remeshed: Optional[set] = None) -> None:
-        """One texture cycle. kf_states: keyframe slot → object with `pose`,
-        `rgb` (uint8 [H, W, 3] tensor), `depth` and `rgb_host()` (uint8
-        numpy, for the atlas blits)."""
+    def update_dispatch(self, volume, mesher, kf_states: Dict[int, object], newest_kf: int,
+                        remeshed: Optional[set] = None, flush_obs: bool = True) -> None:
+        """Dispatch one texture cycle and start the copy of its outputs;
+        update_consume reads them. kf_states: keyframe slot → object with
+        `pose`, `rgb` (uint8 [H, W, 3] tensor), `depth` and `rgb_host()`
+        (uint8 numpy, for the atlas blits). flush_obs=False reads the
+        observation table without applying its queued entries (the newest
+        keyframe's land a cycle later). While a dispatched cycle is not
+        consumed, the dispatch is skipped and `remeshed` carried over:
+        overwriting the pending cycle would lose its labels and uvs."""
+        if self._pending_cycle is not None:
+            STOPWATCH.counts["tex_skipped"] += 1
+            self._carry |= set(remeshed or ())
+            return
         with STOPWATCH.time("tex_adjacency"):
             meshed, nbr = mesher.chunk_adjacency_arrays()
         if len(meshed) == 0:
@@ -126,30 +132,48 @@ class TextureManager:
         self._ensure_state(mesher)
         with STOPWATCH.time("tex_build"):
             problem, slots, rmask, want = self.build_cycle(volume, meshed, nbr, kf_states,
-                                                           newest_kf, remeshed)
+                                                           newest_kf, remeshed, flush_obs)
         with STOPWATCH.time("tex_device"):
-            # the program and the wait for it (eigh reads cuSOLVER's error
-            # flag back inside it) and for the pool rows copied from the
-            # other shards' devices
+            # the program (eigh reads cuSOLVER's error flag back inside it);
+            # the copy's event, on this stream, follows the pool rows that
+            # the reader copied here from the other shards' devices
             out = self.run_cycle(problem, slots, rmask, newest_kf,
                                  mesher.pool_reader(self.device))
-            for dev in dict.fromkeys((self.device,) + mesher.volume.mesh.devices):
-                if dev.type == "cuda":
-                    torch.cuda.current_stream(dev).synchronize()
+            fetch = async_fetch.fetch_async(tuple(out))
+        self._pending_cycle = {"out": fetch, "slots": slots, "want": want, "volume": volume,
+                               "mesher": mesher, "kf_states": dict(kf_states)}
+
+    def update_consume(self, force: bool = True) -> None:
+        """The host work of the dispatched cycle, if one is pending;
+        force=False returns at once while its outputs are in flight."""
+        p = self._pending_cycle
+        if p is None:
+            return
+        if not force and not p["out"].done():
+            STOPWATCH.counts["tex_not_ready"] += 1
+            return
+        self._pending_cycle = None
         with STOPWATCH.time("tex_fetch"):
             (rows, proj_kf, n_changed, uv16, uv_ok, bmin, bmax, wrong,
-             t_np, mt_np, mv_np) = _to_host(list(out))
+             t_np, mt_np, mv_np) = p["out"].result()
         with STOPWATCH.time("tex_host"):
-            self._consume(volume, mesher, kf_states, slots, want, rows, proj_kf,
-                          int(n_changed), uv16, uv_ok, bmin, bmax, wrong, t_np, mt_np, mv_np)
+            self._consume(p["volume"], p["mesher"], p["kf_states"], p["slots"], p["want"], rows,
+                          proj_kf, int(n_changed), uv16, uv_ok, bmin, bmax, wrong, t_np, mt_np,
+                          mv_np)
+
+    def update(self, volume, mesher, kf_states: Dict[int, object], newest_kf: int,
+               remeshed: Optional[set] = None) -> None:
+        """One texture cycle at once: a dispatch and its consume."""
+        self.update_dispatch(volume, mesher, kf_states, newest_kf, remeshed)
+        self.update_consume()
 
     def build_cycle(self, volume, meshed, nbr, kf_states, newest_kf: int,
-                    remeshed: Optional[set]):
+                    remeshed: Optional[set], flush_obs: bool = True):
         """A cycle's host inputs: (the MRF problem over the meshed chunks,
         its node slots, the mask of the nodes remeshed or carried over,
         that set). Writes each keyframe's images into the stack once, and
         every keyframe's current pose."""
-        obs_q, obs_mask = volume.obs_arrays()
+        obs_q, obs_mask = volume.obs_arrays(flush=flush_obs)
         problem, slots, _ = self.selector.build_problem_arrays(
             obs_q, obs_mask, meshed, nbr, volume.ids, newest_kf)
         for kf in sorted(kf_states):

@@ -22,12 +22,16 @@ is not saved (nor in the JAX package): a resumed run textures its
 chunks again from the restored keyframes.
 
 The pipelined tracker's frames in flight are finalized first, as in the
-JAX package; what is still pending after that is saved with its value
-and resumes as landed: BA's poses not yet adopted (beside the adopted
-array), a deferred promotion's probe and the stale-frame
-re-registrations. So a resumed run equals an uninterrupted one that
-flushed its tracking at the same frame. The JAX checkpoint drops the
-promotion and the re-registrations (fault 15).
+JAX package, and then every deferred cycle result is applied (mesh
+counts, texture cycle, deferred integrations, GC probe, observation
+queue: `ReconstructionPipeline.flush`). What is still pending after
+that is saved with its value and resumes as landed: BA's poses not yet
+adopted (beside the adopted array), a deferred promotion's probe, the
+stale-frame re-registrations, and the discovery prefetches with their
+poses. So a resumed run equals an uninterrupted one that flushed at the
+same frame. The JAX checkpoint drops the promotion and the
+re-registrations (fault 15), and the GC probe, the prefetches and the
+deferred integrations (fault 18).
 
 A streaming map (tsdf.max_resident_chunks > 0) is refused: its
 offloaded chunks live in the streamer's host store, which the JAX
@@ -133,15 +137,35 @@ def _restore_tracker(slam, arrays, meta: Dict[str, Any], device) -> None:
     slam.promote_late = int(meta.get("promote_late", 0))
 
 
+def _prefetch_state(pipe) -> Dict[str, Any]:
+    """The discovery prefetches (what the flush leaves pending on the
+    fusion side), with their values and poses."""
+    out = {}
+    for slot, ((fetch, max_out), pose) in list(pipe._disco_prefetch.items()):
+        ids, n = fetch.result()
+        out[int(slot)] = {"ids": ids, "n": int(n), "max_out": int(max_out),
+                          "pose": np.asarray(pose)}
+    return {"disco_prefetch": out}
+
+
+def _restore_prefetch(pipe, meta: Dict[str, Any]) -> None:
+    from texturefusion_torch.utils.async_fetch import fetch_async
+    pipe._disco_prefetch = {
+        int(s): ((fetch_async((torch.as_tensor(np.asarray(d["ids"], np.int32)),
+                               torch.as_tensor(np.int64(d["n"])))), int(d["max_out"])),
+                 np.asarray(d["pose"]))
+        for s, d in meta.get("disco_prefetch", {}).items()}
+
+
 def pipeline_state(pipe) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
     """(arrays, meta) of a ReconstructionPipeline / TexturedPipeline, after
-    its frames in flight are finalized and its fusion thread is joined."""
+    it is flushed: its frames in flight finalized, its fusion thread
+    joined and its deferred cycle results applied."""
     if pipe.streamer is not None:
         raise NotImplementedError(
             "a streaming map (tsdf.max_resident_chunks > 0) cannot be checkpointed: its "
             "offloaded chunks are in the streamer's host store, which is not saved")
-    pipe.flush_tracking()
-    pipe._drain_fusion()
+    pipe.flush()
     vol, slam = pipe.volume, pipe.slam
     batch, origins = vol.dense_batch()
     arrays: Dict[str, np.ndarray] = {
@@ -201,6 +225,7 @@ def pipeline_state(pipe) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
         "dispatch_count": pipe._dispatch_count,
         "gen_device": slam._gen.device.type,
         **_tracker_state(slam, arrays),
+        **_prefetch_state(pipe),
     }
     return arrays, meta
 
@@ -297,6 +322,7 @@ def restore_pipeline_state(pipe, arrays, meta: Dict[str, Any]) -> None:
     pipe.stats = dict(meta["stats"])
     pipe._dispatch_count = int(meta.get("dispatch_count", len(slam.frames)))
     pipe._kp_prev = _kp_from("pipe_kp_prev", arrays, dev)
+    _restore_prefetch(pipe, meta)
 
 
 def save_pipeline(pipe, path: str) -> None:
