@@ -5,7 +5,8 @@ a voxel and once a chunk, and that the F-frame mode's counts per voxel do
 not depend on how many voxels a thread holds. Then the pure helpers of
 [cli-dataset] and [cli-synthetic] on the CPU: the packed-frame unpacking,
 the TUM directory writer and its bit-for-bit read-back, and the check of
-the command line's outputs. Last, [pipeline-sharded]'s texture readers on
+the command line's outputs; [fr1-proxy]'s reading of the command line's
+counts and [demo]'s tool loading. Last, [pipeline-sharded]'s texture readers on
 a tiny textured run over eight CPU shards: the texture audit reads the
 sharded volume and pool as the unsharded ones, and sharded_cycle_check
 finds the cycle through the sharded reader exact."""
@@ -186,6 +187,34 @@ def test_check_cli_outputs_finds_what_is_missing(tmp_path):
     (tmp_path / "keyframes" / "000000.png").unlink()
     with pytest.raises(AssertionError, match="keyframes"):
         chip_smoke.check_cli_outputs(str(tmp_path), 2, textured=False)
+
+
+def test_cli_run_stats_reads_stat_and_chunk(tmp_path):
+    """[fr1-proxy]'s counts from the command line's stat.txt (a stopwatch
+    report, then the stats and memory lines, as save_stats writes them)
+    and chunk.txt; no "cpp_ba" line is 0 BA rounds."""
+    from texturefusion_torch.utils.stopwatch import Stopwatch
+    sw = Stopwatch()
+    for name in ("cpp_ba", "cpp_ba", "cpp_ba", "tracking"):
+        with sw.time(name):
+            pass
+    body = ("frames: 120\nkeyframes: 29\nreintegrations: 32\nreintegrations_reuse: 4\n"
+            "device_tsdf_mb: 201.00\n")
+    (tmp_path / "stat.txt").write_text(sw.report() + "\n" + body)
+    (tmp_path / "chunk.txt").write_text("chunks_created 6927 active 5012 meshed 1396\n")
+    want = {"keyframes": 29, "reintegrations": 32, "ba_rounds": 3, "chunks_created": 6927,
+            "chunks_meshed": 1396}
+    assert chip_smoke.cli_run_stats(str(tmp_path)) == want
+    assert set(want) | {"verts", "ate_mm"} == set(chip_smoke.JAX_PROXY_RUN)
+    (tmp_path / "stat.txt").write_text(body)
+    assert chip_smoke.cli_run_stats(str(tmp_path)) == dict(want, ba_rounds=0)
+
+
+def test_load_tool_and_the_demo_gates():
+    mk = chip_smoke.load_tool("make_tum_proxy")
+    demo = chip_smoke.load_tool("demo_synthetic")
+    assert mk.FR1_CAMERA["d0"] == 0.12 and callable(mk.generate) and callable(demo.run)
+    assert set(chip_smoke.DEMO_MODES) == set(chip_smoke.DEMO_JAX_EXIT) == {"gt", "slam"}
 
 
 def test_texture_readers_of_a_sharded_pipeline():

@@ -4,17 +4,21 @@ and the pipeline through chip_smoke.run_pipeline, on CPU tensors; the
 textured pipeline and its export, and the command line on a TUM
 directory and in synthetic mode, also without cv2 or PIL, which the
 card's machine lacks; the multi-device layer and dryrun_multichip with
-those imports blocked), and chip_smoke.py refuses to run without a GPU.
+those imports blocked, and the two tools, the fr1-proxy generator with
+its --run and the demo, likewise), and chip_smoke.py and both tools
+refuse to run on CUDA without a GPU.
 
-Both checks run in fresh subprocesses, so the test session's own jax
+The checks of imports run in fresh subprocesses, so the test session's own jax
 import cannot hide an import of jax by the port.
 """
 
+import importlib.util
 import os
 import shutil
 import subprocess
 import sys
 
+import pytest
 import torch
 
 torch.set_num_threads(2)
@@ -208,6 +212,44 @@ print("MULTICHIP_OK")
 """
 
 
+TOOLS = r"""
+import importlib.abc, os, sys, tempfile
+
+
+class Blocked(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "texturefusion_tpu", "cv2", "PIL"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+
+sys.meta_path.insert(0, Blocked())
+import torch
+torch.set_num_threads(2)
+import chip_smoke
+mk = chip_smoke.load_tool("make_tum_proxy")
+demo = chip_smoke.load_tool("demo_synthetic")
+mk.FR1_CAMERA.update(width=160, height=120, fx=517.3 / 4, fy=516.5 / 4, cx=318.6 / 4,
+                     cy=255.3 / 4)
+with tempfile.TemporaryDirectory() as tmp:
+    root = os.path.join(tmp, "proxy")
+    rc = mk.main(["--frames", "4", "--out", root, "--run", "--device", "cpu"])
+    assert rc == 0, rc
+    res = chip_smoke.check_cli_outputs(os.path.join(root, "out"), 4)
+    stats = chip_smoke.cli_run_stats(os.path.join(root, "out"))
+    ate, n = mk.trajectory_ate(os.path.join(root, "out"), root)
+    assert n == 4 and ate < 0.1 and stats["chunks_created"] >= stats["chunks_meshed"] > 0, (
+        ate, n, stats)
+    for extra in ([], ["--slam", "--texture"]):
+        out = demo.run(["--frames", "3", "--out", os.path.join(tmp, "demo"), "--device", "cpu",
+                        *extra])
+        assert out["verts"] > 1000 and out["median_mm"] < 30.0, out
+    assert {"fused.ply", "slam_fused.ply", "trajectory.txt", "model.obj"} <= set(
+        os.listdir(os.path.join(tmp, "demo")))
+print("TOOLS_OK")
+"""
+
+
 def _run(args, cwd, env_extra=None):
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
     env.pop("PYTHONSTARTUP", None)
@@ -263,6 +305,29 @@ def test_port_multi_device_layer_never_imports_jax_or_image_libraries():
     res = _run(["-c", MULTICHIP], ROOT)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "MULTICHIP_OK" in res.stdout, res.stdout
+
+
+def test_tools_never_import_jax_or_image_libraries():
+    """tools/make_tum_proxy.py (4 frames of the proxy at 160x120, then its
+    --run) and tools/demo_synthetic.py (3 frames, ground-truth mode and
+    --slam --texture) with --device cpu, with any import of jax, the JAX
+    package, cv2 or PIL raising."""
+    res = _run(["-c", TOOLS], ROOT)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "TOOLS_OK" in res.stdout, res.stdout[-3000:]
+
+
+@pytest.mark.parametrize("tool", ["make_tum_proxy", "demo_synthetic"])
+def test_tools_on_cuda_without_a_gpu_raise(tool, tmp_path):
+    assert not torch.cuda.is_available()
+    spec = importlib.util.spec_from_file_location(f"tools_{tool}",
+                                                  os.path.join(ROOT, "tools", tool + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = str(tmp_path / "out")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(["--out", out, "--device", "cuda"])
+    assert not os.path.exists(out)
 
 
 def test_chip_smoke_fails_without_cuda():
