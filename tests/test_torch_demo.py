@@ -16,7 +16,6 @@ and tests/test_torch_cli.py's); the ATE within 1 mm.
 """
 
 import contextlib
-import importlib.util
 import io
 import os
 import re
@@ -26,6 +25,7 @@ import jax
 import pytest
 import torch
 
+from chip_smoke import load_tool
 from test_torch_cli import _with_draws
 from test_torch_gcslam import jax_pipelined_tracker
 from test_torch_pipeline import _pallas_bilateral
@@ -39,17 +39,9 @@ from texturefusion_torch.fusion import pipeline as tpipeline
 
 torch.set_num_threads(2)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODES = {"gt": [], "slam": ["--slam", "--texture"]}
 VERTS_FRAC = {"gt": 0.002, "slam": 0.01}
 ATE_MM = 1.0
-
-
-def _load(name, rel):
-    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, rel))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def _jax_frames():
@@ -79,8 +71,8 @@ def demos(tmp_path_factory):
     out = {}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jcache, "enable_compilation_cache", lambda *a, **k: None)
-        jdemo = _load("jax_demo_synthetic", "examples/demo_synthetic.py")
-        tdemo = _load("port_demo_synthetic", "tools/demo_synthetic.py")
+        jdemo = load_tool("demo_synthetic", "examples")
+        tdemo = load_tool("demo_synthetic")
         jax_pipelined_tracker(mp)
         mp.setattr(jpre, "bilateral_filter", _pallas_bilateral)
         mp.setattr(tpipeline, "ReconstructionPipeline",

@@ -6,7 +6,8 @@ test_torch_cuda_kernels.py::test_features_gpu_match_cpu_bit_for_bit.
 Here, on the CPU: exact.div is the CPU's division (and the reciprocal
 multiplication that PyTorch's CUDA kernel does for a Python divisor is
 not), tree_sum adds pairwise in its stated order, the resize taps are
-jax.image.resize's weights, and the descriptor rotation taken from the
+jax.image.resize's weights and each resize pass rounds once, and the
+descriptor rotation taken from the
 moments is cos and sin of the angle.
 """
 
@@ -60,6 +61,22 @@ def test_resize_matches_jax():
     got = tf.resize_linear(torch.as_tensor(img), 100, 133).numpy()
     want = np.asarray(jax.image.resize(jnp.asarray(img), (100, 133), "linear"))
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-3)
+
+
+def test_resize_rounds_each_pass_once():
+    """Each pass is its float64 weighted sum rounded to float32 once, so
+    the order in which the taps are added does not matter."""
+    img = np.random.default_rng(4).uniform(0, 255, (120, 160)).astype(np.float32)
+    mats = []
+    for n_in, n_out in ((120, 100), (160, 133)):
+        idx, wt = tf._linear_taps(n_in, n_out)
+        dense = np.zeros((n_out, n_in))
+        np.add.at(dense, (np.arange(n_out)[:, None].repeat(idx.shape[1], 1), idx), wt)
+        mats.append(dense)
+    rows = (mats[0] @ img.astype(np.float64)).astype(np.float32)
+    want = (rows.astype(np.float64) @ mats[1].T).astype(np.float32)
+    got = tf.resize_linear(torch.as_tensor(img), 100, 133).numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 def test_rotation_from_moments_is_cos_sin_of_the_angle():

@@ -12,7 +12,6 @@ The checks of imports run in fresh subprocesses, so the test session's own jax
 import cannot hide an import of jax by the port.
 """
 
-import importlib.util
 import os
 import shutil
 import subprocess
@@ -20,6 +19,8 @@ import sys
 
 import pytest
 import torch
+
+from chip_smoke import load_tool
 
 torch.set_num_threads(2)
 
@@ -320,10 +321,7 @@ def test_tools_never_import_jax_or_image_libraries():
 @pytest.mark.parametrize("tool", ["make_tum_proxy", "demo_synthetic"])
 def test_tools_on_cuda_without_a_gpu_raise(tool, tmp_path):
     assert not torch.cuda.is_available()
-    spec = importlib.util.spec_from_file_location(f"tools_{tool}",
-                                                  os.path.join(ROOT, "tools", tool + ".py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    mod = load_tool(tool)
     out = str(tmp_path / "out")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mod.main(["--out", out, "--device", "cuda"])

@@ -18,7 +18,6 @@ fr1 camera scaled by 1/4 (the distortion kept), 10 frames. Tolerances:
 - the CLIs: tests/test_torch_cli.py's patches and tolerances.
 """
 
-import importlib.util
 import os
 
 import jax
@@ -27,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import load_tool
 from test_torch_cli import SETTINGS, _files, _with_draws, compare_cli_outputs
 from test_torch_gcslam import jax_pipelined_tracker
 from test_torch_pipeline import _pallas_bilateral
@@ -41,21 +41,13 @@ from texturefusion_torch.io import png
 
 torch.set_num_threads(2)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_FRAMES = 10
 SMALL = dict(width=160, height=120, fx=517.3 / 4, fy=516.5 / 4, cx=318.6 / 4, cy=255.3 / 4)
 TEXT_FILES = ("associate.txt", "calib.txt", "rgb.txt", "depth.txt")
 
 
-def _load(name, rel):
-    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, rel))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-JMK = _load("jax_make_tum_proxy", "examples/make_tum_proxy.py")
-TMK = _load("port_make_tum_proxy", "tools/make_tum_proxy.py")
+JMK = load_tool("make_tum_proxy", "examples")
+TMK = load_tool("make_tum_proxy")
 
 
 def test_blur_matches_opencv():

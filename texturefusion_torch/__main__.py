@@ -104,12 +104,10 @@ def main(argv=None):
     from texturefusion_torch.io import sensors, tum
     from texturefusion_torch.io.prefetch import prefetch_frames
     from texturefusion_torch.texture.manager import NoTexturedChunks
+    from texturefusion_torch.utils.device import resolve_device
     from texturefusion_torch.utils.stopwatch import STOPWATCH
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: CUDA is not available on this machine "
-                           f"(pass --device cpu to run on the CPU)")
+    device = resolve_device(args.device)
 
     config = make_config(args.resolution, args.params_file)
     sensor = sensors.open_sensor(args.input_mode, args.data_folder, config.camera,

@@ -14,12 +14,12 @@ from the end, then clamp into the image). Ties in the top-k go to the
 lowest index, as jax.lax.top_k does.
 
 Every float step from the grey image to the descriptor bits rounds the
-same on the CPU and on a CUDA device (core/exact.py): the pyramid resize
-is written as its weighted taps, summed in order; the blur divides
-exactly; the intensity-centroid moments are summed pairwise; the
-descriptor's rotation takes its cosine and sine from the moments
-(m10 / r, m01 / r) rather than from the library's cos and sin of the
-angle. So a frame has the same keypoints and descriptors on both devices.
+same on the CPU and on a CUDA device (core/exact.py): the pyramid
+resize sums its weighted taps in float64 and rounds each pass once; the
+blur divides exactly; the intensity-centroid moments are summed
+pairwise; the descriptor's rotation takes its cosine and sine from the
+moments (m10 / r, m01 / r) rather than from the library's cos and sin of
+the angle. So a frame has the same keypoints and descriptors on both devices.
 """
 
 from __future__ import annotations
@@ -239,19 +239,23 @@ def _taps(n_in: int, n_out: int, device):
 
 def resize_linear(img: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
     """jax.image.resize(img, (nh, nw), "linear"), antialiased when
-    downsampling: rows, then columns, each output a sum of its weighted
-    taps in input order."""
+    downsampling: rows, then columns. Each pass rounds its weighted sum of
+    taps to float32 once: the products and their sum are taken in float64
+    (a float32 product is exact there), so the result does not hang on the
+    order of the additions, on the CPU or on the card. jax.image.resize
+    rounds as its backend's matrix product does, which cannot be copied;
+    on a flat texture cell that rounding decides descriptor bits."""
     idx, wt = _taps(img.shape[0], nh, img.device)
-    taps = img[idx] * wt[..., None]                    # [nh, T, W]
+    taps = img[idx].double() * wt.double()[..., None]  # [nh, T, W]
     out = taps[:, 0]
     for t in range(1, taps.shape[1]):
         out = out + taps[:, t]
     idx, wt = _taps(img.shape[1], nw, img.device)
-    taps = out[:, idx] * wt                            # [nh, nw, T]
+    taps = out.float()[:, idx].double() * wt.double()  # [nh, nw, T]
     out = taps[..., 0]
     for t in range(1, taps.shape[-1]):
         out = out + taps[..., t]
-    return out
+    return out.float()
 
 
 def extract_features(gray: torch.Tensor, depth: torch.Tensor,

@@ -107,9 +107,9 @@ def run_slam_pipeline(config, scene, poses, depths, rgbs, args, device, sync) ->
 def run(argv=None, frames=None) -> dict:
     """The demo on `frames` ((depths, rgbs) numpy arrays of the orbit), or
     on frames it renders; returns {rc, verts, median_mm, ate_mm, fps,
-    keyframes, lost_frames (the frames whose tracking failed), frames}
-    after printing the JAX script's lines; without --slam ate_mm,
-    keyframes and lost_frames are None."""
+    keyframes, lost_frames (the frames whose tracking failed)} after
+    printing the JAX script's lines; without --slam ate_mm, keyframes and
+    lost_frames are None."""
     args = _parse(argv)
     from texturefusion_torch.config import CameraConfig, PipelineConfig, TSDFConfig
     from texturefusion_torch.core import camera as cam
@@ -117,11 +117,9 @@ def run(argv=None, frames=None) -> dict:
     from texturefusion_torch.fusion.mesher import IncrementalMesher
     from texturefusion_torch.io import ply, synthetic
     from texturefusion_torch.ops import preprocess
+    from texturefusion_torch.utils.device import resolve_device
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: CUDA is not available "
-                           f"(pass --device cpu)")
+    device = resolve_device(args.device)
     sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
     if args.size == "small":
         camera = CameraConfig(width=320, height=240, fx=260.0, fy=260.0,
@@ -144,8 +142,7 @@ def run(argv=None, frames=None) -> dict:
     depths, rgbs = frames
 
     if args.slam:
-        return dict(run_slam_pipeline(config, scene, poses, depths, rgbs, args, device, sync),
-                    frames=frames)
+        return run_slam_pipeline(config, scene, poses, depths, rgbs, args, device, sync)
 
     vol = TSDFVolume(config, device=device)
     mesher = IncrementalMesher(vol)
@@ -181,8 +178,7 @@ def run(argv=None, frames=None) -> dict:
     ok = median < config.tsdf.voxel_resolution
     print("RESULT:", "PASS" if ok else "FAIL")
     return {"rc": 0 if ok else 1, "verts": len(verts), "median_mm": median * 1e3,
-            "ate_mm": None, "fps": args.frames / dt, "keyframes": None, "lost_frames": None,
-            "frames": frames}
+            "ate_mm": None, "fps": args.frames / dt, "keyframes": None, "lost_frames": None}
 
 
 def main(argv=None) -> int:

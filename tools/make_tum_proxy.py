@@ -110,15 +110,6 @@ def gaussian_blur(image: np.ndarray, sigma: float) -> np.ndarray:
     return out.astype(np.float32)
 
 
-def resolve_device(name: str):
-    """torch.device(name); a CUDA device on a machine without CUDA raises."""
-    import torch
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name}: CUDA is not available (pass --device cpu)")
-    return device
-
-
 def generate(out_dir: str, n_frames: int = 120, seed: int = 11, device="cuda") -> str:
     """Render the proxy on `device` and write it as a TUM directory:
     rgb/ and depth/ PNGs, associate.txt, rgb.txt, depth.txt,
@@ -129,6 +120,7 @@ def generate(out_dir: str, n_frames: int = 120, seed: int = 11, device="cuda") -
     from texturefusion_torch.core import camera as cam
     from texturefusion_torch.core import se3
     from texturefusion_torch.io import png, synthetic
+    from texturefusion_torch.utils.device import resolve_device
 
     device = resolve_device(str(device))
     camera = CameraConfig(**FR1_CAMERA)
@@ -208,6 +200,7 @@ def main(argv=None) -> int:
                     help="run the port's command line over the generated dataset")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    from texturefusion_torch.utils.device import resolve_device
     resolve_device(args.device)
     generate(args.out, args.frames, device=args.device)
     if not args.run:

@@ -55,10 +55,9 @@ def main(argv=None) -> int:
     from texturefusion_torch.fusion.chunkmap import TSDFVolume
     from texturefusion_torch.io import png, synthetic
     from texturefusion_torch.ops import preprocess, raycast
+    from texturefusion_torch.utils.device import resolve_device
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: CUDA is not available (pass --device cpu)")
+    device = resolve_device(args.device)
     camera = CameraConfig(width=320, height=240, fx=260.0, fy=260.0, cx=159.5, cy=119.5,
                           far_plane=6.0)
     config = PipelineConfig(camera=camera, tsdf=TSDFConfig(
