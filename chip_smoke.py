@@ -193,8 +193,30 @@ F-frame mode ([k2-frames]: F = 6 at +1, fresh and pre-integrated; F = 3
 at +1; F = 6 and 12 as a drift reintegration, half the frames at -1, the
 other half at +1 at poses moved 6 mm / 0.5 deg) against their plain
 versions, and times the F-frame mode alone.
+After [k2-frames] four phases run the port's measurement tools, each
+printing its rows (ms: median host clock of calls each ending in a
+synchronize; span_ms: CUDA events around one call; device_ms and
+device_ops: one call under torch.profiler; utils/devtime), every time
+finite and above 0:
+  [sol]           tools/sol_report.py: the 8 hot programs of the JAX
+                  script at its inputs, each beside its JAX bytes, the
+                  bytes its data needs, its bound (sol_ops) and its shares
+                  of the bound over device_ms and ms, none above 1.0; K1, K2
+                  and the F-frame mode launched (counted in the kernels
+                  line). After [pipeline] the rows get K1's, K2's and the
+                  F-frame mode's launches a frame there and go with
+                  [bench-multichip]'s rates to chiprun_out/sol_report_h100.json
+  [bench-multichip] tools/bench_multichip.py on one card and on 4 shards
+                  of it (overhead, not scaling): the sharded TSDF step (rows
+                  bit for bit), distributed BA, the full map cycle (the same
+                  n_found, vertex counts and labels), dense against Schur ms
+                  a GN iteration at K = 64-512 (Schur within BA_RTOL /
+                  BA_ATOL); a 4-card mesh raises on fewer cards
+  [stages]        tools/profile_stages.py: each stage of the frame path
+  [frame-profile] tools/profile_frame.py: dispatch, copies, discovery,
+                  the allocator, integration
 The line before the last is a JSON object with each kernel's launches
-over the phases that drive it (5, 8, 11-16, 19-21, 23-26), its error against the plain
+over the phases that drive it (5, 8, 11-16, 19-21, 23-26 and [sol]), its error against the plain
 version and its times, bound and share; the last line is
 {"ok": true, "device": {...}}.
 
@@ -2611,6 +2633,155 @@ def phase_multichip():
     return launches
 
 
+SOL_N = 5                     # [sol]: timed calls of each program
+SCALING_CAP = 4096            # [bench-multichip]: slots of the sharded TSDF step
+
+
+def sol_ops(work: dict) -> dict:
+    """[sol]'s operations of a row's work (tools/sol_report.py): K2's
+    launches and the F-frame mode from the built SASS ([sass]), K1's taps
+    at K1_FLOPS_PER_TAP fp32 operations and one exp each."""
+    ops = {}
+
+    def add(more):
+        for unit, (count, rate) in more.items():
+            if unit in ops and ops[unit][1] != rate:
+                raise ValueError(f"[sol] {unit} counted at two rates")
+            ops[unit] = (ops.get(unit, (0, rate))[0] + count, rate)
+
+    for n_lanes, threads in work.get("k2", ()):
+        add(_k2_ops(n_lanes, threads))
+    if "frames" in work:
+        add(frames_ops(*work["frames"]))
+    if "k1_taps" in work:
+        taps = work["k1_taps"]
+        add({"fp32": (K1_FLOPS_PER_TAP * taps, FP32_FLOPS_PER_S),
+             "exp unit": (taps, sm_rate(EXP_PER_SM_CLOCK))})
+    return ops
+
+
+def _positive_times(name: str, lines: dict) -> None:
+    """Every time of a tool's lines finite and above 0 (its device columns
+    where it has them), and device ops counted; raises."""
+    for label, m in lines.items():
+        times = [m["ms"]] + [m[k] for k in ("span_ms", "device_ms") if m.get(k) is not None]
+        if not all(np.isfinite(t) and t > 0 for t in times) or m.get("device_ops") == 0:
+            raise AssertionError(f"[{name}] {label}: a time not finite and positive, or no "
+                                 f"device op: {m}")
+
+
+def phase_sol():
+    """tools/sol_report.py's programs at the JAX script's inputs, each alone
+    (the K2 rows: integrate, reintegrate, the F-frame mode at F = 6): ms,
+    span_ms, device_ms, device_ops, the JAX bytes, the needed bytes, the
+    bound with the operations of sol_ops, and the shares over device_ms and
+    ms, none above 1.0; K1, K2 and the F-frame mode launched."""
+    from texturefusion_torch.ops import cuda_kernels
+    sol = load_tool("sol_report")
+    cuda_kernels.reset_launch_counts()
+    rows = sol.run(sol.sol_config(), "cuda", n=SOL_N, ops_fn=sol_ops,
+                   log=lambda msg: log(f"[sol] {msg}"))
+    torch.cuda.synchronize()
+    launches = dict(cuda_kernels.LAUNCHES)
+    _positive_times("sol", {r["kernel"]: r for r in rows})
+    shares = [v for r in rows for v in r["frac_of_roofline"].values()]
+    log(f"[sol] {len(rows)} rows, largest share {max(shares):.4f}; launches "
+        f"{json.dumps(launches)}")
+    if [r["kernel"] for r in rows] != list(sol.ROWS) or max(shares) > 1.0:
+        raise AssertionError("[sol] rows out of order, or a share above 1.0")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"[sol] a kernel was not launched: {launches}")
+    return rows, launches
+
+
+def phase_bench_multichip(cap=SCALING_CAP):
+    """tools/bench_multichip.py on one card (a 1-shard mesh) and on
+    N_SHARDS shards of it (their overhead, not scaling: the shards share
+    its stream): the sharded TSDF step's steps/s (rows bit for bit against
+    the one shard's), distributed BA's GN iterations/s, the full map
+    cycle's steps/s (n_found, vertex counts and labels equal), and dense
+    against Schur ms a GN iteration at K = 64-512 on both (Schur within
+    BA_RTOL / BA_ATOL of dense at every K); a mesh of N_SHARDS cards raises
+    where fewer exist."""
+    bm = load_tool("bench_multichip")
+    one = bm.make_bench_mesh("cuda", devices=1)
+    shards = bm.make_bench_mesh("cuda", shards_on_one_card=N_SHARDS)
+    if torch.cuda.device_count() < N_SHARDS:
+        try:
+            bm.make_bench_mesh("cuda", devices=N_SHARDS)
+        except ValueError as e:
+            log(f"[bench-multichip] --devices {N_SHARDS} on "
+                f"{torch.cuda.device_count()} card(s) raises: {e}")
+        else:
+            raise AssertionError(f"[bench-multichip] a mesh of {N_SHARDS} cards did not raise")
+    t1, tn = (bm.bench_sharded_tsdf(m, cap, n_iters=10) for m in (one, shards))
+    same_rows = all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(
+        t1["batch"].gather(np.arange(cap)), tn["batch"].gather(np.arange(cap))))
+    ba1, ban = (bm.bench_distributed_ba(m, n_iters=5) for m in (one, shards))
+    f1, fn = (bm.bench_full_step(m, n_iters=5) for m in (one, shards))
+    same_cycle = (f1["n_found"] == fn["n_found"]
+                  and torch.equal(f1["vcount"].cpu(), fn["vcount"].cpu())
+                  and torch.equal(f1["labels"].cpu(), fn["labels"].cpu()))
+    scale = {f"{m.size}": bm.bench_ba_scale(m, rtol=BA_RTOL, atol=BA_ATOL) for m in (one, shards)}
+    rates = {"tsdf_steps_s": [t1["steps_s"], tn["steps_s"]],
+             "distributed_ba_gn_iters_s": [ba1, ban],
+             "full_step_steps_s": [f1["steps_s"], fn["steps_s"]]}
+    log(f"[bench-multichip] 1 card | {N_SHARDS} shards of it (overhead, not scaling): "
+        f"{json.dumps(rates)}; sharded TSDF rows bit for bit: {same_rows}; full cycle "
+        f"n_found={f1['n_found']} vertices={int(f1['vcount'].sum())}, the same over "
+        f"{N_SHARDS} shards: {same_cycle}")
+    for n, rows in scale.items():
+        log(f"[bench-multichip] BA over {n} shard(s), ms a GN iteration (dense / schur; max "
+            f"|schur - dense|): " + "; ".join(
+                f"K={r['K']} E={r['E']}: {r['dense_ms_per_gn_iter']:.3f} / "
+                f"{r['schur_ms_per_gn_iter']:.3f} ({r['schur_max_abs_diff']:.1e})" for r in rows))
+    times = [v for pair in rates.values() for v in pair] + [
+        r[k] for rows in scale.values() for r in rows
+        for k in ("dense_ms_per_gn_iter", "schur_ms_per_gn_iter")]
+    if not all(np.isfinite(t) and t > 0 for t in times):
+        raise AssertionError(f"[bench-multichip] a rate not finite and positive: {times}")
+    if not (same_rows and same_cycle):
+        raise AssertionError("[bench-multichip] the shards changed the rows or the map cycle")
+    return {"rates": rates, "ba_scale": scale}
+
+
+def phase_stages():
+    """tools/profile_stages.py at VGA on the card: every stage of the JAX
+    script, in its order, with device_ms and device_ops."""
+    ps = load_tool("profile_stages")
+    r = ps.run("cuda", n=3, log=lambda msg: log(f"[stages] {msg}"))
+    _positive_times("stages", r["stages"])
+    if not (r["chunks"] > 0 and r["verts"] > 0 and r["tris"] > 0):
+        raise AssertionError(f"[stages] nothing discovered or meshed: {r}")
+    return r
+
+
+def phase_frame_profile():
+    """tools/profile_frame.py at VGA on the card: every line of the JAX
+    script, in its order, the pinned copies beside the pageable ones."""
+    pf = load_tool("profile_frame")
+    r = pf.run("cuda", n=3, log=lambda msg: log(f"[frame-profile] {msg}"))
+    _positive_times("frame-profile", r["lines"])
+    if r["unique"] <= 0:
+        raise AssertionError("[frame-profile] no chunk discovered")
+    return r
+
+
+def sol_report(rows, pipeline_launches, scaling, path) -> None:
+    """[sol]'s rows with K1's, K2's and the F-frame mode's launches a frame
+    of [pipeline] (K1 runs once a frame), written with [bench-multichip]'s
+    rates to `path`."""
+    sol = load_tool("sol_report")
+    frames = pipeline_launches["bilateral"]
+    for name, kernel in ((sol.ROWS[0], "tsdf_integrate"), (sol.ROWS[2], "tsdf_integrate_frames"),
+                         (sol.ROWS[6], "bilateral")):
+        next(r for r in rows if r["kernel"] == name)["calls_per_cycle"] = (
+            pipeline_launches[kernel] / frames)
+    sol.write_report(path, rows, scaling, "cuda")
+    log(f"[sol] launches a frame of [pipeline]: "
+        + json.dumps({r["kernel"]: r["calls_per_cycle"] for r in rows}))
+
+
 def _one_shard_check(pipe) -> dict:
     """K2 and the F-frame mode on one shard's rows (shard 0, its active
     slots, local indices), on copies, against their plain versions: a
@@ -2891,6 +3062,10 @@ def main() -> int:
     k1 = timed("k1", phase_k1)
     k2 = timed("k2", phase_k2)
     k2f = timed("k2-frames", phase_k2_frames)
+    sol_rows, sol_launches = timed("sol", phase_sol)
+    scaling = timed("bench-multichip", phase_bench_multichip)
+    timed("stages", phase_stages)
+    timed("frame-profile", phase_frame_profile)
     launches, k2_path, frames, slice_volume = timed("slice", phase_slice)
     timed("raycast", phase_raycast, slice_volume, frames)
     del slice_volume
@@ -2901,6 +3076,9 @@ def main() -> int:
     timed("profile-tracked", phase_profile_tracked, tracked_frames)
     runs = [timed("pipeline", phase_pipeline, tracked_frames)]
     k2f.update(timed("k2-frames-path", phase_k2_frames_path, runs[0]["frame_shapes"]))
+    sol_report(sol_rows, runs[0]["launches"], scaling,
+               os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out",
+                            "sol_report_h100.json"))
     k2f["max_abs_err"] = max(k2f["max_abs_err"], k2f["path_max_abs_err"])
     runs.append(timed("pipeline-async", phase_pipeline, tracked_frames, async_fusion=True,
                       reference=runs[0]))
@@ -2925,7 +3103,7 @@ def main() -> int:
 
     def total(key, *extra):
         return (sum(r["launches"][key] for r in runs) + sum(c[key] for c in cli)
-                + sum(extra))
+                + sol_launches[key] + sum(extra))
 
     kernels = [
         {"name": "bilateral", "route": "cuda",
@@ -2946,7 +3124,8 @@ def main() -> int:
         f"{json.dumps(tracked_launches)}, pipeline / pipeline-async / pipeline-stream / "
         f"pipeline-textured / pipeline-deferred / pipeline-bench / pipeline-sharded "
         f"{json.dumps([r['launches'] for r in runs])}, cli-synthetic / cli-dataset / "
-        f"checkpoint / fr1-proxy / demo / multichip {json.dumps(cli)}")
+        f"checkpoint / fr1-proxy / demo / multichip {json.dumps(cli)}, sol "
+        f"{json.dumps(sol_launches)}")
     log(f"[phase-seconds] {json.dumps(seconds)}")
     log(f"[total] chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s, build included")
     print(smi)

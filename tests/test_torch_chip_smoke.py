@@ -9,7 +9,9 @@ the command line's outputs; [fr1-proxy]'s reading of the command line's
 counts and [demo]'s tool loading. Last, [pipeline-sharded]'s texture readers on
 a tiny textured run over eight CPU shards: the texture audit reads the
 sharded volume and pool as the unsharded ones, and sharded_cycle_check
-finds the cycle through the sharded reader exact."""
+finds the cycle through the sharded reader exact. [sol]'s operation counts
+of a row's work, its report with the launches a frame of [pipeline], and
+the check of the measurement phases' times."""
 
 import importlib.util
 import os
@@ -266,3 +268,43 @@ def test_deferral_counts_and_the_prefetch_audit():
     two = chip_smoke.LandedFetch((torch.ones(2), torch.zeros(1, dtype=torch.int64)))
     assert one.done() and one.result().tolist() == [1.0, 1.0, 1.0]
     assert [a.tolist() for a in two.result()] == [[1.0, 1.0], [0]]
+
+
+def test_sol_ops_add_each_launch(rates):
+    chip_smoke.SASS.update(chip_smoke.sass_kernel_counts(
+        _k2_kernel(100, 20) + "\n" + _frames_kernel(2)))
+    one = chip_smoke._k2_ops(400, 30)
+    two = chip_smoke.sol_ops({"k2": [(400, 30), (400, 30)]})
+    assert two == {u: (2 * c, r) for u, (c, r) in one.items()}
+    assert chip_smoke.sol_ops({"frames": (6, 400)}) == chip_smoke.frames_ops(6, 400)
+    k1 = chip_smoke.sol_ops({"k1_taps": 1000})
+    assert k1 == {"fp32": (chip_smoke.K1_FLOPS_PER_TAP * 1000, chip_smoke.FP32_FLOPS_PER_S),
+                  "exp unit": (1000, chip_smoke.EXP_PER_SM_CLOCK)}
+    assert chip_smoke.sol_ops({}) == {}
+    with pytest.raises(ValueError, match="two rates"):
+        chip_smoke.sol_ops({"k2": [(1, 1)], "k1_taps": 10})
+
+
+def test_sol_report_writes_the_launches_a_frame(tmp_path):
+    import json
+    sol = chip_smoke.load_tool("sol_report")
+    rows = [{"kernel": name, "calls_per_cycle": None} for name in sol.ROWS]
+    path = str(tmp_path / "out" / "sol.json")
+    chip_smoke.sol_report(rows, {"bilateral": 120, "tsdf_integrate": 74,
+                                 "tsdf_integrate_frames": 60}, {"x": 1}, path)
+    with open(path) as f:
+        report = json.load(f)
+    got = {r["kernel"]: r["calls_per_cycle"] for r in report["kernels"]}
+    assert got[sol.ROWS[0]] == 74 / 120 and got[sol.ROWS[2]] == 0.5 and got[sol.ROWS[6]] == 1.0
+    assert sum(v is not None for v in got.values()) == 3 and report["scaling"] == {"x": 1}
+
+
+@pytest.mark.parametrize("bad", [{"ms": 0.0}, {"device_ms": float("nan")}, {"device_ops": 0},
+                                 {"span_ms": -1.0}])
+def test_positive_times_rejects_a_bad_time(bad):
+    good = {"ms": 1.0, "span_ms": 0.5, "device_ms": 0.2, "device_ops": 3.0}
+    chip_smoke._positive_times("x", {"a": good, "host only": {"ms": 1.0, "span_ms": None,
+                                                              "device_ms": None,
+                                                              "device_ops": None}})
+    with pytest.raises(AssertionError, match="a time not finite and positive"):
+        chip_smoke._positive_times("x", {"a": {**good, **bad}})

@@ -5,8 +5,9 @@ textured pipeline and its export, and the command line on a TUM
 directory and in synthetic mode, also without cv2 or PIL, which the
 card's machine lacks; the multi-device layer and dryrun_multichip with
 those imports blocked, and the two tools, the fr1-proxy generator with
-its --run and the demo, likewise), and chip_smoke.py and both tools
-refuse to run on CUDA without a GPU.
+its --run and the demo, likewise, and the four measurement tools:
+sol_report, bench_multichip, profile_stages and profile_frame), and
+chip_smoke.py and every tool refuse to run on CUDA without a GPU.
 
 The checks of imports run in fresh subprocesses, so the test session's own jax
 import cannot hide an import of jax by the port.
@@ -318,13 +319,62 @@ def test_tools_never_import_jax_or_image_libraries():
     assert "TOOLS_OK" in res.stdout, res.stdout[-3000:]
 
 
-@pytest.mark.parametrize("tool", ["make_tum_proxy", "demo_synthetic"])
+MEASURE = r"""
+import importlib.abc, os, sys, tempfile
+
+
+class Blocked(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "texturefusion_tpu", "cv2", "PIL"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+
+sys.meta_path.insert(0, Blocked())
+import torch
+torch.set_num_threads(2)
+import chip_smoke
+tool = chip_smoke.load_tool(sys.argv[1])
+small = ["--device", "cpu", "--small", "--n", "1"]
+if sys.argv[1] == "sol_report":
+    with tempfile.TemporaryDirectory() as tmp:
+        assert tool.main(small + ["--no-scaling", "--out", os.path.join(tmp, "r.json")]) == 0
+        assert os.path.getsize(os.path.join(tmp, "r.json")) > 0
+elif sys.argv[1] == "bench_multichip":
+    mesh = tool.make_bench_mesh("cpu", devices=2)
+    assert tool.bench_sharded_tsdf(mesh, 64, n_iters=1)["steps_s"] > 0
+    assert tool.bench_distributed_ba(mesh, n_iters=1) > 0
+    assert tool.bench_ba_scale(mesh, ks=(64,), n_iters=1)[0]["schur_within_tol"]
+    assert tool.bench_full_step(mesh, n_iters=1)["n_found"] > 0
+else:
+    assert tool.main(small) == 0
+print("MEASURE_OK")
+"""
+
+# each tool's arguments besides --device; "{out}" is a path the run must not create
+TOOL_ARGS = {"make_tum_proxy": ["--out", "{out}"], "demo_synthetic": ["--out", "{out}"],
+             "sol_report": ["--out", "{out}"], "bench_multichip": ["--cap", "64"],
+             "profile_stages": ["--small"], "profile_frame": ["--small"]}
+
+
+@pytest.mark.parametrize("tool", ["sol_report", "bench_multichip", "profile_stages",
+                                  "profile_frame"])
+def test_measurement_tools_never_import_jax_or_image_libraries(tool):
+    """The four measurement tools at their small sizes with --device cpu
+    (bench_multichip's functions on 2 CPU shards), with any import of jax,
+    the JAX package, cv2 or PIL raising."""
+    res = _run(["-c", MEASURE, tool], ROOT)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "MEASURE_OK" in res.stdout, res.stdout[-3000:]
+
+
+@pytest.mark.parametrize("tool", list(TOOL_ARGS))
 def test_tools_on_cuda_without_a_gpu_raise(tool, tmp_path):
     assert not torch.cuda.is_available()
     mod = load_tool(tool)
     out = str(tmp_path / "out")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        mod.main(["--out", out, "--device", "cuda"])
+        mod.main([a.format(out=out) for a in TOOL_ARGS[tool]] + ["--device", "cuda"])
     assert not os.path.exists(out)
 
 
