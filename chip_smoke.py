@@ -6,7 +6,7 @@
 Runs these phases (each prints one line of numbers; any failure exits
 non-zero):
   1. device   - requires CUDA; prints the card's name and power limit
-  2. build    - compiles both hand-written kernels with nvcc (sm_90a),
+  2. build    - compiles the three hand-written kernels with nvcc (sm_90a),
                 one process per source, all at once; [sass] counts the
                 built K2 and F-frame kernels' instructions (cuobjdump),
                 the operations of their bounds
@@ -183,6 +183,18 @@ non-zero):
                 vertices, map median, ATE, keyframes, lost frames and
                 frames/s
 Phases 25 and 26 run after [checkpoint].
+After phase 9, [graphs] holds the tracker's two programs as the pipeline
+runs them on the card, each one captured CUDA graph (utils/graphs.py),
+to their eager versions: frame_step_tracked2 bit for bit (every output)
+on the 30 tiny orbit frames and 3 of [tracked]'s VGA frames, and
+promote_probe at 5 candidates over a 9-keyframe VGA DB (rows in use 9
+and 1); one replay of each under set_sync_debug_mode("error"); the
+host's launches of a call (one graph launch plus a copy per input and
+output tensor); eager against graphed host ms. Then [k3] holds kernel K3
+(csrc/kabsch.cu, the rigid fit that replaces torch.linalg.svd on the
+card) to its plain version on tests/test_torch_kabsch.py's point sets
+and on every kabsch call of one VGA frame step and probe, and times it
+at 400 fits of 4 points.
 After phase 5, [raycast] renders 8 VGA views of [slice]'s volume
 (ops/raycast.raycast_volume; plain torch ops, no kernel) against the
 scene rendered there: hit share > 0.5, median depth error below a voxel,
@@ -248,6 +260,22 @@ K1_TOL = 1e-5
 K2_ROW_TOL = {"sdf": (1e-5, 1e-5), "weight": (1e-6, 1e-6),
               "color": (1e-4, 1e-3), "color_count": (1e-6, 1e-6)}
 K2_Q_TOL = (1e-4, 1e-2)
+# [k3]: K3 sums and solves in float64 and rounds once. Rotation entries and
+# translation (m) against the plain version run in float64 on the same
+# float32 inputs, on every fit whose cross-covariance has sigma2 / sigma1
+# above K3_WELL_POSED (below it the rotation about the points' line is not
+# determined: RANSAC samples with a repeated point); against the plain
+# version in float32 on random sets at RANSAC's shapes (tests/test_torch_kabsch.py)
+K3_TOL_F64 = 1e-6
+K3_TOL = 2e-5
+K3_WELL_POSED = 1e-4
+K3_SWEEPS = 10                # csrc/kabsch.cu kSweeps
+# frames/s of each pipeline phase with the tracker's two programs run op by
+# op, before they ran as captured CUDA graphs (the script's last such run,
+# H100 80GB HBM3 at 700 W): printed beside each run's frames/s
+OP_BY_OP_FPS = {"pipeline": 4.252, "pipeline-async": 4.077, "pipeline-stream": 4.172,
+                "pipeline-textured": 3.622, "pipeline-deferred": 3.652, "pipeline-bench": 3.417,
+                "pipeline-sharded": 2.993, "tracked": 4.053}
 MAP_MEDIAN_MM = 20.0      # below the 2 cm voxel (examples/demo_synthetic.py rule)
 MAP_RMS_MM = 32.0         # the frozen map gate of tests/test_bench_regression.py
 ATE_MM = 25.0             # the frozen ATE gate of tests/test_bench_regression.py
@@ -284,6 +312,9 @@ K2_CHUNK_FP32 = 29
 # K1 fp32 operations per tap: subtract, square, spatial product,
 # multiply-add (2), weight add; and one exp
 K1_FLOPS_PER_TAP = 6
+# K3 runs in float64: H100 SXM 34 TFLOP/s outside the tensor cores (NVIDIA's
+# data sheet, at the 700 W limit)
+FP64_FLOPS_PER_S = 34e12
 FLUSH_BYTES = 128 << 20       # > the 50 MB L2: a cold launch follows this write
 SLEEP_CYCLES = 50_000_000     # ~25 ms of device sleep: longer than the host's queuing
 N_SHARDS = 4                  # [multichip], [ba-sharded], [pipeline-sharded]
@@ -1272,8 +1303,8 @@ def _pipeline(config, device, draw_fn=None, fuse=True, textured=False, mesh=None
     cls = TexturedPipeline if textured else ReconstructionPipeline if fuse else TrackingOnly
 
     class Audited(cls):
-        def _integrate_keyframe(self, st, sign, prefetched=None):
-            super()._integrate_keyframe(st, sign, prefetched=prefetched)
+        def _integrate_keyframe(self, st, sign, prefetched=None, **kw):
+            super()._integrate_keyframe(st, sign, prefetched=prefetched, **kw)
             if prefetched is not None and sign > 0:
                 self.prefetch_audit.append((st.kf_slot, prefetched, st.depth,
                                             st.integrated_pose))
@@ -1409,6 +1440,7 @@ def phase_tracked(n_frames=120):
     launches = dict(cuda_kernels.LAUNCHES)
     m, traj = _tracking_metrics(slam, poses)
     log(f"[tracked] {n_frames} frames in {wall:.3f} s = {n_frames / wall:.3f} frames/s "
+        f"({OP_BY_OP_FPS['tracked']} with the tracker's programs op by op) "
         f"(clocks.sm,power.draw after: {nvidia_smi('clocks.sm,power.draw')}) "
         + " ".join(f"{k} {v:.3f} s" for k, v in stages.items()))
     log(f"[tracked] ate_mm={m['ate_mm']:.3f} keyframes={m['keyframes']} edges={m['edges']} "
@@ -1614,7 +1646,8 @@ def _pipeline_report(name, pipe, loop, fin, scene, poses, launches, n_frames, sh
              reintegrations=st["reintegrations"], fps=n_frames / loop, finish_s=fin,
              active=pipe.volume.n_active(), frozen=len(pipe.mesher.frozen))
     stages = {k: round(v, 4) for k, v in sorted(STOPWATCH.totals.items())}
-    log(f"[{name}] {n_frames} frames in {loop:.3f} s = {n_frames / loop:.3f} frames/s, "
+    log(f"[{name}] {n_frames} frames in {loop:.3f} s = {n_frames / loop:.3f} frames/s "
+        f"({OP_BY_OP_FPS.get(name, 'n/a')} with the tracker's programs op by op), "
         f"finish {fin:.3f} s (clocks.sm,power.draw after: "
         f"{nvidia_smi('clocks.sm,power.draw')}); stage seconds {json.dumps(stages)} "
         f"counts {json.dumps(dict(STOPWATCH.counts))}")
@@ -2633,6 +2666,311 @@ def phase_multichip():
     return launches
 
 
+def k3_ops(n_fits: int, n_points: int) -> float:
+    """K3's float64 operations: per point 13 for the weighted sums and 27
+    for the centred cross-covariance; per fit 6 divisions for the
+    centroids, each sweep's three column dot products (18 a pair), the
+    singular values, the sort, u1, u2 and u1 x u2 (~60), R (45) and t (18).
+    The rotations that converged pairs skip are not counted: a lower count."""
+    return n_fits * (40 * n_points + 6 + 54 * K3_SWEEPS + 129)
+
+
+def _k3_sets(kind: str, b: int, n: int, seed: int = 1):
+    """tests/test_torch_kabsch.py's point sets on the card: p, q [b, n, 3], w [b, n]."""
+    from texturefusion_torch.core import se3
+    rng = np.random.default_rng(seed)
+    p = rng.normal(0.0, 1.0, (b, n, 3)) + [0.0, 0.0, 2.0]
+    if kind == "planar":
+        p[..., 2] = 2.0
+    if kind == "collinear":
+        p = (np.linspace(0.0, 1.0, n)[None, :, None] * np.array([1.0, 0.5, 0.2])
+             + rng.normal(0.0, 0.05, (b, n, 3)))
+    r = se3.so3_exp(torch.as_tensor(rng.normal(0.0, 0.3, (b, 3)))).numpy()
+    if kind == "reflect":
+        r = r * np.array([1.0, 1.0, -1.0])
+    t = rng.normal(0.0, 0.2, (b, 3))
+    q = np.einsum("bji,bnj->bni", r, p - t[:, None]) + rng.normal(0.0, 0.002, (b, n, 3))
+    w = rng.uniform(0.5, 1.5, (b, n))
+    if kind == "zero":
+        w[:, :n // 2] = 0.0
+        w[0] = 0.0
+    return tuple(torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (p, q, w))
+
+
+def _k3_errors(got, p, q, w) -> dict:
+    """K3's result against the plain version in float64 (on the fits whose
+    sigma2 / sigma1 > K3_WELL_POSED) and det R over every fit."""
+    from texturefusion_torch.slam import matching
+    p64, q64, w64 = (x.double().cpu() for x in (p, q, w))
+    want = matching.kabsch_plain(p64, q64, w64)
+    pc = (p64 * w64[..., None]).sum(-2) / w64.sum(-1).clamp(min=1e-9)[..., None]
+    qc = (q64 * w64[..., None]).sum(-2) / w64.sum(-1).clamp(min=1e-9)[..., None]
+    h = (q64 - qc[..., None, :]).transpose(-1, -2) @ ((p64 - pc[..., None, :]) * w64[..., None])
+    sv = torch.linalg.svdvals(h)
+    posed = sv[..., 1] > K3_WELL_POSED * sv[..., 0]
+    got = got.double().cpu()
+    err = float((got - want)[posed].abs().max()) if posed.any() else 0.0
+    det = torch.linalg.det(got[..., :3, :3])
+    return {"err_f64": err, "posed": int(posed.sum()), "fits": int(posed.numel()),
+            "det_err": float((det - 1.0).abs().max())}
+
+
+def phase_k3(path_inputs):
+    """K3 against its plain version: the point sets of
+    tests/test_torch_kabsch.py (random, planar, near-collinear,
+    reflection-prone, zero-weight) at 400 and 100 fits of 4 points and 64
+    of 50, and every kabsch call of one VGA frame step and one promotion
+    probe ([graphs] recorded them: the path's shapes and data), each
+    within K3_TOL_F64 of the plain version in float64 on its well-posed
+    fits, det R within 1e-6 of 1 on all; random sets within K3_TOL of the
+    plain version in float32. Timed at the frame step's first RANSAC call
+    (400 fits of 4 points)."""
+    from texturefusion_torch.ops import cuda_kernels
+    from texturefusion_torch.slam import matching
+    worst = {"err_f64": 0.0, "det_err": 0.0, "err_f32": 0.0}
+    cases = [(f"{kind} {b}x{n}", _k3_sets(kind, b, n if kind != "zero" or n > 4 else 8))
+             for kind in ("random", "planar", "collinear", "reflect", "zero")
+             for b, n in ((400, 4), (100, 4), (64, 50))]
+    cases += [(f"path call {i} {tuple(p.shape[:-1])}", (p, q, w))
+              for i, (p, q, w) in enumerate(path_inputs)]
+    for name, (p, q, w) in cases:
+        got = cuda_kernels.kabsch_cuda(p, q, w)
+        torch.cuda.synchronize()
+        e = _k3_errors(got, p, q, w)
+        if name.startswith("random"):
+            want = matching.kabsch_plain(p, q, w)
+            e["err_f32"] = float((got - want).abs().max())
+        for k in worst:
+            worst[k] = max(worst[k], e.get(k, 0.0))
+        if not (e["err_f64"] <= K3_TOL_F64 and e["det_err"] <= 1e-6
+                and e.get("err_f32", 0.0) <= K3_TOL):
+            raise AssertionError(f"[k3] {name}: K3 disagrees with its plain version: {e}")
+    log(f"[k3] {len(cases)} cases ({len(path_inputs)} kabsch calls of the path): largest "
+        f"error against the plain version in float64 {worst['err_f64']:.3e} (tol "
+        f"{K3_TOL_F64}), in float32 on random sets {worst['err_f32']:.3e} (tol {K3_TOL}), "
+        f"|det R - 1| {worst['det_err']:.3e}")
+    p, q, w = path_inputs[0]
+    fits, n = p.shape[0], p.shape[1]
+    t = timing_fields(lambda: cuda_kernels.kabsch_cuda(p, q, w),
+                      lambda: matching.kabsch(p, q, w),
+                      lambda: matching.kabsch_plain(p, q, w),
+                      fits * (7 * n + 16) * 4, {"fp64": (k3_ops(fits, n), FP64_FLOPS_PER_S)})
+    log(f"[k3] kabsch {fits} fits of {n} points: {fmt_times(t)}")
+    return {"max_abs_err": max(worst["err_f64"], worst["err_f32"]), **t}
+
+
+def bit_equal(a, b) -> bool:
+    """Every tensor of two results equal bit for bit (NaN where NaN)."""
+    from texturefusion_torch.utils import graphs
+    la, lb = [], []
+    graphs.flatten(a, la)
+    graphs.flatten(b, lb)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and bool(((x == y) | ((x != x) & (y != y))).all()) for x, y in zip(la, lb))
+
+
+_LAUNCH_CALLS = ("cudaGraphLaunch", "cudaMemcpyAsync", "cudaLaunchKernel", "cudaLaunchKernelExC",
+                 "cuLaunchKernel", "cuLaunchKernelEx", "cudaMemsetAsync")
+
+
+def host_launches(fn) -> dict:
+    """The launches (graph launches, copies, kernel launches, fills) the
+    host makes in one fn() call, from torch.profiler's runtime events."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return dict(collections.Counter(e.name for e in prof.events() if e.name in _LAUNCH_CALLS))
+
+
+def _graph_call_check(name, cache, call) -> dict:
+    """One replay of `call` (a program of `cache` already made) under
+    torch.cuda.set_sync_debug_mode("error"), then its host launches: one
+    graph launch and a copy per input and output tensor of the program."""
+    replays = {id(p): p.replays for p in cache.programs.values()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    prog = next(p for p in cache.programs.values() if p.replays != replays.get(id(p)))
+    calls = host_launches(call)
+    copies = len(prog.inputs) + len(prog.outputs)
+    if calls.get("cudaGraphLaunch") != 1 or sum(calls.values()) != 1 + copies:
+        raise AssertionError(f"[graphs] {name}: a call launched {calls}, not one graph and "
+                             f"{copies} copies")
+    return {"launches": calls, "copies": copies}
+
+
+def _capture_beside_a_busy_thread(programs) -> list:
+    """Each (cache, call, eager result): the cache emptied, then the call
+    made twice (its capture, then a replay) while another thread launches
+    work on its own stream, as the fusion thread does during a promotion;
+    whether both results equal the eager one bit for bit."""
+    import threading
+    stop = threading.Event()
+
+    def busy():
+        x = torch.rand(1 << 20, device="cuda")
+        with torch.cuda.stream(torch.cuda.Stream()):
+            while not stop.is_set():
+                x = torch.sqrt(x * x + 1e-3)
+
+    worker = threading.Thread(target=busy)
+    worker.start()
+    try:
+        out = []
+        for cache, call, want in programs:
+            cache.clear()
+            out.append(all(bit_equal(want, call()) for _ in range(2)))
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        worker.join()
+    return out
+
+
+def phase_graphs(frames, n_tiny=30):
+    """The tracker's two programs captured as CUDA graphs
+    (utils/graphs.py) against their eager versions: frame_step_tracked2
+    bit for bit (keypoints, stats2, the bundle's planes, the fused depth
+    and weight: every output) on [tracked-small]'s 30 tiny orbit frames and
+    3 of [tracked]'s VGA frames (each against the first frame as its
+    keyframe and the frame before it, with its own draws), and
+    promote_probe at 5 candidates over a VGA DB of 9 keyframes of the loop
+    (rows in use 9 and 1). One replay of each under
+    set_sync_debug_mode("error"), and its host launches: one graph launch
+    plus the copies in and out; each captured again while another thread
+    launches on the card, bit for bit. Eager against graphed host ms of
+    both programs. Returns the kabsch inputs of one eager VGA frame step and
+    probe, for [k3]."""
+    from texturefusion_torch.core import camera as cam
+    from texturefusion_torch.models import reconstruction as rec
+    from texturefusion_torch.ops import preprocess
+    from texturefusion_torch.slam import loopclosure, matching, promote
+    from texturefusion_torch.slam.features import extract_features
+    from texturefusion_torch.utils import devtime
+
+    def step_inputs(config, packed):
+        intr = cam.Intrinsics.from_config(config.camera)
+        ds = config.camera.depth_scale
+        dev_packed = [torch.as_tensor(p).cuda() for p in packed]
+        b0 = preprocess.preprocess_bundle(dev_packed[0], None, intr, depth_scale=ds)
+        kp0 = extract_features(b0[3], b0[0], config.tracking, intr)
+        return intr, ds, dev_packed, kp0, b0[0], (b0[0] > 0).to(torch.float32)
+
+    def compare_steps(config, packed, indices):
+        intr, ds, dp, kp0, kfd, kfw = step_inputs(config, packed)
+        kp_prev, n_same = kp0, 0
+        for i in indices:
+            args = (dp[i], None, kp0, kp_prev, kfd, kfw, 7, i, intr, config.tracking, ds)
+            draws = rec.tracked_draws(7, i, config.tracking, "cuda")
+            want = rec.frame_step_tracked2(*args, draws=draws)
+            got = rec.frame_step_tracked2_captured(*args, draws=draws)
+            n_same += bit_equal(want, got)
+            kp_prev = want[1]
+        return n_same, (intr, ds, dp, kp0, kfd, kfw)
+
+    tiny = _tracked_config(small=True)
+    _, tiny_packed = _orbit_frames(tiny, n_tiny)
+    same_tiny, _ = compare_steps(tiny, tiny_packed, range(1, n_tiny))
+    config, _, packed = frames
+    vga_frames = (1, 47, 70)
+    same_vga, (intr, ds, dp, kp0, kfd, kfw) = compare_steps(config, packed, vga_frames)
+    draws = rec.tracked_draws(7, 3, config.tracking, "cuda")
+    step = (dp[3], None, kp0, kp0, kfd, kfw, 7, 3, intr, config.tracking, ds)
+    step_check = _graph_call_check("frame_step_tracked2", rec.FRAME_STEP_PROGRAMS,
+                                   lambda: rec.frame_step_tracked2_captured(*step, draws=draws))
+
+    # the probe over 9 keyframes of the loop; the query returns to the start
+    r_max, pad = config.ba.max_keyframes, config.tracking.max_features_pad
+    db = loopclosure.KeyframeDescriptorDB(max_keyframes=r_max, device="cuda")
+    kdb = promote.KeypointDB(r_max, pad, "cuda")
+    r2s = torch.full((r_max,), -1, dtype=torch.int64, device="cuda")
+    for slot, i in enumerate(range(0, 108, 12)):
+        b = preprocess.preprocess_bundle(torch.as_tensor(packed[i]).cuda(), None, intr,
+                                         depth_scale=ds)
+        k = extract_features(b[3], b[0], config.tracking, intr)
+        db.add(slot, k.desc, k.valid)
+        kdb.add(slot, k)
+        r2s[slot] = slot
+    bq = preprocess.preprocess_bundle(torch.as_tensor(packed[len(packed) - 2]).cuda(), None,
+                                      intr, depth_scale=ds)
+    kq = extract_features(bq[3], bq[0], config.tracking, intr)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    pdraws = matching.ransac_draws(config.tracking, pad, gen, (5,))
+    tracked = rec.frame_step_tracked2(dp[1], None, kp0, kp0, kfd, kfw, 7, 1, intr,
+                                      config.tracking, ds, draws=rec.tracked_draws(
+                                          7, 1, config.tracking, "cuda"))[2].stats
+
+    def sc(v, dtype):
+        return torch.full((), v, dtype=dtype, device="cuda")
+
+    def probe_args(n_rows, have_tracked):
+        return (kdb.kp, db.desc, db.valid, r2s, sc(n_rows, torch.int64),
+                sc(n_rows - 1, torch.int64), kq, tracked, sc(have_tracked, torch.bool), pdraws,
+                config.tracking.salient_score_threshold, config.ba.huber_delta,
+                config.tracking, intr, 5)
+
+    probe_same, admitted = [], 0
+    for n_rows, have in ((9, False), (9, True), (1, True)):
+        a = probe_args(n_rows, have)
+        want = promote.promote_probe(*a)
+        got = [promote.promote_probe_captured(*a) for _ in range(2)]    # the first is eager
+        probe_same.append(all(bit_equal(want, g) for g in got))
+        admitted = max(admitted, int(want.cand_ok[1:].sum()))
+    a = probe_args(9, True)
+    probe_check = _graph_call_check("promote_probe", promote.PROBE_PROGRAMS,
+                                    lambda: promote.promote_probe_captured(*a))
+    concurrent = _capture_beside_a_busy_thread(
+        [(rec.FRAME_STEP_PROGRAMS, lambda: rec.frame_step_tracked2_captured(*step, draws=draws),
+          rec.frame_step_tracked2(*step, draws=draws)),
+         (promote.PROBE_PROGRAMS, lambda: promote.promote_probe_captured(*a),
+          promote.promote_probe(*a))])
+    times = {"frame_step_tracked2": (
+        devtime.host_ms(lambda: rec.frame_step_tracked2(*step, draws=draws), "cuda", 5),
+        devtime.host_ms(lambda: rec.frame_step_tracked2_captured(*step, draws=draws), "cuda", 5)),
+        "promote_probe(5 cand)": (
+            devtime.host_ms(lambda: promote.promote_probe(*a), "cuda", 5),
+            devtime.host_ms(lambda: promote.promote_probe_captured(*a), "cuda", 5))}
+
+    # the kabsch calls of one eager frame step and one eager probe, for [k3]
+    recorded, kabsch = [], matching.kabsch
+
+    def record(p, q, w):
+        recorded.append((p.clone(), q.clone(), w.clone()))
+        return kabsch(p, q, w)
+
+    matching.kabsch = record
+    try:
+        rec.frame_step_tracked2(*step, draws=draws)
+        promote.promote_probe(*a)
+    finally:
+        matching.kabsch = kabsch
+    torch.cuda.synchronize()
+    log(f"[graphs] frame_step_tracked2 captured against eager, bit for bit on "
+        f"{same_tiny} of {n_tiny - 1} tiny frames and {same_vga} of {len(vga_frames)} VGA "
+        f"frames; promote_probe(5 cand) bit for bit {probe_same} (rows in use 9, 9 tracked, "
+        f"1; {admitted} loop candidates admitted); programs frame step "
+        f"{len(rec.FRAME_STEP_PROGRAMS.programs)}, probe {len(promote.PROBE_PROGRAMS.programs)}")
+    log(f"[graphs] a replay under set_sync_debug_mode('error'): no sync; host launches a call: "
+        f"frame step {json.dumps(step_check)}, probe {json.dumps(probe_check)}")
+    log(f"[graphs] captured again while another thread launched on the card: bit for bit "
+        f"{concurrent}")
+    log("[graphs] host ms a call (median of 5, each ending in a synchronize), eager | graphed: "
+        + ", ".join(f"{k} {e:.3f} | {g:.3f}" for k, (e, g) in times.items()))
+    if not (same_tiny == n_tiny - 1 and same_vga == len(vga_frames) and all(probe_same)
+            and all(concurrent)):
+        raise AssertionError("[graphs] a captured program disagrees with its eager version")
+    return recorded
+
+
 SOL_N = 5                     # [sol]: timed calls of each program
 SCALING_CAP = 4096            # [bench-multichip]: slots of the sharded TSDF step
 
@@ -2687,7 +3025,7 @@ def phase_sol():
     shares = [v for r in rows for v in r["frac_of_roofline"].values()]
     log(f"[sol] {len(rows)} rows, largest share {max(shares):.4f}; launches "
         f"{json.dumps(launches)}")
-    if [r["kernel"] for r in rows] != list(sol.ROWS) or max(shares) > 1.0:
+    if [r["kernel"] for r in rows] != list(sol.ROWS + sol.GRAPHED_ROWS) or max(shares) > 1.0:
         raise AssertionError("[sol] rows out of order, or a share above 1.0")
     if min(launches.values()) <= 0:
         raise AssertionError(f"[sol] a kernel was not launched: {launches}")
@@ -3073,6 +3411,7 @@ def main() -> int:
     timed("profile", phase_profile, frames)
     tracked_launches, tracked_frames = timed("tracked", phase_tracked)
     timed("tracked-small", phase_tracked_small, tracked_frames)
+    k3 = timed("k3", phase_k3, timed("graphs", phase_graphs, tracked_frames))
     timed("profile-tracked", phase_profile_tracked, tracked_frames)
     runs = [timed("pipeline", phase_pipeline, tracked_frames)]
     k2f.update(timed("k2-frames-path", phase_k2_frames_path, runs[0]["frame_shapes"]))
@@ -3119,6 +3458,10 @@ def main() -> int:
          "source": "texturefusion_torch/csrc/tsdf_integrate.cu",
          "replaces": "examples/pallas_voxel_kernel.py:230",
          "launches": total("tsdf_integrate_frames"), **k2f},
+        {"name": "kabsch", "route": "cuda",
+         "source": "texturefusion_torch/csrc/kabsch.cu",
+         "replaces": "texturefusion_tpu/slam/matching.py:53",
+         "launches": total("kabsch", tracked_launches["kabsch"]), **k3},
     ]
     log(f"[launches] per phase: slice {json.dumps(launches)}, tracked "
         f"{json.dumps(tracked_launches)}, pipeline / pipeline-async / pipeline-stream / "

@@ -11,7 +11,8 @@ a tiny textured run over eight CPU shards: the texture audit reads the
 sharded volume and pool as the unsharded ones, and sharded_cycle_check
 finds the cycle through the sharded reader exact. [sol]'s operation counts
 of a row's work, its report with the launches a frame of [pipeline], and
-the check of the measurement phases' times."""
+the check of the measurement phases' times. [graphs]'s bit-for-bit
+comparison of two results and [k3]'s operation count."""
 
 import importlib.util
 import os
@@ -308,3 +309,21 @@ def test_positive_times_rejects_a_bad_time(bad):
                                                               "device_ops": None}})
     with pytest.raises(AssertionError, match="a time not finite and positive"):
         chip_smoke._positive_times("x", {"a": {**good, **bad}})
+
+
+def test_bit_equal_holds_every_tensor_of_two_results():
+    import torch
+    a = (torch.tensor([1.0, float("nan")]), [torch.arange(3)], None)
+    assert chip_smoke.bit_equal(a, (a[0].clone(), [torch.arange(3)], None))
+    assert not chip_smoke.bit_equal(a, (torch.tensor([1.0, 2.0]), [torch.arange(3)], None))
+    assert not chip_smoke.bit_equal(a, (a[0].clone(), [torch.arange(3).to(torch.int32)], None))
+    assert not chip_smoke.bit_equal(a, (a[0].clone(),))
+
+
+def test_k3_operation_count():
+    # per point 13 + 27, per fit 6 + 18 a pair and sweep + 129
+    assert chip_smoke.k3_ops(1, 0) == 6 + 54 * chip_smoke.K3_SWEEPS + 129
+    assert chip_smoke.k3_ops(400, 4) == 400 * chip_smoke.k3_ops(1, 4)
+    assert chip_smoke.k3_ops(1, 5) - chip_smoke.k3_ops(1, 4) == 40
+    src = open(os.path.join(ROOT, "texturefusion_torch", "csrc", "kabsch.cu")).read()
+    assert f"constexpr int kSweeps = {chip_smoke.K3_SWEEPS};" in src

@@ -98,9 +98,9 @@ class Logged:
 
     stale_slot = None
 
-    def _integrate_keyframe(self, st, sign, prefetched=None):
+    def _integrate_keyframe(self, st, sign, prefetched=None, **kw):
         self.log["integrated"].append((st.kf_slot, sign, len(self.log["deferred"])))
-        super()._integrate_keyframe(st, sign, prefetched=prefetched)
+        super()._integrate_keyframe(st, sign, prefetched=prefetched, **kw)
         if sign > 0:    # the chunk ids integrated, before GC recycles any slot
             self.chunk_sets.setdefault(st.kf_slot, []).append(sorted(self._chunk_ids(st)))
 
@@ -248,6 +248,46 @@ def test_a_stale_prefetch_integrates_a_cycle_later(stale_runs, seq):
     first = [c for s, sign, c in tp.log["integrated"] if s == STALE_SLOT and sign > 0][0]
     assert first == deferred[0] + 1
     assert tp.kf_states[STALE_SLOT].integrated and tp.chunk_sets[STALE_SLOT]
+
+
+class PosesOfDeferral(PortDeferred):
+    """Records the stale keyframe's pose at the cycle that defers it, at
+    the consume that integrates it, and the pose it was integrated at; a
+    BA correction of 2 cm along x lands just before that consume."""
+
+    def _consume_deferred_integration(self, force=False):
+        if self.stale_slot in self._deferred_integration:
+            self.slam.poses[self.stale_slot][:3, 3] += np.asarray([0.02, 0.0, 0.0], np.float32)
+        super()._consume_deferred_integration(force=force)
+
+    def fusion_cycle(self, finished_slot):
+        super().fusion_cycle(finished_slot)
+        if finished_slot == self.stale_slot and finished_slot in self._deferred_integration:
+            self.deferral_pose = np.array(self._deferred_integration[finished_slot][1])
+
+    def _integrate_keyframe(self, st, sign, prefetched=None, **kw):
+        first = st.kf_slot == self.stale_slot and sign > 0 and not hasattr(self, "first_pose")
+        if first:
+            self.pose_at_consume = self.slam.keyframe_pose(st.kf_slot)
+        super()._integrate_keyframe(st, sign, prefetched=prefetched, **kw)
+        if first:
+            self.first_pose = np.array(st.integrated_pose)
+
+
+def test_a_deferred_integration_runs_at_its_discovery_pose(seq):
+    """Fault 22 (the JAX package's, repaired in the port): a keyframe whose
+    stale prefetch was replaced by a discovery at its pose then is
+    integrated a cycle later over that set, so at that pose too. The JAX
+    package integrates it at the keyframe's pose at the consume, which a
+    BA between the two cycles may have moved, over a set discovered for
+    the other pose."""
+    _, depths, rgbs = seq
+    tp = PosesOfDeferral(CFG, stale_slot=STALE_SLOT)
+    for i in range(N_STALE):
+        tp.process_frame(np.asarray(depths[i]), np.asarray(rgbs[i]), timestamp=float(i))
+    tp.finish()
+    assert np.abs(tp.pose_at_consume - tp.deferral_pose).max() > 0.01
+    np.testing.assert_array_equal(tp.first_pose, tp.deferral_pose)
 
 
 def test_a_stale_prefetch_in_a_synchronous_cycle_fault_19(seq):

@@ -1,0 +1,408 @@
+"""The captured programs (utils/graphs.py): the tracker's two per-frame
+programs as one CUDA graph each, checked on the CPU.
+
+(a) Capture safety: frame_step_tracked2 and promote_probe at the tiny
+    config under graphs.HostSyncGuard, the dispatch mode the capture runs
+    under, which fails on any op that reads a tensor on the host
+    (`_local_scalar_dense`, `is_nonzero`, `equal`), makes a tensor from
+    host data (`lift_fresh`), copies between the host and the card, gives
+    a shape that depends on the data (`nonzero`, `masked_select`,
+    boolean-mask indexing, `unique*`), or solves with a host check
+    (`linalg_svd`, `linalg_eigh`), except inside the plain versions of
+    K1 and K3 (what the card runs as kernels). Each kind of op is shown
+    to trip the guard.
+(b) Outputs that outlive a call: `ReplayStandIn` replays as a graph does
+    (every call's results written into the same output tensors) through
+    the cache's real copies in and out. Under it, the pipelined tracker
+    (depths 1-3, deferred promotion, stale-frame refinement, 16 orbit
+    frames) takes the same keyframes, stale frames and adopted
+    refinements, and gives the same poses bit for bit, as the direct run.
+(c) The probe with device scalars against the JAX `promote_probe`, at
+    test_torch_loopclosure.py's tolerances (same candidate slots and
+    admission, stats 1e-4, edge sums rtol 1e-4, match indices on ≥ 99% of
+    the slots), with 0, 1 and 6 rows in use, and in a DB of twice the
+    capacity: a second program, equal results.
+(d) The cache: a second static key captures a second program and a
+    repeated key replays the first; a function that fails, or that reads
+    a tensor on the host, raises through the cache with the op named,
+    is not cached and is never run eagerly in its place.
+"""
+
+import contextlib
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_draws import batch_draws
+from texturefusion_tpu.config import tiny_test_config as jax_tiny_config
+from texturefusion_tpu.core import camera as jcam
+from texturefusion_tpu.io import synthetic as jsyn
+from texturefusion_tpu.ops import preprocess as jpre
+from texturefusion_tpu.slam import features as jf
+from texturefusion_tpu.slam import loopclosure as jlc
+from texturefusion_tpu.slam import promote as jpr
+from texturefusion_torch.config import tiny_test_config
+from texturefusion_torch.core import camera as tcam
+from texturefusion_torch.fusion.pipeline import ReconstructionPipeline
+from texturefusion_torch.io import synthetic as tsyn
+from texturefusion_torch.models import reconstruction as rec
+from texturefusion_torch.ops import preprocess as tpre
+from texturefusion_torch.slam import loopclosure as tlc
+from texturefusion_torch.slam import matching as tm
+from texturefusion_torch.slam import promote as tpr
+from texturefusion_torch.slam.features import extract_features
+from texturefusion_torch.utils import graphs
+from texturefusion_torch.utils.convert import keypoints_from_numpy
+
+torch.set_num_threads(2)
+
+CFG = tiny_test_config()
+TI = tcam.Intrinsics.from_config(CFG.camera)
+JI = jcam.Intrinsics.from_config(jax_tiny_config().camera)
+SCALE = CFG.camera.depth_scale
+N_CAND = 5
+
+
+class ReplayStandIn(graphs.CapturedProgram):
+    """A graph's replay on the CPU: the function runs on the program's own
+    input tensors and writes its results into the same output tensors at
+    every call, as a replay does; the cache's copies in and out are its
+    own. `guarded` keeps HostSyncGuard around the capture-time call."""
+
+    guarded = False
+
+    def _capturing(self):
+        return contextlib.nullcontext()
+
+    def _guarding(self, guard):
+        return guard if self.guarded else contextlib.nullcontext()
+
+    def _replay(self):
+        leaves = []
+        graphs.flatten(self.fn(*self.args, **self.static), leaves)
+        for dst, src in zip(self.outputs, leaves):
+            dst.copy_(src)
+
+    def _wait(self):
+        pass
+
+    def _record(self):
+        pass
+
+
+def _clear_programs():
+    rec.FRAME_STEP_PROGRAMS.clear()
+    tpr.PROBE_PROGRAMS.clear()
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    """CPU calls through the captured-program cache, replayed by ReplayStandIn."""
+    monkeypatch.setattr(graphs, "CapturedProgram", ReplayStandIn)
+    monkeypatch.setattr(graphs, "_captures", lambda device: True)
+    _clear_programs()
+    yield ReplayStandIn
+    _clear_programs()
+
+
+def _packed(n_frames, seed=3):
+    poses = tsyn.orbit_trajectory(n_frames)
+    depths, rgbs = tsyn.render_sequence(tsyn.BoxRoomScene(), TI, poses, device="cpu")
+    rng = np.random.default_rng(seed)
+    out = []
+    for d, c in zip(depths, rgbs):
+        dn = np.where(d > 0, d + rng.normal(0, 0.004, d.shape) * np.maximum(d, 0.5), 0.0)
+        out.append(tpre.pack_frame((dn * SCALE).astype(np.uint16), (c * 255).astype(np.uint8)))
+    return poses, out
+
+
+def _features(packed):
+    b = tpre.preprocess_bundle(torch.as_tensor(packed), None, TI, depth_scale=SCALE)
+    return b, extract_features(b[3], b[0], CFG.tracking, TI)
+
+
+@pytest.fixture(scope="module")
+def step_inputs():
+    _, packed = _packed(6)
+    b0, kp0 = _features(packed[0])
+    _, kp1 = _features(packed[1])
+    draws = rec.tracked_draws(7, 2, CFG.tracking, "cpu")
+    return (torch.as_tensor(packed[2]), None, kp0, kp1, b0[0], (b0[0] > 0).to(torch.float32),
+            draws)
+
+
+@pytest.fixture(scope="module")
+def probe_db(step_inputs):
+    """A KeypointDB and descriptor DB of 4 keyframes (slots 0-3) and the
+    query frame's keypoints."""
+    _, packed = _packed(12)
+    r_max = CFG.ba.max_keyframes
+    db = tlc.KeyframeDescriptorDB(max_keyframes=r_max, device="cpu")
+    kdb = tpr.KeypointDB(r_max, CFG.tracking.max_features_pad, "cpu")
+    r2s = torch.full((r_max,), -1, dtype=torch.int64)
+    for slot, f in enumerate((0, 3, 6, 9)):
+        _, kp = _features(packed[f])
+        db.add(slot, kp.desc, kp.valid)
+        kdb.add(slot, kp)
+        r2s[slot] = slot
+    _, kq = _features(packed[11])
+    gen = torch.Generator().manual_seed(11)
+    draws = tm.ransac_draws(CFG.tracking, CFG.tracking.max_features_pad, gen, (N_CAND,))
+    return db, kdb, r2s, kq, draws
+
+
+def _probe_args(probe_db, n_rows=4, last_slot=3, have_tracked=False):
+    db, kdb, r2s, kq, draws = probe_db
+    return (kdb.kp, db.desc, db.valid, r2s, torch.tensor(n_rows), torch.tensor(last_slot), kq,
+            torch.zeros(21), torch.tensor(have_tracked), draws,
+            CFG.tracking.salient_score_threshold, CFG.ba.huber_delta, CFG.tracking, TI, N_CAND)
+
+
+# (a) ---------------------------------------------------------------------
+
+class PlainExempt(graphs.HostSyncGuard):
+    """HostSyncGuard that lets the plain versions of K1 and K3 (which the
+    card runs as kernels) through: ops inside `exempt()` are not checked."""
+
+    def __init__(self):
+        super().__init__()
+        self.depth = 0
+
+    @contextlib.contextmanager
+    def exempt(self):
+        self.depth += 1
+        try:
+            yield
+        finally:
+            self.depth -= 1
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if self.depth:
+            return func(*args, **(kwargs or {}))
+        return super().__torch_dispatch__(func, types, args, kwargs)
+
+
+@pytest.fixture
+def guard(monkeypatch):
+    """PlainExempt around kabsch_plain and bilateral_filter_plain."""
+    g = PlainExempt()
+    for module, name in ((tm, "kabsch_plain"), (tpre, "bilateral_filter_plain")):
+        plain = getattr(module, name)
+
+        def exempt(*args, _plain=plain, **kw):
+            with g.exempt():
+                return _plain(*args, **kw)
+
+        monkeypatch.setattr(module, name, exempt)
+    return g
+
+
+def test_frame_step_is_capture_safe(guard, step_inputs):
+    packed, rgb, kp0, kp1, kf_depth, kf_weight, draws = step_inputs
+    want = rec.frame_step_tracked2(packed, rgb, kp0, kp1, kf_depth, kf_weight, 7, 2, TI,
+                                   CFG.tracking, SCALE, draws=draws)
+    with guard:
+        got = rec.frame_step_tracked2(packed, rgb, kp0, kp1, kf_depth, kf_weight, 7, 2, TI,
+                                      CFG.tracking, SCALE, draws=draws)
+    assert torch.equal(got[4], want[4]) and float(got[4][0]) == 1.0    # tracked vs keyframe
+
+
+@pytest.mark.parametrize("have_tracked", [False, True])
+def test_probe_is_capture_safe(guard, probe_db, have_tracked):
+    args = _probe_args(probe_db, have_tracked=have_tracked)
+    want = tpr.promote_probe(*args)
+    with guard:
+        got = tpr.promote_probe(*args)
+    assert torch.equal(got.fetch, want.fetch)
+
+
+@pytest.mark.parametrize("op", ["item", "bool", "nonzero", "masked_select", "bool_index",
+                                "bool_setitem", "unique", "svd", "eigh", "from_host"])
+def test_guard_trips_on_each_kind(op):
+    x = torch.arange(9, dtype=torch.float32).reshape(3, 3) + torch.eye(3) * 10
+    ops = {"item": lambda: x.sum().item(), "bool": lambda: bool(x.sum() > 0),
+           "nonzero": lambda: torch.nonzero(x > 3), "masked_select": lambda: x[x > 3].sum(),
+           "bool_index": lambda: x[x.sum(1) > 20], "bool_setitem": lambda: x.clone().__setitem__(
+               x > 3, x.sum()), "unique": lambda: torch.unique(x.round()),
+           "svd": lambda: torch.linalg.svd(x), "eigh": lambda: torch.linalg.eigh(x + x.T),
+           "from_host": lambda: torch.tensor([1.0, 2.0]) + x[0, :2]}
+    with pytest.raises(RuntimeError, match="host|data|solver"):
+        with graphs.HostSyncGuard():
+            ops[op]()
+
+
+# (b) ---------------------------------------------------------------------
+
+class TrackingOnly(ReconstructionPipeline):
+    def fusion_cycle(self, finished_slot):
+        pass
+
+
+def _pipelined_run(config, packed):
+    pipe = TrackingOnly(config, device="cpu")
+    for i, frame in enumerate(packed):
+        pipe.process_frame(frame, timestamp=float(i), host_packed=frame)
+    pipe.flush_tracking()
+    slam = pipe.slam
+    return ([k.frame_index for k in slam.keyframes], list(slam.stale_frames),
+            slam.refine_adopted, slam.promote_late, slam.trajectory())
+
+
+@pytest.fixture(scope="module")
+def orbit16():
+    return _packed(16, seed=5)[1]
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_pipelined_tracker_through_the_cache(stand_in, orbit16, depth):
+    config = CFG.replace(parallel=dataclasses.replace(CFG.parallel, pipelined_tracking=True,
+                                                      pipeline_depth=depth))
+    assert config.tracking.defer_promote and config.tracking.refine_stale
+    _clear_programs()
+    graphed = _pipelined_run(config, orbit16)
+    n_programs = (len(rec.FRAME_STEP_PROGRAMS.programs), len(tpr.PROBE_PROGRAMS.programs))
+    replays = sum(p.replays for p in rec.FRAME_STEP_PROGRAMS.programs.values())
+    with pytest.MonkeyPatch.context() as mp:      # the direct run: no cache at all
+        mp.setattr(graphs, "_captures", lambda device: False)
+        direct = _pipelined_run(config, orbit16)
+    # the first depth + 1 frames are dispatched before the first keyframe is
+    # adopted; the first tracked one runs eagerly and makes the program
+    assert n_programs == (1, 1) and replays == len(orbit16) - 2 - depth
+    assert len(graphed[0]) >= 3 and graphed[:4] == direct[:4]
+    if depth >= 2:
+        assert graphed[1], "no frame finalized against a superseded keyframe"
+    np.testing.assert_array_equal(graphed[4], direct[4])
+
+
+# (c) ---------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def jax_state():
+    """test_torch_loopclosure's keyframes: the loop of 12 frames, 6 keyframes."""
+    poses = jsyn.loop_trajectory(12, radius=0.6)
+    depths, rgbs = jsyn.render_sequence(jsyn.BoxRoomScene(), JI, poses)
+    jcfg = jax_tiny_config()
+    jkp = [jf.extract_features(jpre.rgb_to_gray(jnp.asarray(c)) * 255.0, jnp.asarray(d),
+                               jcfg.tracking, JI) for d, c in zip(depths, rgbs)]
+    return jkp, [keypoints_from_numpy(k, "cpu") for k in jkp]
+
+
+def _dbs(jax_state, n_rows, capacity):
+    jkp, tkp = jax_state
+    jdb = jlc.KeyframeDescriptorDB(max_keyframes=capacity)
+    tdb = tlc.KeyframeDescriptorDB(max_keyframes=capacity, device="cpu")
+    jkdb = jpr.KeypointDB(capacity, CFG.tracking.max_features_pad)
+    tkdb = tpr.KeypointDB(capacity, CFG.tracking.max_features_pad, "cpu")
+    for slot, f in enumerate((0, 2, 4, 6, 8, 10)[:n_rows]):
+        jdb.add(slot, jkp[f].desc, jkp[f].valid)
+        tdb.add(slot, tkp[f].desc, tkp[f].valid)
+        jkdb.add(slot, jkp[f])
+        tkdb.add(slot, tkp[f])
+    return jdb, tdb, jkdb, tkdb
+
+
+@pytest.mark.parametrize("n_rows,capacity", [(6, 8), (6, 16), (1, 8), (0, 8)])
+def test_probe_with_device_scalars_matches_jax(stand_in, jax_state, n_rows, capacity):
+    jkp, tkp = jax_state
+    jdb, tdb, jkdb, tkdb = _dbs(jax_state, n_rows, capacity)
+    last_slot = max(n_rows - 1, 0)
+    r2s = np.full(capacity, -1, np.int32)
+    r2s[:n_rows] = np.arange(n_rows)
+    key = jax.random.PRNGKey(11)
+    args = (CFG.tracking.salient_score_threshold, CFG.ba.huber_delta)
+    jp = jpr.promote_probe(jkdb.kp, jdb.desc, jdb.valid, jnp.asarray(r2s), jnp.int32(n_rows),
+                           jnp.int32(last_slot), jkp[11], jnp.zeros(21), jnp.asarray(False),
+                           key, *args, jax_tiny_config().tracking, JI, N_CAND)
+    targs = (tkdb.kp, tdb.desc, tdb.valid, torch.as_tensor(r2s).long(), torch.tensor(n_rows),
+             torch.tensor(last_slot), tkp[11], torch.zeros(21), torch.tensor(False),
+             batch_draws(key, N_CAND, CFG.tracking, CFG.tracking.max_features_pad), *args,
+             CFG.tracking, TI, N_CAND)
+    first = tpr.promote_probe_captured(*targs)          # eager; makes the program
+    tp = tpr.promote_probe_captured(*targs)             # the replay
+    assert all(torch.equal(a, b) for a, b in zip(tp, first))
+    np.testing.assert_array_equal(tp.cand_slots.numpy(), np.asarray(jp.cand_slots))
+    np.testing.assert_array_equal(tp.cand_ok.numpy(), np.asarray(jp.cand_ok))
+    if n_rows == 6:
+        assert tp.cand_ok[1:].any()                  # a loop-closure candidate is admitted
+    np.testing.assert_allclose(tp.stats.numpy(), np.asarray(jp.stats), atol=1e-4, rtol=1e-4)
+    for name in ("s_w", "s_p", "s_q", "s_pp", "s_qq", "s_pq"):
+        np.testing.assert_allclose(getattr(tp, name).numpy(), np.asarray(getattr(jp, name)),
+                                   rtol=1e-4, atol=1e-4, err_msg=name)
+    assert (tp.midx.numpy() == np.asarray(jp.midx)).mean() >= 0.99
+    np.testing.assert_allclose(tp.fetch.numpy(), np.asarray(jp.fetch), atol=1e-4, rtol=1e-4)
+    assert len(tpr.PROBE_PROGRAMS.programs) == 1
+
+
+def test_a_grown_db_is_a_second_program(stand_in, jax_state):
+    outs = []
+    for capacity in (8, 16):
+        _, tdb, _, tkdb = _dbs(jax_state, 6, capacity)
+        r2s = torch.full((capacity,), -1, dtype=torch.int64)
+        r2s[:6] = torch.arange(6)
+        draws = tm.ransac_draws(CFG.tracking, CFG.tracking.max_features_pad,
+                                torch.Generator().manual_seed(2), (N_CAND,))
+        outs.append(tpr.promote_probe_captured(
+            tkdb.kp, tdb.desc, tdb.valid, r2s, torch.tensor(6), torch.tensor(5),
+            jax_state[1][11], torch.zeros(21), torch.tensor(False), draws,
+            CFG.tracking.salient_score_threshold, CFG.ba.huber_delta, CFG.tracking, TI, N_CAND))
+    assert len(tpr.PROBE_PROGRAMS.programs) == 2
+    assert torch.equal(outs[0].fetch, outs[1].fetch)     # unused rows change nothing
+
+
+# (d) ---------------------------------------------------------------------
+
+def test_cache_keys_and_replays(stand_in, step_inputs):
+    packed, rgb, kp0, kp1, kf_depth, kf_weight, draws = step_inputs
+    want = rec.frame_step_tracked2(packed, rgb, kp0, kp1, kf_depth, kf_weight, 7, 2, TI,
+                                   CFG.tracking, SCALE, draws=draws)
+    for _ in range(2):
+        got = rec.frame_step_tracked2_captured(packed, rgb, kp0, kp1, kf_depth, kf_weight, 7, 2,
+                                               TI, CFG.tracking, SCALE, draws=draws)
+        assert all(torch.equal(a, b) for a, b in zip(got[4:], want[4:]))
+        assert torch.equal(got[1].desc, want[1].desc)
+    assert len(rec.FRAME_STEP_PROGRAMS.programs) == 1
+    # a depth plane is another key, and so is another depth scale
+    depth = (packed[..., 0].to(torch.float32) + packed[..., 1].to(torch.float32) * 256.0)
+    rgb_f = packed[..., 2:5].to(torch.float32) / 255.0
+    rec.frame_step_tracked2_captured(depth, rgb_f, kp0, kp1, kf_depth, kf_weight, 7, 2, TI,
+                                     CFG.tracking, SCALE, draws=draws)
+    rec.frame_step_tracked2_captured(packed, rgb, kp0, kp1, kf_depth, kf_weight, 7, 2, TI,
+                                     CFG.tracking, SCALE * 2, draws=draws)
+    progs = list(rec.FRAME_STEP_PROGRAMS.programs.values())
+    assert len(progs) == 3 and [p.replays for p in progs] == [1, 0, 0]
+    # outputs are fresh tensors: no call returns a buffer of the program
+    outs = {t.data_ptr() for p in progs for t in p.outputs}
+    assert not outs & {t.data_ptr() for t in got[4:]}
+
+
+@pytest.mark.parametrize("failure", ["raises", "host_read"])
+def test_cache_does_not_hide_a_failure(stand_in, monkeypatch, failure):
+    """A function that fails raises its own error (at the first, eager
+    call); one that reads a tensor on the host runs that call, but its
+    capture raises, naming the op."""
+    monkeypatch.setattr(ReplayStandIn, "guarded", True)
+    calls = []
+
+    def fn(x, *, scale):
+        calls.append(scale)
+        if failure == "raises":
+            raise ValueError("the function failed")
+        return x * float(x.sum())                # a host read: refused by the guard
+
+    cache = graphs.GraphCache(fn, "failing")
+    x = torch.ones(4)
+    for _ in range(2):
+        if failure == "raises":
+            with pytest.raises(ValueError, match="the function failed"):
+                cache(x, scale=2.0)
+        else:
+            with pytest.raises(RuntimeError, match="failing: the CUDA graph capture failed at "
+                                                   "aten._local_scalar_dense"):
+                cache(x, scale=2.0)
+    assert not cache.programs
+    # one call (the eager first) or two (and the capture) an attempt; no eager fallback
+    assert len(calls) == (2 if failure == "raises" else 4)

@@ -257,6 +257,26 @@ def test_tracked_step_matches_jax(both):
     assert tcfg.blur_threshold == 0.0
 
 
+def test_graphed_rows_are_the_eager_programs_off_the_card(both):
+    """Off the card the captured programs are the eager functions: the
+    same results; the report times them on the card only."""
+    inp = both[0]
+    progs = sol.programs(inp)
+    for eager, graphed in zip(sol.ROWS[6:8], sol.GRAPHED_ROWS):
+        want, got = progs[eager](), progs[graphed]()
+        assert _same_tensors(want, got), graphed
+        assert sol.JAX_NAME[graphed] == sol.JAX_NAME[eager]
+        assert sol.row_bytes(inp, graphed) == sol.row_bytes(inp, eager)
+
+
+def _same_tensors(a, b) -> bool:
+    from texturefusion_torch.utils.graphs import flatten
+    la, lb = [], []
+    flatten(a, la)
+    flatten(b, lb)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
 def test_promote_probe_matches_jax(both):
     inp, jconfig, jintr, x, key = both
     tcfg = jconfig.tracking

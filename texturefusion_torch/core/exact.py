@@ -18,7 +18,9 @@ from __future__ import annotations
 
 import torch
 
-_DIVISORS: dict = {}    # 0-dim divisors per (value, dtype, device), made once
+_DIVISORS: dict = {}    # 0-dim divisors per (value, dtype, device), made once by a
+                        # fill on the device (no copy from the host, which a
+                        # captured CUDA graph could not hold)
 
 
 def div(x: torch.Tensor, s: float) -> torch.Tensor:
@@ -28,7 +30,7 @@ def div(x: torch.Tensor, s: float) -> torch.Tensor:
     key = (float(s), x.dtype, x.device)
     d = _DIVISORS.get(key)
     if d is None:
-        d = _DIVISORS[key] = torch.tensor(float(s), dtype=x.dtype, device=x.device)
+        d = _DIVISORS[key] = torch.full((), float(s), dtype=x.dtype, device=x.device)
     return x / d
 
 

@@ -72,7 +72,7 @@ from texturefusion_torch.fusion import dynamics
 from texturefusion_torch.fusion.chunkmap import TSDFVolume
 from texturefusion_torch.fusion.mesher import IncrementalMesher
 from texturefusion_torch.fusion.streaming import ChunkStreamer
-from texturefusion_torch.models.reconstruction import frame_step_tracked2
+from texturefusion_torch.models.reconstruction import frame_step_tracked2_captured
 from texturefusion_torch.ops import preprocess
 from texturefusion_torch.parallel.mesh import DeviceMesh, same_device, tsdf_mesh
 from texturefusion_torch.slam.gcslam import GCSLAM
@@ -319,7 +319,7 @@ class ReconstructionPipeline:
                 if self._frame_draws is not None:
                     draws = tuple(d.to(self.device)
                                   for d in self._frame_draws(self._dispatch_count))
-                bundle, kp, res, res_ff, stats2, f_depth, f_weight = frame_step_tracked2(
+                bundle, kp, res, res_ff, stats2, f_depth, f_weight = frame_step_tracked2_captured(
                     depth_raw, rgb, kp_ref, kp_prev, kf_depth, kf_weight, self.slam.base_seed,
                     self._dispatch_count, intr, tcfg, self.config.camera.depth_scale,
                     draws=draws)
@@ -485,10 +485,11 @@ class ReconstructionPipeline:
         return slots[slots >= 0].astype(np.int64)
 
     def _integrate_keyframe(self, st: KeyframeFusionState, sign: float,
-                            prefetched=None) -> None:
+                            prefetched=None, pose=None) -> None:
         vol = self.volume
         with STOPWATCH.time("i_pose"):
-            pose = st.integrated_pose if sign < 0 else self.slam.keyframe_pose(st.kf_slot)
+            if pose is None:
+                pose = st.integrated_pose if sign < 0 else self.slam.keyframe_pose(st.kf_slot)
         depth, quality = st.depth.to(self.device), st.quality.to(self.device)
         self._on_fusion_stream(st.depth, st.rgb, st.quality, *st.local_depths)
         if sign < 0 and st.integrated_ids is not None:
@@ -522,9 +523,11 @@ class ReconstructionPipeline:
         """Integrate the keyframes whose stale prefetch was replaced by a
         discovery at their current pose, once it has landed (all with
         `force`): a cycle later than usual, which drift reintegration
-        tolerates."""
+        tolerates, and at the pose that set was discovered at, as the
+        synchronous cycle does (the JAX package takes the pose at the
+        consume, which BA may have moved since: ROADMAP fault 22)."""
         for slot in list(self._deferred_integration):
-            fetch = self._deferred_integration[slot]
+            fetch, pose = self._deferred_integration[slot]
             if not force and not fetch[0].done():
                 continue
             del self._deferred_integration[slot]
@@ -532,7 +535,7 @@ class ReconstructionPipeline:
             if st is None or st.integrated:
                 continue
             with STOPWATCH.time("integration_deferred"):
-                self._integrate_keyframe(st, sign=1.0, prefetched=fetch)
+                self._integrate_keyframe(st, sign=1.0, prefetched=fetch, pose=pose)
 
     def _consume_cycle_results(self, force: bool = False) -> None:
         """Apply earlier cycles' deferred results whose copies have landed
@@ -577,13 +580,13 @@ class ReconstructionPipeline:
                 pose = self.slam.keyframe_pose(finished_slot)
                 if self._moved(pose, disco_pose) > 0.75 * self.volume.extent:
                     # the set went stale: discover at the current pose and
-                    # integrate over that set a cycle later; a cycle that
+                    # integrate over that set, at that pose, a cycle later; a cycle that
                     # reads its own results integrates over it now (the
                     # JAX package's never consumes it: ROADMAP fault 19)
                     self._on_fusion_stream(st.depth)
                     pre = self.volume.dispatch_discovery(st.depth, pose)
                     if async_mode:
-                        self._deferred_integration[finished_slot] = pre
+                        self._deferred_integration[finished_slot] = (pre, pose)
                     STOPWATCH.counts["disco_pref_defer"] += 1
                 else:
                     STOPWATCH.counts["disco_pref_used"] += 1

@@ -5,10 +5,17 @@ The two TPU kernels of the JAX package have Hopper counterparts here:
   K1  csrc/bilateral.cu        replaces ops/pallas_kernels.py bilateral_filter_pallas
   K2  csrc/tsdf_integrate.cu   replaces examples/pallas_voxel_kernel.py integrate_rows_pallas
 
+and one kernel has no Pallas counterpart:
+
+  K3  csrc/kabsch.cu           the weighted rigid fit of slam/matching.py kabsch, which
+                               the JAX package computes with jnp.linalg.svd inside its
+                               jitted programs; torch.linalg.svd synchronises with the
+                               host on the card, which a captured program cannot do
+
 K2 has two entry points: one frame with colour or depth only, ±1
 (tsdf_integrate_cuda), and its F-frame mode, F depth-only frames with a
 sign each in one pass over the rows (tsdf_integrate_frames_cuda).
-Both are compiled on first use by nvcc into one shared library with a
+All are compiled on first use by nvcc into one shared library with a
 plain C interface (texturefusion_torch/_build/, named by a hash of the
 sources and flags so an edited source rebuilds) and bound with ctypes:
 pointers, the current stream and scalars cross as c_void_p / c_int /
@@ -22,6 +29,9 @@ allocate their outputs with torch.empty and never synchronise.
 `LAUNCHES` counts kernel launches per kernel (K2's F-frame mode under
 its own key); each wrapper adds one right after its launch and nowhere
 else, so a run can show that its main path went through the kernels.
+A wrapper called while its thread captures a CUDA graph (utils/graphs.py)
+launches nothing: it records the launch into the program being
+captured, and each replay of that program adds its recorded launches.
 `LANES` sums the lanes K2 was launched over, and `FRAME_SHAPES` counts
 its F-frame mode's launches by (frames, lanes, whether the signs mix -1
 and +1: a drift reintegration).
@@ -46,18 +56,30 @@ _BUILD = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 # each source and the flags it adds to NVCC_FLAGS
-SOURCES = {"bilateral.cu": (), "tsdf_integrate.cu": ("-fmad=false",)}
+SOURCES = {"bilateral.cu": (), "tsdf_integrate.cu": ("-fmad=false",), "kabsch.cu": ()}
 
 MAX_RADIUS = 8              # K1 is instantiated for radius 0..MAX_RADIUS
 
 MAX_FRAMES = 64             # frames of one launch of K2's F-frame mode
 
-LAUNCHES = {"bilateral": 0, "tsdf_integrate": 0, "tsdf_integrate_frames": 0}
+LAUNCHES = {"bilateral": 0, "tsdf_integrate": 0, "tsdf_integrate_frames": 0, "kabsch": 0}
 LANES = {"tsdf_integrate": 0}
 FRAME_SHAPES: collections.Counter = collections.Counter()
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
+# per thread: the launch counts of the CUDA graph it is capturing, or None
+CAPTURE = threading.local()
+
+
+def _count(name: str) -> None:
+    """One launch of kernel `name`: counted now, or recorded into the
+    program this thread is capturing (counted at each of its replays)."""
+    rec = getattr(CAPTURE, "launches", None)
+    if rec is None:
+        LAUNCHES[name] += 1
+    else:
+        rec[name] += 1
 
 
 def reset_launch_counts() -> None:
@@ -144,6 +166,8 @@ def build(verbose: bool = False) -> ctypes.CDLL:
         lib.tf_tsdf_integrate_frames_launch.restype = i
         lib.tf_tsdf_integrate_frames_launch.argtypes = [p] * 7 + [
             ctypes.POINTER(TsdfParams), ctypes.POINTER(FrameSigns), i, p]
+        lib.tf_kabsch_launch.restype = i
+        lib.tf_kabsch_launch.argtypes = [p, p, p, p, i, i, p]
         _lib = lib
         return lib
 
@@ -215,7 +239,7 @@ def bilateral_cuda(depth: torch.Tensor, radius: int = 4,
     rc = lib.tf_bilateral_launch(depth.data_ptr(), out.data_ptr(), ws.ctypes.data,
                                  h, w, radius, float(np.float32(scale)), stream)
     _check(rc, "bilateral")
-    LAUNCHES["bilateral"] += 1
+    _count("bilateral")
     return out
 
 
@@ -298,7 +322,7 @@ def tsdf_integrate_cuda(sdf: torch.Tensor, weight: torch.Tensor,
         quality.data_ptr() if with_color else None, cam_to_world.data_ptr(),
         out_q.data_ptr(), updated.data_ptr(), ctypes.byref(params), u, stream)
     _check(rc, "tsdf_integrate")
-    LAUNCHES["tsdf_integrate"] += 1
+    _count("tsdf_integrate")
     LANES["tsdf_integrate"] += u
     return out_q, updated
 
@@ -333,5 +357,27 @@ def tsdf_integrate_frames_cuda(sdf: torch.Tensor, weight: torch.Tensor,
         cam_to_worlds.data_ptr(), ctypes.byref(params), ctypes.byref(fs), u,
         torch.cuda.current_stream(sdf.device).cuda_stream)
     _check(rc, "tsdf_integrate_frames")
-    LAUNCHES["tsdf_integrate_frames"] += 1
+    _count("tsdf_integrate_frames")
     FRAME_SHAPES[(n_frames, u, min(signs) < 0 < max(signs))] += 1
+
+
+def kabsch_cuda(p: torch.Tensor, q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K3: the weighted rigid fit T [..., 4, 4] with p ≈ R q + t of
+    p, q [..., N, 3] and w [..., N] f32 on the card, every leading index a
+    fit (slam/matching.py kabsch_plain's function). One launch of one warp
+    a fit; the sums and the 3×3 SVD in float64, rounded once."""
+    _require(p, "p", torch.float32)
+    if p.dim() < 2 or p.shape[-1] != 3:
+        raise ValueError(f"p must be [..., N, 3], got {tuple(p.shape)}")
+    _require(q, "q", torch.float32, tuple(p.shape))
+    _require(w, "w", torch.float32, tuple(p.shape[:-1]))
+    _on_card(p=p, q=q, w=w)
+    lib = build()
+    batch = tuple(p.shape[:-2])
+    n_fits = int(np.prod(batch, dtype=np.int64))
+    out = torch.empty(batch + (4, 4), dtype=torch.float32, device=p.device)
+    rc = lib.tf_kabsch_launch(p.data_ptr(), q.data_ptr(), w.data_ptr(), out.data_ptr(), n_fits,
+                              p.shape[-2], torch.cuda.current_stream(p.device).cuda_stream)
+    _check(rc, "kabsch")
+    _count("kabsch")
+    return out

@@ -278,9 +278,7 @@ def extract_features(gray: torch.Tensor, depth: torch.Tensor,
         score = _nms(fast_score(img, cfg.fast_threshold))
         border = 16
         h, w = score.shape
-        mask = torch.zeros((h, w), dtype=torch.bool, device=dev)
-        mask[border:h - border, border:w - border] = True
-        score = torch.where(mask, score, 0.0)
+        score = F.pad(score[border:h - border, border:w - border], (border,) * 4)
 
         # per-cell argmax, then the strongest cells (spread and strength)
         k = int(budgets[lvl])

@@ -33,6 +33,10 @@ Not carried: the BA bucket floors (BA runs at the true keyframe and edge
 counts). On one device the JAX package's Schur BA is the dense solve;
 over a DeviceMesh BA is edge-sharded (`_run_ba`, parallel/ba.py).
 
+On the card the promotion probe is one captured CUDA graph
+(promote.promote_probe_captured), its scalars 0-d device tensors, as the
+JAX package runs it as one jitted program.
+
 Random draws: every registration takes Gumbel draws from `draw_fn(cfg,
 n)` ([R, H, 4, K], or [n, R, H, 4, K] for n candidates). By default they
 come from one torch.Generator on the SLAM device, in the order the JAX
@@ -51,6 +55,7 @@ import torch
 from texturefusion_torch.config import PipelineConfig, TrackingConfig
 from texturefusion_torch.core import camera as cam
 from texturefusion_torch.core import se3
+from texturefusion_torch.io.prefetch import upload
 from texturefusion_torch.parallel import ba as pba
 from texturefusion_torch.parallel.mesh import DeviceMesh, config_mesh, pad_to_multiple
 from texturefusion_torch.slam import fastba, loopclosure, promote
@@ -423,13 +428,18 @@ class GCSLAM:
         candidate 0; returns (probe, n_cand, fetch handle of its results)."""
         n_cand = max(self.cfg.max_candidates, 2)
         have_tracked = tracked_stats is not None
-        ts = torch.as_tensor(np.asarray(tracked_stats, np.float32) if have_tracked
-                             else np.zeros(21, np.float32), device=self.device)
-        probe = promote.promote_probe(
-            self.kp_db.kp, self.db.desc, self.db.valid, self._row_to_slot, len(self.db),
-            last_slot, kp, ts, have_tracked, self._draws(self.cfg, n_cand),
-            self.cfg.salient_score_threshold, self.config.ba.huber_delta, self.cfg,
-            self.intr, n_cand)
+        dev = self.device
+        # the scalars filled on the device, the stats through a pinned
+        # buffer: no blocking copy (and no wait for the queue) here
+        ts = (upload(np.asarray(tracked_stats, np.float32), dev) if have_tracked
+              else torch.zeros(21, device=dev))
+        probe = promote.promote_probe_captured(
+            self.kp_db.kp, self.db.desc, self.db.valid, self._row_to_slot,
+            torch.full((), len(self.db), dtype=torch.int64, device=dev),
+            torch.full((), last_slot, dtype=self._row_to_slot.dtype, device=dev), kp, ts,
+            torch.full((), have_tracked, dtype=torch.bool, device=dev),
+            self._draws(self.cfg, n_cand), self.cfg.salient_score_threshold,
+            self.config.ba.huber_delta, self.cfg, self.intr, n_cand)
         return probe, n_cand, async_fetch.fetch_async(probe.fetch)
 
     def _probe_results(self, n_cand: int, fetched: np.ndarray):

@@ -26,7 +26,7 @@ from texturefusion_torch.config import TrackingConfig
 from texturefusion_torch.core import camera as cam
 from texturefusion_torch.core import exact
 from texturefusion_torch.core import se3
-from texturefusion_torch.ops import hamming
+from texturefusion_torch.ops import cuda_kernels, hamming
 from texturefusion_torch.slam.features import Keypoints
 
 
@@ -72,7 +72,20 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
 
 
 def kabsch(p: torch.Tensor, q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Weighted rigid fit, batched: T with p ≈ R q + t. p, q: [..., N, 3]; w: [..., N]."""
+    """Weighted rigid fit, batched: T with p ≈ R q + t. p, q: [..., N, 3]; w: [..., N].
+    On a CUDA tensor kernel K3 (csrc/kabsch.cu, no host sync); on a CPU
+    tensor kabsch_plain."""
+    if p.is_cuda:
+        return cuda_kernels.kabsch_cuda(p.contiguous(), q.contiguous(), w.contiguous())
+    if p.device.type != "cpu":
+        raise ValueError(f"kabsch: unsupported device {p.device}")
+    return kabsch_plain(p, q, w)
+
+
+def kabsch_plain(p: torch.Tensor, q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel K3, in float32: the centroids, the
+    cross-covariance, torch.linalg.svd, the reflection fix on the last
+    column and t = pc − R qc."""
     wsum = torch.clamp(torch.sum(w, dim=-1), min=1e-9)[..., None]
     pc = torch.sum(p * w[..., None], dim=-2) / wsum
     qc = torch.sum(q * w[..., None], dim=-2) / wsum
@@ -168,8 +181,8 @@ def _ransac(g: torch.Tensor, p: torch.Tensor, q: torch.Tensor, ok: torch.Tensor,
     uv_proj, _ = cam.project(intr, x)
     err2d = _norm(uv_proj - uv_ref[None])
     inl = ok[None] & (err3d < cfg.reproj_3d_threshold * 3.0) & (err2d < cfg.reproj_2d_threshold)
-    best = torch.argmax(torch.sum(inl, dim=1))
-    return poses[best], inl[best]
+    best = torch.argmax(torch.sum(inl, dim=1))[None]     # a 0-d index would be read on the host
+    return poses[best][0], inl[best][0]
 
 
 def register_frames(kp_ref: Keypoints, kp_src: Keypoints, gumbel_draws: torch.Tensor,

@@ -6,7 +6,9 @@ MultiViewGeometry.h:245-311 Huber pre-integration): similarity over the
 keyframe descriptor DB → salient-score top-k rows → registration of the
 new frame against each candidate's stacked keypoints → Huber edge sums.
 The JAX package vmaps the candidates; here they are a loop over C ≤ 6.
-The top-k breaks ties by the lowest index, as jax.lax.top_k does.
+The top-k breaks ties by the lowest index, as jax.lax.top_k does. The
+JAX probe is one jitted program; `promote_probe_captured` is its
+counterpart on the card, one captured CUDA graph (utils/graphs.py).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from texturefusion_torch.slam import fastba
 from texturefusion_torch.slam.features import Keypoints
 from texturefusion_torch.slam.loopclosure import similarity_rows
 from texturefusion_torch.slam.matching import register_frames, stack_results
+from texturefusion_torch.utils import graphs
 
 
 class KeypointDB:
@@ -42,14 +45,23 @@ class KeypointDB:
             dst[slot] = src
 
 
+def _device_scalar(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """A 0-d tensor on `device`: a tensor as it is (cast), a Python value
+    filled on the device (no copy from host memory)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype).reshape(())
+    return torch.full((), x, dtype=dtype, device=device)
+
+
 def salient_scores(sims: torch.Tensor, in_use: torch.Tensor, n_rows) -> torch.Tensor:
     """The reference's salient score (ref: BayesianFilter.hpp:31-91): the
     trailing run of recent rows at or above the average is left out of
     the historical mean/σ; (sim − σ)/μ; 3 when every row is above the
-    average, 1 when the history is too short."""
+    average, 1 when the history is too short. n_rows: a 0-d tensor (or a
+    Python int), read on the device."""
     r_max = sims.shape[0]
     idxs = torch.arange(r_max, device=sims.device)
-    nr = float(max(int(n_rows), 1))
+    nr = torch.clamp(_device_scalar(n_rows, torch.int64, sims.device), min=1).to(torch.float32)
     avg = torch.sum(sims) / nr
     below = in_use & (sims < avg)
     history_loop = torch.amax(torch.where(below, idxs, -1))
@@ -79,30 +91,33 @@ class PromoteProbe(NamedTuple):
 
 
 def promote_probe(db_kp: Keypoints, db_desc: torch.Tensor, db_desc_valid: torch.Tensor,
-                  row_to_slot: torch.Tensor, n_rows: int, last_slot: int,
-                  kp_new: Keypoints, tracked_stats: torch.Tensor, have_tracked: bool,
-                  gumbel_draws: torch.Tensor, salient_threshold: float,
-                  huber_delta: float, cfg: TrackingConfig, intr: cam.Intrinsics,
-                  n_cand: int) -> PromoteProbe:
+                  row_to_slot: torch.Tensor, n_rows, last_slot, kp_new: Keypoints,
+                  tracked_stats: torch.Tensor, have_tracked, gumbel_draws: torch.Tensor,
+                  salient_threshold: float, huber_delta: float, cfg: TrackingConfig,
+                  intr: cam.Intrinsics, n_cand: int) -> PromoteProbe:
     """Candidate selection + registration + edge pre-integration. Candidate 0
     is always the last keyframe; rows whose salient score is at or below
     the threshold are admitted only on a 3× inlier margin.
-    gumbel_draws: [n_cand, R, H, 4, K], one per candidate."""
+    n_rows (rows in use), last_slot and have_tracked are 0-d tensors read
+    on the device, as the JAX program takes them (Python values are filled
+    on the device); gumbel_draws: [n_cand, R, H, 4, K], one per candidate.
+    The similarity is scored over all R rows of the DB and masked to the
+    rows in use, so nothing here depends on the data's values on the host."""
     dev = db_desc.device
     r_max = db_desc.shape[0]
+    n_rows = _device_scalar(n_rows, torch.int64, dev)
+    last_slot = _device_scalar(last_slot, row_to_slot.dtype, dev)
+    have_tracked = _device_scalar(have_tracked, torch.bool, dev)
     in_use = torch.arange(r_max, device=dev) < n_rows
-    sims = torch.zeros(r_max, device=dev)
-    if n_rows > 0:
-        sims[:n_rows] = similarity_rows(kp_new.desc, kp_new.valid, db_desc, db_desc_valid,
-                                        n_rows)
+    sims = similarity_rows(kp_new.desc, kp_new.valid, db_desc, db_desc_valid, r_max)
+    sims = torch.where(in_use, sims, 0.0)
     salient = salient_scores(sims, in_use, n_rows)
     rank_sims = torch.where(in_use & (row_to_slot != last_slot), sims, -1.0)
     top_sims, top_rows = torch.sort(rank_sims, descending=True, stable=True)
     top_sims, top_rows = top_sims[:n_cand - 1], top_rows[:n_cand - 1]
     exists = top_sims > 0.0
     salient_ok = salient[top_rows] > salient_threshold
-    cand_slots = torch.cat([torch.tensor([last_slot], dtype=row_to_slot.dtype, device=dev),
-                            row_to_slot[top_rows]])
+    cand_slots = torch.cat([last_slot.reshape(1), row_to_slot[top_rows]])
     # an unused row maps to slot −1, which indexes the last row as in JAX
     # (such a candidate has no similarity and is never admitted)
     slots_l = torch.remainder(cand_slots.long(), db_kp.uv.shape[0])
@@ -110,9 +125,9 @@ def promote_probe(db_kp: Keypoints, db_desc: torch.Tensor, db_desc_valid: torch.
     res = stack_results([
         register_frames(Keypoints(*(a[c] for a in kp_c)), kp_new, gumbel_draws[c], cfg, intr)
         for c in range(n_cand)])
+    # candidate 0: the frame step already registered vs the last keyframe
     stats = res.stats.clone()
-    if have_tracked:    # candidate 0: the frame step already registered vs the last keyframe
-        stats[0] = tracked_stats
+    stats[0] = torch.where(have_tracked, tracked_stats, stats[0])
     strong = stats[:, 1] >= 3.0 * cfg.min_matches
     admissible = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
                             exists & (salient_ok | strong[1:])])
@@ -128,3 +143,32 @@ def promote_probe(db_kp: Keypoints, db_desc: torch.Tensor, db_desc_valid: torch.
                        stats, cand_sim[:, None], cand_sal[:, None]], dim=1)
     return PromoteProbe(cand_slots, ok, stats, *sums, midx=res.match_idx.to(torch.int32),
                         minl=res.inliers.to(torch.float32), fetch=fetch.reshape(-1))
+
+
+def _probe_program(db_kp, db_desc, db_desc_valid, row_to_slot, n_rows, last_slot, kp_new,
+                   tracked_stats, have_tracked, gumbel_draws, *, salient_threshold,
+                   huber_delta, cfg, intr, n_cand):
+    return promote_probe(db_kp, db_desc, db_desc_valid, row_to_slot, n_rows, last_slot,
+                         kp_new, tracked_stats, have_tracked, gumbel_draws, salient_threshold,
+                         huber_delta, cfg, intr, n_cand)
+
+
+PROBE_PROGRAMS = graphs.GraphCache(_probe_program, "promote_probe")
+
+
+def promote_probe_captured(db_kp: Keypoints, db_desc: torch.Tensor,
+                           db_desc_valid: torch.Tensor, row_to_slot: torch.Tensor,
+                           n_rows: torch.Tensor, last_slot: torch.Tensor, kp_new: Keypoints,
+                           tracked_stats: torch.Tensor, have_tracked: torch.Tensor,
+                           gumbel_draws: torch.Tensor, salient_threshold: float,
+                           huber_delta: float, cfg: TrackingConfig, intr: cam.Intrinsics,
+                           n_cand: int) -> PromoteProbe:
+    """promote_probe as the JAX package runs it, one program per (cfg,
+    intr, n_cand, thresholds and input shapes): on CUDA tensors a captured
+    CUDA graph replayed from one launch (utils/graphs.py; a DB of another
+    capacity is another capture, as JAX recompiles), on CPU tensors the
+    eager function. n_rows, last_slot and have_tracked are 0-d tensors."""
+    return PROBE_PROGRAMS(db_kp, db_desc, db_desc_valid, row_to_slot, n_rows, last_slot,
+                          kp_new, tracked_stats, have_tracked, gumbel_draws,
+                          salient_threshold=float(salient_threshold),
+                          huber_delta=float(huber_delta), cfg=cfg, intr=intr, n_cand=int(n_cand))

@@ -20,6 +20,11 @@ padded with the trash slot S), and its programs in its order:
   frame_step_tracked2              K1 inside; draws from tracked_draws
   promote_probe(5 cand)            over an 8-keyframe KeypointDB
 
+and on the card the two tracker programs again as the pipeline runs them,
+each one captured CUDA graph (utils/graphs.py; K1 and K3 inside):
+
+  frame_step_tracked2 (graphed), promote_probe(5 cand) (graphed)
+
 Columns: the JAX script's `kernel`, `ms` (median host clock of n calls,
 each ending in a synchronize), `bytes_mb` (its byte formulas, unchanged;
 for the probe, which it leaves at 0, the DB rows and keypoints it reads),
@@ -67,11 +72,15 @@ ROWS = ("integrate_frame_fused = integrate_rows_pallas (K2)", "reintegrate_frame
         "integrate_depths_batched(6)", "candidate_chunks_unique (host read)",
         "candidate_chunks_unique_dev", "mesh_chunks_pooled(512)", "frame_step_tracked2",
         "promote_probe(5 cand)")
+# the tracker's programs as captured CUDA graphs: timed on the card only
+# (off it they are the eager functions)
+GRAPHED_ROWS = ("frame_step_tracked2 (graphed)", "promote_probe(5 cand) (graphed)")
 # each row's name in the JAX script (its byte formula)
-JAX_NAME = dict(zip(ROWS, ("integrate_frame_fused", "reintegrate_frame_fused",
-                           "integrate_depths_batched(6)", "candidate_chunks_unique",
-                           "candidate_chunks_unique", "mesh_chunks_pooled(512)",
-                           "frame_step_tracked2", "promote_probe(5 cand)")))
+JAX_NAME = dict(zip(ROWS + GRAPHED_ROWS, (
+    "integrate_frame_fused", "reintegrate_frame_fused", "integrate_depths_batched(6)",
+    "candidate_chunks_unique", "candidate_chunks_unique", "mesh_chunks_pooled(512)",
+    "frame_step_tracked2", "promote_probe(5 cand)", "frame_step_tracked2",
+    "promote_probe(5 cand)")))
 KEYS = ("kernel", "ms", "bytes_mb", "sol_ms", "frac_of_roofline", "calls_per_cycle",
         "device_ms", "span_ms", "device_ops", "needed_mb", "bound_ms", "bound_by")
 N_CAND = 5
@@ -164,10 +173,12 @@ def programs(inp: dict) -> dict:
     """The report's programs in its order: name -> fn() on `inp` (the TSDF
     ones update inp["batch"] in place), and "mesh_pool": the pool that
     mesh_chunks_pooled writes."""
-    from texturefusion_torch.models.reconstruction import frame_step_tracked2
+    from texturefusion_torch.models.reconstruction import (frame_step_tracked2,
+                                                          frame_step_tracked2_captured)
     from texturefusion_torch.ops import hamming, tsdf
     from texturefusion_torch.ops import marching_cubes as mc
-    from texturefusion_torch.slam.promote import KeypointDB, promote_probe
+    from texturefusion_torch.slam.promote import (KeypointDB, promote_probe,
+                                                  promote_probe_captured)
     config, intr = inp["config"], inp["intr"]
     cfg, tcfg = config.tsdf, config.tracking
     dev = inp["depth"].device
@@ -189,6 +200,9 @@ def programs(inp: dict) -> dict:
     dvalid = torch.zeros((config.ba.max_keyframes, tcfg.max_features_pad), dtype=torch.bool,
                          device=dev)
     r2s = torch.arange(config.ba.max_keyframes, device=dev)
+    scalars = [torch.full((), v, dtype=t, device=dev)
+               for v, t in ((KF_ROWS, torch.int64), (KF_ROWS - 1, torch.int64),
+                            (False, torch.bool))]
     return {
         ROWS[0]: lambda: tsdf.integrate_frame_fused(b, o, idx, act, d, rgb, q, pose, 1.0, intr,
                                                     cfg, with_color=True),
@@ -209,6 +223,13 @@ def programs(inp: dict) -> dict:
                                        torch.zeros(21, device=dev), False, inp["probe_draws"],
                                        tcfg.salient_score_threshold, config.ba.huber_delta, tcfg,
                                        intr, N_CAND),
+        GRAPHED_ROWS[0]: lambda: frame_step_tracked2_captured(
+            inp["packed"], None, kp, kp, d, kf_w, inp["seed"], 0, intr, tcfg,
+            config.camera.depth_scale, draws=inp["tracked_draws"]),
+        GRAPHED_ROWS[1]: lambda: promote_probe_captured(
+            db.kp, desc, dvalid, r2s, scalars[0], scalars[1], kp, torch.zeros(21, device=dev),
+            scalars[2], inp["probe_draws"], tcfg.salient_score_threshold, config.ba.huber_delta,
+            tcfg, intr, N_CAND),
         "mesh_pool": pool,
     }
 
@@ -292,7 +313,7 @@ def row_bytes(inp: dict, name: str) -> int:
     """The row's bytes_mb count: the JAX formula, or the probe's reads."""
     from texturefusion_torch.ops import hamming
     intr, cfg = inp["intr"], inp["config"].tsdf
-    if name == ROWS[7]:
+    if JAX_NAME[name] == "promote_probe(5 cand)":
         return probe_bytes(KF_ROWS, inp["config"].tracking.max_features_pad, hamming.WORDS)
     return jax_bytes(intr.height, intr.width, inp["n_real"], cfg.chunk_size ** 3)[JAX_NAME[name]]
 
@@ -308,7 +329,8 @@ def needs(inp: dict, name: str) -> tuple:
     if name == ROWS[2]:
         return frames_work(inp, torch.stack([inp["depth"]] * LOCAL_FRAMES),
                            torch.stack([pose] * LOCAL_FRAMES))
-    return row_bytes(inp, name), ({"k1_taps": k1_taps(inp)} if name == ROWS[6] else {})
+    return row_bytes(inp, name), ({"k1_taps": k1_taps(inp)}
+                                  if JAX_NAME[name] == "frame_step_tracked2" else {})
 
 
 def bound(needed_bytes: int, ops: dict) -> tuple:
@@ -322,7 +344,8 @@ def bound(needed_bytes: int, ops: dict) -> tuple:
 
 def run(config, device, n: int = 10, ops_fn=None, n_real: int = 400, inp=None,
         log=print) -> list:
-    """Every row of the report, in order (KEYS), on `device`; `ops_fn(work)`
+    """Every row of the report, in order (KEYS), on `device` (on the card
+    GRAPHED_ROWS after ROWS); `ops_fn(work)`
     gives a row's operations ({unit: (count, peak a second)}) from its work
     (the tool alone counts none). Raises where a share exceeds 1.0."""
     from texturefusion_torch.utils import devtime
@@ -330,7 +353,7 @@ def run(config, device, n: int = 10, ops_fn=None, n_real: int = 400, inp=None,
     inp = make_inputs(config, device, n_real) if inp is None else inp
     progs = programs(inp)
     rows = []
-    for name in ROWS:
+    for name in ROWS + (GRAPHED_ROWS if on_card else ()):
         needed, work = needs(inp, name)
         m = devtime.measure(progs[name], device, n)
         n_bytes = row_bytes(inp, name)
