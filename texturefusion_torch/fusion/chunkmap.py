@@ -219,11 +219,11 @@ class TSDFVolume:
             n_ready = 0
             for p in pend:
                 if not p[1].done():
-                    STOPWATCH.counts["obs_not_ready"] += 1
+                    STOPWATCH.count("obs_not_ready")
                     break
                 n_ready += 1
             self._pending_obs, pend = pend[n_ready:], pend[:n_ready]
-            STOPWATCH.counts["obs_late"] += len(pend)
+            STOPWATCH.count("obs_late", len(pend))
         self._apply_obs(pend)
 
     def _apply_obs(self, pend: List[tuple]) -> None:
@@ -524,7 +524,7 @@ class TSDFVolume:
         if pending is None:
             return np.zeros(0, np.int64)
         if pending.get("defer_ok") and not pending["occ"].done():
-            STOPWATCH.counts["gc_deferred"] += 1
+            STOPWATCH.count("gc_deferred")
             return pending
         self.flush_observations(ready_only=bool(pending.get("defer_ok")))
         cand, ids0 = pending["cand"], pending["ids"]

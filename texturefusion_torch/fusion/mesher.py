@@ -177,11 +177,11 @@ class IncrementalMesher:
             n_ready = 0
             for p in pending:
                 if not p[2].done():
-                    STOPWATCH.counts["counts_not_ready"] += 1
+                    STOPWATCH.count("counts_not_ready")
                     break
                 n_ready += 1
             self._pending_counts, pending = pending[n_ready:], pending[:n_ready]
-            STOPWATCH.counts["counts_late"] += len(pending)
+            STOPWATCH.count("counts_late", len(pending))
         if not pending:
             return 0
         with STOPWATCH.time("mesh_counts_resolve" if ready_only else "mesh_counts_forced"):

@@ -59,7 +59,6 @@ import collections
 import concurrent.futures
 import dataclasses
 import os
-import time
 import types
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -180,9 +179,13 @@ class ReconstructionPipeline:
 
     # --------------------------------------------------------------- threads
 
-    def _submit_fusion(self, slot: int) -> None:
+    def _submit_fusion(self, slot: int, cause: Optional[int] = None) -> None:
+        """Run keyframe `slot`'s fusion cycle, on the fusion thread when
+        there is one, as the span `fusion_cycle` (ids: `kf` the slot,
+        `cause` the frame whose finalize submitted it)."""
         if self._fusion_executor is None:
-            self.fusion_cycle(slot)
+            with STOPWATCH.time("fusion_cycle", kf=slot, cause=cause):
+                self.fusion_cycle(slot)
             return
         prev = self._fusion_future
         ready = None
@@ -195,12 +198,13 @@ class ReconstructionPipeline:
         def run():
             if prev is not None:
                 prev.result()           # cycles stay ordered; errors surface
-            if self._fusion_stream is None:
-                self.fusion_cycle(slot)
-                return
-            with torch.cuda.stream(self._fusion_stream):
-                self._fusion_stream.wait_event(ready)
-                self.fusion_cycle(slot)
+            with STOPWATCH.time("fusion_cycle", kf=slot, cause=cause):
+                if self._fusion_stream is None:
+                    self.fusion_cycle(slot)
+                    return
+                with torch.cuda.stream(self._fusion_stream):
+                    self._fusion_stream.wait_event(ready)
+                    self.fusion_cycle(slot)
 
         self._fusion_future = self._fusion_executor.submit(run)
 
@@ -255,24 +259,27 @@ class ReconstructionPipeline:
         the same latency with its tracking and map threads,
         MobileFusion.cpp:92-112). Past the depth, a frame whose stats
         have not landed rides on, up to max(depth + 1,
-        pipeline_max_ride) frames in flight."""
-        pending = self._dispatch_frame(depth_raw, rgb, timestamp)
-        pending["host_packed"] = host_packed
-        par = self.config.parallel
-        if not par.pipelined_tracking:
-            self._finalize_frame(pending)
-            return
-        self._inflight.append(pending)
-        depth = max(1, par.pipeline_depth)
-        bound = max(depth + 1, par.pipeline_max_ride)
-        while len(self._inflight) > depth:
-            head = self._inflight[0]
-            if (len(self._inflight) <= bound and head["stats2"] is not None
-                    and not head["stats2"].done()):
-                self.rode += 1
-                break
-            self._finalize_frame(self._inflight.pop(0))
-        self.max_inflight = max(self.max_inflight, len(self._inflight))
+        pipeline_max_ride) frames in flight. The call is the span `frame`
+        (id `frame`: the index of the frame it dispatches), whose time off
+        the CPU is the aggregate `frame_offcpu`."""
+        with STOPWATCH.time("frame", offcpu=True, frame=self._dispatch_count):
+            pending = self._dispatch_frame(depth_raw, rgb, timestamp)
+            pending["host_packed"] = host_packed
+            par = self.config.parallel
+            if not par.pipelined_tracking:
+                self._finalize_frame(pending)
+                return
+            self._inflight.append(pending)
+            depth = max(1, par.pipeline_depth)
+            bound = max(depth + 1, par.pipeline_max_ride)
+            while len(self._inflight) > depth:
+                head = self._inflight[0]
+                if (len(self._inflight) <= bound and head["stats2"] is not None
+                        and not head["stats2"].done()):
+                    self.rode += 1
+                    break
+                self._finalize_frame(self._inflight.pop(0))
+            self.max_inflight = max(self.max_inflight, len(self._inflight))
 
     def flush_tracking(self) -> None:
         """Finalize every frame in flight."""
@@ -296,7 +303,8 @@ class ReconstructionPipeline:
         intr, tcfg = self.intr, self.config.tracking
         last_kf = self.slam.last_keyframe
         out = {"kp": None, "res": None, "res_ff": None, "stats2": None, "fused_kf": None,
-               "kf_slot": None if last_kf is None else last_kf.slot, "timestamp": timestamp}
+               "kf_slot": None if last_kf is None else last_kf.slot, "timestamp": timestamp,
+               "index": self._dispatch_count}
         with STOPWATCH.time("preprocess"):
             if last_kf is None:
                 out["bundle"] = preprocess.preprocess_bundle(
@@ -351,12 +359,12 @@ class ReconstructionPipeline:
             kw = dict(kp=p["kp"], res=p["res"], res_kf_slot=p["kf_slot"], stats=s2[:21],
                       res_ff=p["res_ff"], stats_ff=s2[21:42])
         n_kf = len(self.slam.keyframes)
-        t0 = time.perf_counter()
-        frame = self.slam.update_frame(gray, depth_refined, p["timestamp"], blurred=blurred,
-                                       **kw)
-        # a promotion's probes, edges and BA ran inside update_frame
-        STOPWATCH.add("promotion" if len(self.slam.keyframes) > n_kf and n_kf else "tracking",
-                      time.perf_counter() - t0)
+        with STOPWATCH.time("update_frame", frame=p["index"]) as span:
+            frame = self.slam.update_frame(gray, depth_refined, p["timestamp"],
+                                           blurred=blurred, **kw)
+            # a promotion's probes, edges and BA ran inside update_frame
+            span.aggregate = ("promotion" if len(self.slam.keyframes) > n_kf and n_kf
+                              else "tracking")
         self.stats["frames"] += 1
         self._refresh_disco_prefetch()
 
@@ -374,7 +382,7 @@ class ReconstructionPipeline:
             # the previous keyframe is finished: its fusion cycle
             # (ref: MobileFusion.cpp:274-406 runs on kflist.size()-2)
             if frame.keyframe_slot >= 1:
-                self._submit_fusion(frame.keyframe_slot - 1)
+                self._submit_fusion(frame.keyframe_slot - 1, cause=frame.index)
             return
         # a local frame: depth for the depth-only passes, and the
         # keyframe refinement (ref: main.cpp:124-135; MobileFusion.cpp:187-203)
@@ -574,7 +582,7 @@ class ReconstructionPipeline:
             # only origin-0 keyframes are fused (ref: MobileFusion.cpp:245)
             pre = self._disco_prefetch.pop(finished_slot, None)
             if pre is None:
-                STOPWATCH.counts["disco_pref_miss"] += 1
+                STOPWATCH.count("disco_pref_miss")
             else:
                 pre, disco_pose = pre
                 pose = self.slam.keyframe_pose(finished_slot)
@@ -587,9 +595,9 @@ class ReconstructionPipeline:
                     pre = self.volume.dispatch_discovery(st.depth, pose)
                     if async_mode:
                         self._deferred_integration[finished_slot] = (pre, pose)
-                    STOPWATCH.counts["disco_pref_defer"] += 1
+                    STOPWATCH.count("disco_pref_defer")
                 else:
-                    STOPWATCH.counts["disco_pref_used"] += 1
+                    STOPWATCH.count("disco_pref_used")
             if finished_slot not in self._deferred_integration:
                 with STOPWATCH.time("integration"):
                     self._integrate_keyframe(st, sign=1.0, prefetched=pre)
@@ -814,9 +822,9 @@ class TexturedPipeline(ReconstructionPipeline):
         return {s: (st.rgb, st.depth, self.slam.keyframe_pose(s))
                 for s, st in list(self.kf_states.items())}
 
-    def _submit_fusion(self, slot: int) -> None:
+    def _submit_fusion(self, slot: int, cause: Optional[int] = None) -> None:
         self._cycle_inputs.append((len(self.slam.keyframes) - 1, self._keyframe_inputs()))
-        super()._submit_fusion(slot)
+        super()._submit_fusion(slot, cause)
 
     def _tex_states(self, inputs: Optional[dict] = None) -> dict:
         """Keyframe slot → BA pose, rgb and depth tensors and the host rgb

@@ -21,6 +21,7 @@ import torch
 from texturefusion_torch.config import BAConfig
 from texturefusion_torch.core import se3
 from texturefusion_torch.slam.matching import huber_weights, solve_guarded
+from texturefusion_torch.utils.stopwatch import STOPWATCH
 
 
 class EdgeSums(NamedTuple):
@@ -244,11 +245,13 @@ def reweight_edges(poses: torch.Tensor, edges: EdgeSums,
 def optimize(poses: torch.Tensor, edges: EdgeSums, n_kf: int, active: torch.Tensor,
              cfg: BAConfig):
     """Rounds of robust GN with pruning in between (ref: optimizeKeyFrameMap
-    :1209-1217). Returns (poses, edges, errs [rounds, 2])."""
+    :1209-1217), each round with its prune the span `ba_gn_round`.
+    Returns (poses, edges, errs [rounds, 2])."""
     errs = []
     for r in range(cfg.gn_rounds):
-        poses, e0, e1 = gauss_newton_rounds(poses, edges, n_kf, active, cfg)
-        errs.append(torch.stack([e0, e1]))
-        if r < cfg.gn_rounds - 1:
-            edges = prune_outlier_edges(poses, edges)
+        with STOPWATCH.time("ba_gn_round"):
+            poses, e0, e1 = gauss_newton_rounds(poses, edges, n_kf, active, cfg)
+            errs.append(torch.stack([e0, e1]))
+            if r < cfg.gn_rounds - 1:
+                edges = prune_outlier_edges(poses, edges)
     return poses, edges, torch.stack(errs)

@@ -122,7 +122,7 @@ class TextureManager:
         consumed, the dispatch is skipped and `remeshed` carried over:
         overwriting the pending cycle would lose its labels and uvs."""
         if self._pending_cycle is not None:
-            STOPWATCH.counts["tex_skipped"] += 1
+            STOPWATCH.count("tex_skipped")
             self._carry |= set(remeshed or ())
             return
         with STOPWATCH.time("tex_adjacency"):
@@ -150,7 +150,7 @@ class TextureManager:
         if p is None:
             return
         if not force and not p["out"].done():
-            STOPWATCH.counts["tex_not_ready"] += 1
+            STOPWATCH.count("tex_not_ready")
             return
         self._pending_cycle = None
         with STOPWATCH.time("tex_fetch"):

@@ -30,6 +30,8 @@ from typing import Any, Tuple, Union
 import numpy as np
 import torch
 
+from texturefusion_torch.utils.stopwatch import STOPWATCH
+
 
 class DeviceFetch:
     """Handle of the device → host copy of a tensor or a tuple of tensors
@@ -59,8 +61,10 @@ class DeviceFetch:
         return self._event is None or self._event.query()
 
     def result(self):
+        """The value; waits for the copy first (the span `device_wait`)."""
         if self._event is not None:
-            self._event.synchronize()
+            with STOPWATCH.time("device_wait"):
+                self._event.synchronize()
         out = tuple(h.numpy() for h in self._host)
         return out if self._tuple else out[0]
 
