@@ -183,12 +183,14 @@ non-zero):
                 vertices, map median, ATE, keyframes, lost frames and
                 frames/s
 Phases 25 and 26 run after [checkpoint].
-After phase 9, [graphs] holds the tracker's two programs as the pipeline
-runs them on the card, each one captured CUDA graph (utils/graphs.py),
-to their eager versions: frame_step_tracked2 bit for bit (every output)
-on the 30 tiny orbit frames and 3 of [tracked]'s VGA frames, and
-promote_probe at 5 candidates over a 9-keyframe VGA DB (rows in use 9
-and 1); one replay of each under set_sync_debug_mode("error"); the
+After phase 9, [graphs] holds the tracker's two programs and BA's round
+as the pipeline runs them on the card, each one captured CUDA graph
+(utils/graphs.py), to their eager versions: frame_step_tracked2 bit for
+bit (every output) on the 30 tiny orbit frames and 3 of [tracked]'s VGA
+frames, promote_probe at 5 candidates over a 9-keyframe VGA DB (rows in
+use 9 and 1), and a pruning and a last BA round over a 24-keyframe chain
+at GCSLAM's first buckets (32 keyframes, 128 edges); one replay of each
+under set_sync_debug_mode("error"); the
 host's launches of a call (one graph launch plus a copy per input and
 output tensor); eager against graphed host ms. Then [k3] holds kernel K3
 (csrc/kabsch.cu, the rigid fit that replaces torch.linalg.svd on the
@@ -2836,15 +2838,33 @@ def _capture_beside_a_busy_thread(programs) -> list:
     return out
 
 
+def _ba_round_inputs(n_kf=24):
+    """_chain_graph's n_kf keyframes on the card as GCSLAM hands them to
+    BA at its first buckets (BAConfig's floors): identity rows past the
+    keyframes, inactive; zero edges past the chain, invalid. Returns the
+    round program's tensor arguments and its static ones but `prunes`."""
+    from texturefusion_torch.config import BAConfig
+    from texturefusion_torch.slam import fastba
+    cfg = BAConfig()
+    n_rows, n_e = cfg.kf_bucket_floor, cfg.edge_bucket_floor
+    poses, edges, _ = _chain_graph(n_kf, "cuda")
+    edges = fastba.EdgeSums(*(torch.cat([a, a.new_zeros((n_e - a.shape[0],) + a.shape[1:])])
+                              for a in edges))
+    poses = torch.cat([poses, torch.eye(4, device="cuda").expand(n_rows - n_kf, 4, 4)])
+    return (poses, edges, torch.arange(n_rows, device="cuda") < n_kf), {"n_kf": n_rows,
+                                                                        "cfg": cfg}
+
+
 def phase_graphs(frames, n_tiny=30):
-    """The tracker's two programs captured as CUDA graphs
+    """The tracker's two programs and BA's round captured as CUDA graphs
     (utils/graphs.py) against their eager versions: frame_step_tracked2
     bit for bit (keypoints, stats2, the bundle's planes, the fused depth
     and weight: every output) on [tracked-small]'s 30 tiny orbit frames and
     3 of [tracked]'s VGA frames (each against the first frame as its
     keyframe and the frame before it, with its own draws), and
     promote_probe at 5 candidates over a VGA DB of 9 keyframes of the loop
-    (rows in use 9 and 1). One replay of each under
+    (rows in use 9 and 1), and BA's round program, pruning and last, at
+    GCSLAM's first buckets (`_ba_round_inputs`). One replay of each under
     set_sync_debug_mode("error"), and its host launches: one graph launch
     plus the copies in and out; each captured again while another thread
     launches on the card, bit for bit. Eager against graphed host ms of
@@ -2853,7 +2873,7 @@ def phase_graphs(frames, n_tiny=30):
     from texturefusion_torch.core import camera as cam
     from texturefusion_torch.models import reconstruction as rec
     from texturefusion_torch.ops import preprocess
-    from texturefusion_torch.slam import loopclosure, matching, promote
+    from texturefusion_torch.slam import fastba, loopclosure, matching, promote
     from texturefusion_torch.slam.features import extract_features
     from texturefusion_torch.utils import devtime
 
@@ -2928,17 +2948,33 @@ def phase_graphs(frames, n_tiny=30):
     a = probe_args(9, True)
     probe_check = _graph_call_check("promote_probe", promote.PROBE_PROGRAMS,
                                     lambda: promote.promote_probe_captured(*a))
+    ba, ba_kw = _ba_round_inputs()
+    ba_same = []
+    for prunes in (True, False):
+        want = fastba._round_program(*ba, prunes=prunes, **ba_kw)
+        got = [fastba.BA_ROUND_PROGRAMS(*ba, prunes=prunes, **ba_kw) for _ in range(2)]
+        ba_same.append(all(bit_equal(want, g) for g in got))
+
+    def ba_round():
+        return fastba.BA_ROUND_PROGRAMS(*ba, prunes=True, **ba_kw)
+
+    ba_check = _graph_call_check("ba_gn_round", fastba.BA_ROUND_PROGRAMS, ba_round)
     concurrent = _capture_beside_a_busy_thread(
         [(rec.FRAME_STEP_PROGRAMS, lambda: rec.frame_step_tracked2_captured(*step, draws=draws),
           rec.frame_step_tracked2(*step, draws=draws)),
          (promote.PROBE_PROGRAMS, lambda: promote.promote_probe_captured(*a),
-          promote.promote_probe(*a))])
+          promote.promote_probe(*a)),
+         (fastba.BA_ROUND_PROGRAMS, ba_round,
+          fastba._round_program(*ba, prunes=True, **ba_kw))])
     times = {"frame_step_tracked2": (
         devtime.host_ms(lambda: rec.frame_step_tracked2(*step, draws=draws), "cuda", 5),
         devtime.host_ms(lambda: rec.frame_step_tracked2_captured(*step, draws=draws), "cuda", 5)),
         "promote_probe(5 cand)": (
             devtime.host_ms(lambda: promote.promote_probe(*a), "cuda", 5),
-            devtime.host_ms(lambda: promote.promote_probe_captured(*a), "cuda", 5))}
+            devtime.host_ms(lambda: promote.promote_probe_captured(*a), "cuda", 5)),
+        "ba_gn_round(32 kf, 128 edges)": (
+            devtime.host_ms(lambda: fastba._round_program(*ba, prunes=True, **ba_kw), "cuda", 5),
+            devtime.host_ms(ba_round, "cuda", 5))}
 
     # the kabsch calls of one eager frame step and one eager probe, for [k3]
     recorded, kabsch = [], matching.kabsch
@@ -2957,16 +2993,18 @@ def phase_graphs(frames, n_tiny=30):
     log(f"[graphs] frame_step_tracked2 captured against eager, bit for bit on "
         f"{same_tiny} of {n_tiny - 1} tiny frames and {same_vga} of {len(vga_frames)} VGA "
         f"frames; promote_probe(5 cand) bit for bit {probe_same} (rows in use 9, 9 tracked, "
-        f"1; {admitted} loop candidates admitted); programs frame step "
-        f"{len(rec.FRAME_STEP_PROGRAMS.programs)}, probe {len(promote.PROBE_PROGRAMS.programs)}")
+        f"1; {admitted} loop candidates admitted); ba_gn_round (pruning, last) bit for bit "
+        f"{ba_same}; programs frame step {len(rec.FRAME_STEP_PROGRAMS.programs)}, probe "
+        f"{len(promote.PROBE_PROGRAMS.programs)}, BA round {len(fastba.BA_ROUND_PROGRAMS.programs)}")
     log(f"[graphs] a replay under set_sync_debug_mode('error'): no sync; host launches a call: "
-        f"frame step {json.dumps(step_check)}, probe {json.dumps(probe_check)}")
+        f"frame step {json.dumps(step_check)}, probe {json.dumps(probe_check)}, BA round "
+        f"{json.dumps(ba_check)}")
     log(f"[graphs] captured again while another thread launched on the card: bit for bit "
         f"{concurrent}")
     log("[graphs] host ms a call (median of 5, each ending in a synchronize), eager | graphed: "
         + ", ".join(f"{k} {e:.3f} | {g:.3f}" for k, (e, g) in times.items()))
     if not (same_tiny == n_tiny - 1 and same_vga == len(vga_frames) and all(probe_same)
-            and all(concurrent)):
+            and all(ba_same) and all(concurrent)):
         raise AssertionError("[graphs] a captured program disagrees with its eager version")
     return recorded
 

@@ -5,9 +5,13 @@ noisy initial poses. Tolerances (float32 on both sides, solves of a
 system pinned with 1e12): edge sums and errors rtol 1e-4; the assembled
 system within 1e-3 relative to its largest entry; optimized poses within
 1e-4 of JAX on the active rows; pruning masks and reweighted sums
-(rtol 1e-4) on the valid rows.
+(rtol 1e-4) on the valid rows. BA at GCSLAM's buckets (32 pose rows, 128
+edge rows, the floors of BAConfig) keeps the padded rows and edges as
+they were and agrees, at the same tolerances, with BA at the true counts
+and with the JAX package's BA at the same buckets.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -178,3 +182,52 @@ def test_reweight_edges_matches_jax(graph):
                              torch.as_tensor(minl), torch.as_tensor(has), 0.5)
     for name, a, b in zip(tba.EdgeSums._fields, got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+FLOORS = (BAConfig.kf_bucket_floor, BAConfig.edge_bucket_floor)     # (32, 128)
+
+
+def _bucketed(poses, edges, n_rows, n_edges):
+    """The graph as GCSLAM hands it to BA at its buckets: identity pose rows
+    past the keyframes, inactive; zero edge rows past the store, invalid."""
+    p = np.tile(np.eye(4, dtype=np.float32), (n_rows, 1, 1))
+    p[:N_KF] = poses[:N_KF]
+    e = jba.EdgeSums(*(jnp.concatenate([a, jnp.zeros((n_edges - a.shape[0],) + a.shape[1:],
+                                                      a.dtype)]) for a in edges))
+    return p, e, np.arange(n_rows) < N_KF
+
+
+@pytest.mark.parametrize("against", ["true_count", "jax"])
+@pytest.mark.parametrize("noise,seed,rounds,corrupt", [(0.05, 0, 3, False), (0.05, 1, 3, True),
+                                                       (0.3, 3, 1, False)])
+def test_bucketed_optimize(against, noise, seed, rounds, corrupt):
+    """BA at the buckets: the padded pose rows stay the identity and the
+    padded edges invalid; on the active rows the poses, the kept edges and
+    the errors agree with BA at the true counts (6 keyframes, 7 edges), or
+    with the JAX package's BA at the same buckets, within
+    test_optimize_matches_jax's tolerances. With `corrupt` the loop edge
+    (0, 5) is an outlier that the first round's prune disables."""
+    poses, edges, active, _ = _graph(noise, seed)
+    n_e = int(np.asarray(edges.valid).sum())
+    if corrupt:
+        s_pq = np.asarray(edges.s_pq).copy()
+        s_pq[5] -= 50.0 * np.eye(3, dtype=np.float32)
+        edges = edges._replace(s_pq=jnp.asarray(s_pq))
+    cfg = BAConfig(gn_rounds=rounds, gn_iterations_per_round=4)
+    bp, be, ba = _bucketed(poses, edges, *FLOORS)
+    (jp, je, ja), (tp, te, ta) = _both(bp, be, ba)
+    tout, tedges, terrs = tba.optimize(tp, te, FLOORS[0], ta, cfg)
+    tout, tvalid, terrs = tout.numpy(), tedges.valid.numpy(), terrs.numpy()
+    np.testing.assert_array_equal(tout[N_KF:], bp[N_KF:])
+    assert tvalid.shape == (FLOORS[1],) and not tvalid[n_e:].any()
+    if against == "jax":
+        want, want_edges, want_errs = jba.optimize(jp, je, FLOORS[0], ja, cfg)
+    else:
+        _, (rp, re, ra) = _both(poses[:N_KF], jax.tree.map(lambda a: a[:n_e], edges),
+                                active[:N_KF])
+        want, want_edges, want_errs = tba.optimize(rp, re, N_KF, ra, cfg)
+    np.testing.assert_allclose(tout[:N_KF], np.asarray(want)[:N_KF], atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(tvalid[:n_e], np.asarray(want_edges.valid)[:n_e])
+    np.testing.assert_allclose(terrs, np.asarray(want_errs), rtol=1e-3, atol=1e-3)
+    if corrupt:
+        assert not tvalid[5] and tvalid[:5].all()

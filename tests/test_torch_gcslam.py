@@ -36,7 +36,7 @@ from texturefusion_tpu.slam.gcslam import GCSLAM as JSLAM
 from texturefusion_tpu.utils import async_fetch as jfetch
 from texturefusion_torch.eval import loop_closure as teval
 from texturefusion_torch.io import tum as ttum
-from texturefusion_torch.slam import fastba
+from texturefusion_torch.slam import fastba, gcslam
 from texturefusion_torch.slam.features import extract_features
 from texturefusion_torch.slam.gcslam import GCSLAM as TSLAM
 from texturefusion_torch.slam.matching import register_frames
@@ -287,6 +287,57 @@ def test_ba_past_schur_min_keyframes_matches_jax(loop):
     np.testing.assert_allclose(np.stack(ts.last_ba_errors),
                                np.stack([np.asarray(e) for e in js.last_ba_errors]),
                                rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("n,lo,cap,want", [(1, 32, 512, 32), (31, 32, 512, 32),
+                                             (32, 32, 512, 32), (33, 32, 512, 64),
+                                             (300, 32, 512, 512), (513, 32, 512, 512),
+                                             (33, 32, 48, 48), (129, 128, 4096, 256),
+                                             (4096, 128, 4096, 4096)])
+def test_ba_buckets(n, lo, cap, want):
+    """BA's keyframe and edge buckets: the JAX package's, capped at the
+    pose and edge capacity."""
+    assert gcslam._next_bucket(n, lo, cap) == want
+
+
+def test_ba_at_growing_buckets_matches_jax(loop, monkeypatch):
+    """Floors of 4 keyframes and 8 edges, so the buckets grow over the loop:
+    every BA of the port runs at the buckets of its keyframe and edge
+    counts, identity rows past the keyframes and invalid edges past the
+    store, and both packages make the same decisions, poses and final BA
+    within this file's tolerances."""
+    _, depths, grays, _, _ = loop
+    config = CFG.replace(ba=dataclasses.replace(CFG.ba, kf_bucket_floor=4, edge_bucket_floor=8))
+    counts, calls, optimize, run_ba = [], [], fastba.optimize, TSLAM._run_ba
+
+    def counted_run_ba(self):
+        counts.append((len(self.keyframes), self.n_edges))
+        return run_ba(self)
+
+    def recorded(poses, edges, n_kf, active, cfg):
+        n_active = int(active.sum())
+        calls.append(counts[-1] + (poses.shape[0], edges.s_w.shape[0], n_kf, n_active,
+                                   bool(active[:n_active].all()),
+                                   bool((poses[n_active:] == torch.eye(4)).all()),
+                                   bool(edges.valid[counts[-1][1]:].any())))
+        return optimize(poses, edges, n_kf, active, cfg)
+
+    monkeypatch.setattr(TSLAM, "_run_ba", counted_run_ba)
+    monkeypatch.setattr(fastba, "optimize", recorded)
+    js, ts = _run_both(None, depths, grays, final_ba=True, config=config)
+    _same_decisions(js, ts)
+    n = ts.n_edges
+    np.testing.assert_array_equal(ts.edges.valid[:n].numpy(), np.asarray(js.edges.valid)[:n])
+    assert not ts.edges.valid[n:].any()
+    np.testing.assert_allclose(np.stack(ts.last_ba_errors),
+                               np.stack([np.asarray(e) for e in js.last_ba_errors]),
+                               rtol=1e-3, atol=1e-3)
+    rows = sorted({c[2] for c in calls})
+    assert len(rows) >= 2 and rows[0] == 4, rows
+    for n_kf, n_edges, n_rows, n_edge_rows, n_opt, n_active, head, identity, past in calls:
+        assert n_rows == n_opt == gcslam._next_bucket(n_kf, 4, CFG.ba.max_keyframes)
+        assert n_edge_rows == gcslam._next_bucket(n_edges, 8, CFG.ba.max_edges)
+        assert n_active == n_kf and head and identity and not past
 
 
 def test_add_edge_preintegrates_a_registration(orbit):

@@ -2,7 +2,9 @@
 programs as one CUDA graph each, checked on the CPU.
 
 (a) Capture safety: frame_step_tracked2 and promote_probe at the tiny
-    config under graphs.HostSyncGuard, the dispatch mode the capture runs
+    config, and BA's round program (a pruning round and a last round) at
+    GCSLAM's first buckets, 32 keyframes and 128 edges, under
+    graphs.HostSyncGuard, the dispatch mode the capture runs
     under, which fails on any op that reads a tensor on the host
     (`_local_scalar_dense`, `is_nonzero`, `equal`), makes a tensor from
     host data (`lift_fresh`), copies between the host and the card, gives
@@ -23,9 +25,10 @@ programs as one CUDA graph each, checked on the CPU.
     the slots), with 0, 1 and 6 rows in use, and in a DB of twice the
     capacity: a second program, equal results.
 (d) The cache: a second static key captures a second program and a
-    repeated key replays the first; a function that fails, or that reads
-    a tensor on the host, raises through the cache with the op named,
-    is not cached and is never run eagerly in its place.
+    repeated key replays the first, and BA's rounds count `ba_capture`
+    once per key and `ba_replay` at every later call; a function that
+    fails, or that reads a tensor on the host, raises through the cache
+    with the op named, is not cached and is never run eagerly in its place.
 """
 
 import contextlib
@@ -38,6 +41,7 @@ import pytest
 import torch
 
 from test_torch_draws import batch_draws
+from test_torch_fastba import FLOORS, _both, _bucketed, _graph
 from texturefusion_tpu.config import tiny_test_config as jax_tiny_config
 from texturefusion_tpu.core import camera as jcam
 from texturefusion_tpu.io import synthetic as jsyn
@@ -51,12 +55,15 @@ from texturefusion_torch.fusion.pipeline import ReconstructionPipeline
 from texturefusion_torch.io import synthetic as tsyn
 from texturefusion_torch.models import reconstruction as rec
 from texturefusion_torch.ops import preprocess as tpre
+from texturefusion_torch.config import BAConfig
+from texturefusion_torch.slam import fastba
 from texturefusion_torch.slam import loopclosure as tlc
 from texturefusion_torch.slam import matching as tm
 from texturefusion_torch.slam import promote as tpr
 from texturefusion_torch.slam.features import extract_features
 from texturefusion_torch.utils import graphs
 from texturefusion_torch.utils.convert import keypoints_from_numpy
+from texturefusion_torch.utils.stopwatch import STOPWATCH
 
 torch.set_num_threads(2)
 
@@ -97,6 +104,7 @@ class ReplayStandIn(graphs.CapturedProgram):
 def _clear_programs():
     rec.FRAME_STEP_PROGRAMS.clear()
     tpr.PROBE_PROGRAMS.clear()
+    fastba.BA_ROUND_PROGRAMS.clear()
 
 
 @pytest.fixture
@@ -220,8 +228,27 @@ def test_probe_is_capture_safe(guard, probe_db, have_tracked):
     assert torch.equal(got.fetch, want.fetch)
 
 
+@pytest.fixture(scope="module")
+def ba_inputs():
+    """test_torch_fastba's pose graph at GCSLAM's first buckets: poses,
+    edges and active rows as torch tensors."""
+    poses, edges, _, _ = _graph()
+    return _both(*_bucketed(poses, edges, *FLOORS))[1]
+
+
+@pytest.mark.parametrize("prunes", [True, False])
+def test_ba_round_is_capture_safe(guard, ba_inputs, prunes):
+    kw = dict(n_kf=FLOORS[0], cfg=BAConfig(), prunes=prunes)
+    want = fastba._round_program(*ba_inputs, **kw)
+    with guard:
+        got = fastba._round_program(*ba_inputs, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (got[2] is None) == (not prunes)
+
+
 @pytest.mark.parametrize("op", ["item", "bool", "nonzero", "masked_select", "bool_index",
-                                "bool_setitem", "unique", "svd", "eigh", "from_host"])
+                                "bool_setitem", "unique", "svd", "eigh", "from_host",
+                                "repeat_interleave", "scalar_index"])
 def test_guard_trips_on_each_kind(op):
     x = torch.arange(9, dtype=torch.float32).reshape(3, 3) + torch.eye(3) * 10
     ops = {"item": lambda: x.sum().item(), "bool": lambda: bool(x.sum() > 0),
@@ -229,7 +256,14 @@ def test_guard_trips_on_each_kind(op):
            "bool_index": lambda: x[x.sum(1) > 20], "bool_setitem": lambda: x.clone().__setitem__(
                x > 3, x.sum()), "unique": lambda: torch.unique(x.round()),
            "svd": lambda: torch.linalg.svd(x), "eigh": lambda: torch.linalg.eigh(x + x.T),
-           "from_host": lambda: torch.tensor([1.0, 2.0]) + x[0, :2]}
+           "from_host": lambda: torch.tensor([1.0, 2.0]) + x[0, :2],
+           # BA's pin mask as it was spread over the six rows of a pose (the
+           # tensor form, which torch versions that do not expand the int
+           # form dispatch), and its median as it was picked from the
+           # sorted errors
+           "repeat_interleave": lambda: torch.repeat_interleave(
+               x[0] > 3, torch.full_like(x[0], 6, dtype=torch.int64)),
+           "scalar_index": lambda: x.reshape(-1)[torch.argmax(x)]}
     with pytest.raises(RuntimeError, match="host|data|solver"):
         with graphs.HostSyncGuard():
             ops[op]()
@@ -377,6 +411,33 @@ def test_cache_keys_and_replays(stand_in, step_inputs):
     # outputs are fresh tensors: no call returns a buffer of the program
     outs = {t.data_ptr() for p in progs for t in p.outputs}
     assert not outs & {t.data_ptr() for t in got[4:]}
+
+
+def test_ba_rounds_count_captures_and_replays(stand_in, ba_inputs):
+    """Two BAs of three rounds at one bucket: the first round (pruning) and
+    the last (not pruning) are two keys, captured once each; every other
+    round is a replay, and computes what the direct rounds compute. A
+    second bucket captures its two again."""
+    poses, edges, active = ba_inputs
+    cfg = BAConfig()
+    before = STOPWATCH.counts.copy()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(graphs, "_captures", lambda device: False)
+        want = fastba.optimize(poses, edges, FLOORS[0], active, cfg)
+    assert (STOPWATCH.counts["ba_capture"], STOPWATCH.counts["ba_replay"]) == (
+        before["ba_capture"], before["ba_replay"])
+    for _ in range(2):
+        got = fastba.optimize(poses, edges, FLOORS[0], active, cfg)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+        assert torch.equal(got[1].valid, want[1].valid)
+    assert len(fastba.BA_ROUND_PROGRAMS.programs) == 2
+    assert STOPWATCH.counts["ba_capture"] - before["ba_capture"] == 2
+    assert STOPWATCH.counts["ba_replay"] - before["ba_replay"] == 4
+    wider = fastba.EdgeSums(*(torch.cat([a, torch.zeros_like(a)]) for a in edges))
+    fastba.optimize(poses, wider, FLOORS[0], active, cfg)
+    assert len(fastba.BA_ROUND_PROGRAMS.programs) == 4
+    assert STOPWATCH.counts["ba_capture"] - before["ba_capture"] == 4
+    assert STOPWATCH.counts["ba_replay"] - before["ba_replay"] == 5
 
 
 @pytest.mark.parametrize("failure", ["raises", "host_read"])

@@ -1,6 +1,6 @@
 """The port's span recorder (texturefusion_torch/utils/stopwatch.py) and
-what is read of it: the per-layer readers ba_round_ms and
-tracking_offcpu_ms, and tfbench/spanlog.py, which puts the span log on
+what is read of it: the per-layer readers ba_round_ms,
+tracking_offcpu_ms and ba_replay_share, and tfbench/spanlog.py, which puts the span log on
 the device trace's clock.
 
 `tests/data/torch_trace_h100.json` is `record()` run on an NVIDIA H100
@@ -441,6 +441,16 @@ def test_the_readers_give_nothing_for_a_program_without_spans():
     for name in ("ba_round_ms", "tracking_offcpu_ms"):
         assert load_reader(name).read(run) is None
         assert load_reader(name).read(_run()) is None
+
+
+@pytest.mark.parametrize("counts,want", [({}, None), ({"ba_gn_round": 12}, None),
+                                         ({"ba_capture": 2, "ba_replay": 94}, 94 / 96),
+                                         ({"ba_capture": 3}, 0.0)])
+def test_ba_replay_share_reads_the_counts(counts, want):
+    """The share of BA rounds replayed; None from a program that counts no
+    captured round, as the parent of the captured rounds does."""
+    got = load_reader("ba_replay_share").read(_run(counts=counts))
+    assert got is None if want is None else got == pytest.approx(want)
 
 
 # ------------------------------------------------------------ reduce

@@ -98,9 +98,9 @@ class BAConfig:
     # here on, distributed GN below.
     schur_min_keyframes: int = 64
     schur_separator_budget: int = 128
-    # the JAX package's floors of its BA program's keyframe and edge
-    # buckets (fixed compiled shapes). The port reads and ignores them: it
-    # solves at the true keyframe and edge counts.
+    # the floors of BA's keyframe and edge buckets (fixed shapes, as the
+    # JAX package's compiled programs have): on one device the port runs
+    # BA at the bucketed counts, so that its captured rounds are replayed.
     kf_bucket_floor: int = 32
     edge_bucket_floor: int = 128
 

@@ -10,6 +10,12 @@ iteration is O(edges) with closed-form 6×6 blocks.
 Cost: E(T) = Σ_edges Σ_k w_k ‖T_i p_k − T_j q_k‖² over world poses T;
 left-multiplicative se3 updates; the first active keyframe is pinned
 with a 1e12 diagonal, as are inactive rows.
+
+On the card each round of `optimize` (its GN iterations, the rollback
+test and the prune after it) is one captured CUDA graph
+(`BA_ROUND_PROGRAMS`, utils/graphs.py), one per keyframe and edge count,
+as the JAX package runs `optimize` as one jitted program; GCSLAM calls it
+at the JAX package's bucketed counts, so the programs are replayed.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 from texturefusion_torch.config import BAConfig
 from texturefusion_torch.core import se3
 from texturefusion_torch.slam.matching import huber_weights, solve_guarded
+from texturefusion_torch.utils import graphs
 from texturefusion_torch.utils.stopwatch import STOPWATCH
 
 
@@ -179,7 +186,7 @@ def gauss_newton_rounds(poses: torch.Tensor, edges: EdgeSums, n_kf: int,
     diag = torch.arange(n_kf * 6, device=poses.device)
     first_active = torch.argmax(active.to(torch.int32))
     pin = (torch.arange(n_kf, device=poses.device) == first_active) | ~active
-    pin6 = torch.repeat_interleave(pin, 6)
+    pin6 = pin[:, None].expand(n_kf, 6).reshape(-1)
     new_poses = poses
     for _ in range(cfg.gn_iterations_per_round):
         h, b = assemble_dense(*_edge_blocks(new_poses, edges), edges.kf_i, edges.kf_j, n_kf)
@@ -204,7 +211,8 @@ def prune_mask(mean_per_pt: torch.Tensor, valid: torch.Tensor, kf_i: torch.Tenso
     last = srt.numel() - 1
     hi = torch.clamp((n_valid - 1) // 2 + (n_valid - 1) % 2, 0, last)
     lo = torch.clamp((n_valid - 1) // 2, 0, last)
-    med = 0.5 * (srt[lo] + srt[hi])
+    mid = srt[torch.stack([lo, hi])]     # a 0-d index would be read on the host
+    med = 0.5 * (mid[0] + mid[1])
     med = torch.where(n_valid > 0, med, 1e9)
     keep = valid & (mean_per_pt <= factor * torch.clamp(med, min=1e-12))
     odo = torch.abs(kf_i - kf_j) == 1
@@ -242,16 +250,30 @@ def reweight_edges(poses: torch.Tensor, edges: EdgeSums,
         for name, new, old in zip(EdgeSums._fields[2:8], sums, edges[2:8])})
 
 
+def _round_program(poses: torch.Tensor, edges: EdgeSums, active: torch.Tensor, *,
+                   n_kf: int, cfg: BAConfig, prunes: bool):
+    """One round of `optimize`: (poses, [error before, error after], the
+    pruned `valid` mask, or None without `prunes`)."""
+    poses, e0, e1 = gauss_newton_rounds(poses, edges, n_kf, active, cfg)
+    valid = prune_outlier_edges(poses, edges).valid if prunes else None
+    return poses, torch.stack([e0, e1]), valid
+
+
+BA_ROUND_PROGRAMS = graphs.GraphCache(_round_program, "ba_gn_round", counter="ba")
+
+
 def optimize(poses: torch.Tensor, edges: EdgeSums, n_kf: int, active: torch.Tensor,
              cfg: BAConfig):
     """Rounds of robust GN with pruning in between (ref: optimizeKeyFrameMap
-    :1209-1217), each round with its prune the span `ba_gn_round`.
-    Returns (poses, edges, errs [rounds, 2])."""
+    :1209-1217), each round with its prune one call of BA_ROUND_PROGRAMS
+    (on the card one captured program, its host enqueue) in the span
+    `ba_gn_round`. Returns (poses, edges, errs [rounds, 2])."""
     errs = []
     for r in range(cfg.gn_rounds):
         with STOPWATCH.time("ba_gn_round"):
-            poses, e0, e1 = gauss_newton_rounds(poses, edges, n_kf, active, cfg)
-            errs.append(torch.stack([e0, e1]))
-            if r < cfg.gn_rounds - 1:
-                edges = prune_outlier_edges(poses, edges)
+            poses, err, valid = BA_ROUND_PROGRAMS(poses, edges, active, n_kf=n_kf, cfg=cfg,
+                                                  prunes=r < cfg.gn_rounds - 1)
+            errs.append(err)
+            if valid is not None:
+                edges = edges._replace(valid=valid)
     return poses, edges, torch.stack(errs)

@@ -1,8 +1,9 @@
 """Captured programs: the port's counterpart of jax.jit's executable cache.
 
 The JAX package compiles each of the tracker's per-frame programs
-(`frame_step_tracked2`, `promote_probe`) into one executable per set of
-static arguments and input shapes, and runs it with one dispatch. Here
+(`frame_step_tracked2`, `promote_probe`) and BA (`optimize`) into one
+executable per set of static arguments and input shapes, and runs it
+with one dispatch. Here
 `GraphCache(fn, name)` does the same with CUDA graphs: a call on CUDA
 tensors looks up one captured program per key, the static keyword
 arguments plus the pytree structure, shapes, dtypes and device of the
@@ -30,6 +31,10 @@ a fresh tensor, so a caller never holds a buffer the next replay
 overwrites. The kernels a program launched while being captured are
 counted in ops/cuda_kernels.LAUNCHES at each replay.
 
+With a `counter` the cache counts its calls on CUDA tensors in the
+STOPWATCH: counter + "_capture" for a call with a new key (the eager call
+and the capture), counter + "_replay" for every other.
+
 On CPU tensors the cache calls the function directly.
 """
 
@@ -44,6 +49,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from texturefusion_torch.ops import cuda_kernels
+from texturefusion_torch.utils.stopwatch import STOPWATCH
 
 # aten ops that read a tensor on the host, copy from host data, or give a
 # shape that depends on the data: none may run inside a captured program
@@ -201,11 +207,13 @@ def _captures(device: torch.device) -> bool:
 
 class GraphCache:
     """fn(*args, **static) as one captured program per key on CUDA
-    tensors, called directly on CPU tensors."""
+    tensors, called directly on CPU tensors; `counter` names the STOPWATCH
+    counts of its captures and replays."""
 
-    def __init__(self, fn: Callable, name: str):
+    def __init__(self, fn: Callable, name: str, counter: Optional[str] = None):
         self.fn = fn
         self.name = name
+        self.counter = counter
         self.programs: Dict[Tuple, CapturedProgram] = {}
         self._lock = threading.Lock()
 
@@ -222,6 +230,8 @@ class GraphCache:
                tuple(sorted(static.items())))
         with self._lock:
             prog = self.programs.get(key)
+            if self.counter is not None:
+                STOPWATCH.count(self.counter + ("_capture" if prog is None else "_replay"))
             if prog is not None:
                 return prog(tensors)
             prog = CapturedProgram(self.fn, self.name, spec, args, tensors, static)
