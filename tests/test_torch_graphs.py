@@ -417,10 +417,12 @@ def test_ba_rounds_count_captures_and_replays(stand_in, ba_inputs):
     """Two BAs of three rounds at one bucket: the first round (pruning) and
     the last (not pruning) are two keys, captured once each; every other
     round is a replay, and computes what the direct rounds compute. A
-    second bucket captures its two again."""
+    second bucket captures its two again. Each capture is timed as the
+    span `ba_capture`."""
     poses, edges, active = ba_inputs
     cfg = BAConfig()
     before = STOPWATCH.counts.copy()
+    timed = STOPWATCH.totals.get("ba_capture", 0.0)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(graphs, "_captures", lambda device: False)
         want = fastba.optimize(poses, edges, FLOORS[0], active, cfg)
@@ -433,6 +435,9 @@ def test_ba_rounds_count_captures_and_replays(stand_in, ba_inputs):
     assert len(fastba.BA_ROUND_PROGRAMS.programs) == 2
     assert STOPWATCH.counts["ba_capture"] - before["ba_capture"] == 2
     assert STOPWATCH.counts["ba_replay"] - before["ba_replay"] == 4
+    # a capture is the span `ba_capture`: its count is the counter's
+    assert STOPWATCH.totals["ba_capture"] > timed
+    assert "ba_replay" not in STOPWATCH.totals
     wider = fastba.EdgeSums(*(torch.cat([a, torch.zeros_like(a)]) for a in edges))
     fastba.optimize(poses, wider, FLOORS[0], active, cfg)
     assert len(fastba.BA_ROUND_PROGRAMS.programs) == 4

@@ -113,6 +113,16 @@ class KeyframeFusionState:
         self.quality = self.quality.cpu()
         self.depth_weight = None
 
+    def staged(self) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """The quality map and local depths on the keyframe's device (its
+        depth's, never staged): those of a staged keyframe come back from
+        host memory for one use (span `kf_restage`), and stay staged."""
+        device = self.depth.device
+        if self.quality.device == device:
+            return self.quality, self.local_depths
+        with STOPWATCH.time("kf_restage"):
+            return self.quality.to(device), [d.to(device) for d in self.local_depths]
+
 
 class ReconstructionPipeline:
     """`draw_fn` is GCSLAM's (every RANSAC draw of a promotion or retry);
@@ -498,7 +508,8 @@ class ReconstructionPipeline:
         with STOPWATCH.time("i_pose"):
             if pose is None:
                 pose = st.integrated_pose if sign < 0 else self.slam.keyframe_pose(st.kf_slot)
-        depth, quality = st.depth.to(self.device), st.quality.to(self.device)
+        quality, local_depths = st.staged()
+        depth = st.depth.to(self.device)
         self._on_fusion_stream(st.depth, st.rgb, st.quality, *st.local_depths)
         if sign < 0 and st.integrated_ids is not None:
             # de-integration touches exactly the integrated chunk set
@@ -515,9 +526,9 @@ class ReconstructionPipeline:
             # that de-integration and reintegration cancel exactly
             st.local_rel_poses = [self.slam.frames[i].rel_to_keyframe
                                   for i in st.local_frame_idx]
-        if st.local_depths:
+        if local_depths:
             with STOPWATCH.time("i_locals"):
-                vol.integrate_local_depths(st.local_depths,
+                vol.integrate_local_depths(local_depths,
                                            [pose @ rel for rel in st.local_rel_poses],
                                            slots, sign=sign)
         if sign > 0:
@@ -644,19 +655,22 @@ class ReconstructionPipeline:
             if approx <= budget:
                 break
             approx -= self._kf_device_bytes(st)
-            st.release_device_memory()
+            with STOPWATCH.time("kf_stage_out"):
+                st.release_device_memory()
+            STOPWATCH.count("kf_staged")
 
     def _kf_device_bytes(self, st: KeyframeFusionState) -> int:
-        """Bytes of a keyframe's stageable state on the pipeline's device
-        (local depths, quality, refinement weight)."""
+        """Bytes of a keyframe's stageable state on the pipeline's device,
+        where its depth lives (local depths, quality, refinement weight)."""
         ts = list(st.local_depths) + [st.quality, st.depth_weight]
         return sum(t.numel() * t.element_size() for t in ts
-                   if t is not None and t.device == self.device)
+                   if t is not None and t.device == st.depth.device)
 
     def _reintegrate_drifted(self, max_updates: int = 4) -> None:
         """De-integrate at the old pose, re-integrate at the optimized pose
         (ref: MobileFusion.cpp:114-221 ReIntegrateKeyframe; scheduling
-        :289-315)."""
+        :289-315). Each keyframe moved adds one to the STOPWATCH counter
+        `kf_reintegrated`."""
         slots = [s for s, st in list(self.kf_states.items()) if st.integrated]
         if not slots:
             return
@@ -677,11 +691,12 @@ class ReconstructionPipeline:
                 with STOPWATCH.time("r_fused"):
                     rec = self._recorded_slots(st, allocate=True)
                     self._on_fusion_stream(st.depth, st.rgb, st.quality, *st.local_depths)
+                    quality, local_depths = st.staged()
                     self.volume.reintegrate_frame(
-                        st.depth.to(self.device), self._kf_rgb(st),
-                        st.quality.to(self.device), pose_old, pose_new, st.kf_slot, rec)
+                        st.depth.to(self.device), self._kf_rgb(st), quality, pose_old,
+                        pose_new, st.kf_slot, rec)
                     self.volume.reintegrate_local_depths(
-                        st.local_depths, [pose_old @ r for r in st.local_rel_poses],
+                        local_depths, [pose_old @ r for r in st.local_rel_poses],
                         [pose_new @ r for r in st.local_rel_poses], rec)
                 st.integrated_pose = np.asarray(pose_new)
                 st.integrated_ids = self.volume.ids[rec].copy()
@@ -693,6 +708,7 @@ class ReconstructionPipeline:
                     self._integrate_keyframe(st, sign=+1.0)
                 self.stats["reintegrations_full"] += 1
             self.stats["reintegrations"] += 1
+            STOPWATCH.count("kf_reintegrated")
 
     def _texture_cycle(self) -> None:
         """Hook for the texture stage of each fusion cycle (TexturedPipeline)."""

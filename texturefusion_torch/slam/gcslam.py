@@ -100,6 +100,13 @@ def _next_bucket(n: int, lo: int, cap: int) -> int:
     return min(b, cap)
 
 
+def _count_loop_edges(results, last_slot: int) -> None:
+    """The STOPWATCH counter `loop_edges`: a new keyframe's accepted
+    registrations to keyframes other than the one it was tracked against
+    (results' first items are KeyframeRecords)."""
+    STOPWATCH.count("loop_edges", sum(r[0].slot != last_slot for r in results))
+
+
 class GCSLAM:
     def __init__(self, config: PipelineConfig, device="cuda",
                  draw_fn: Optional[Callable[[TrackingConfig, Optional[int]], torch.Tensor]] = None,
@@ -407,6 +414,7 @@ class GCSLAM:
             for kf_c, _stats, sums, matches in results:
                 if self.n_edges < self.config.ba.max_edges:
                     self._append_edge(kf_c.slot, kf.slot, sums, matches)
+        _count_loop_edges(results, last_slot)
         kf.reg_success_count = len(results)
 
         # map-origin merging (ref: GCSLAM.cpp:187-254 updateMapOrigin)
@@ -565,6 +573,7 @@ class GCSLAM:
             pose_world = self.poses[pend["last_slot"]] @ pend["rel"]
         self.poses[kf.slot] = pose_world.astype(np.float32)
         self._append_probe_edges(pend["probe"], [r[2] for r in results], kf.slot)
+        _count_loop_edges(results, pend["last_slot"])
         kf.reg_success_count = len(results)
         if len(results) < 4:          # ref: GCSLAM.cpp:171-177 DB insertion gate
             self._db_add(kf.slot, fr.keypoints)

@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from texturefusion_torch.utils.stopwatch import STOPWATCH
+
 
 def pack_rgb(rgb_u8: torch.Tensor) -> torch.Tensor:
     """[..., 3] uint8 → [...] int32 r | g<<8 | b<<16."""
@@ -39,16 +41,21 @@ class KeyframeStack:
         self.present: set = set()
 
     def ensure(self, kf_slot: int) -> None:
-        while kf_slot >= self.cap:
-            k = self.cap
-            self.cap *= 2
-            rgb = self.rgb_packed.new_zeros((self.cap, self.h, self.w))
-            depth = self.depth.new_zeros((self.cap, self.h, self.w))
-            rgb[:k], depth[:k] = self.rgb_packed, self.depth
-            self.rgb_packed, self.depth = rgb, depth
-            grown = np.tile(np.eye(4, dtype=np.float32), (self.cap, 1, 1))
-            grown[:k] = self.poses
-            self.poses = grown
+        """Double the capacity until row kf_slot exists (the STOPWATCH span
+        `kfstack_grow`)."""
+        if kf_slot < self.cap:
+            return
+        with STOPWATCH.time("kfstack_grow"):
+            while kf_slot >= self.cap:
+                k = self.cap
+                self.cap *= 2
+                rgb = self.rgb_packed.new_zeros((self.cap, self.h, self.w))
+                depth = self.depth.new_zeros((self.cap, self.h, self.w))
+                rgb[:k], depth[:k] = self.rgb_packed, self.depth
+                self.rgb_packed, self.depth = rgb, depth
+                grown = np.tile(np.eye(4, dtype=np.float32), (self.cap, 1, 1))
+                grown[:k] = self.poses
+                self.poses = grown
 
     def add(self, kf_slot: int, rgb_u8, depth, pose: np.ndarray) -> None:
         """Write one keyframe's images (uint8 [H, W, 3], float [H, W]) and

@@ -32,8 +32,9 @@ overwrites. The kernels a program launched while being captured are
 counted in ops/cuda_kernels.LAUNCHES at each replay.
 
 With a `counter` the cache counts its calls on CUDA tensors in the
-STOPWATCH: counter + "_capture" for a call with a new key (the eager call
-and the capture), counter + "_replay" for every other.
+STOPWATCH: a call with a new key is the span counter + "_capture" (the
+eager call and the capture, so its count is that of the captures), every
+other adds one to the counter counter + "_replay".
 
 On CPU tensors the cache calls the function directly.
 """
@@ -230,11 +231,13 @@ class GraphCache:
                tuple(sorted(static.items())))
         with self._lock:
             prog = self.programs.get(key)
-            if self.counter is not None:
-                STOPWATCH.count(self.counter + ("_capture" if prog is None else "_replay"))
             if prog is not None:
+                if self.counter is not None:
+                    STOPWATCH.count(self.counter + "_replay")
                 return prog(tensors)
-            prog = CapturedProgram(self.fn, self.name, spec, args, tensors, static)
+            with (STOPWATCH.time(self.counter + "_capture") if self.counter is not None
+                  else contextlib.nullcontext()):
+                prog = CapturedProgram(self.fn, self.name, spec, args, tensors, static)
             self.programs[key] = prog
             out, prog.first = prog.first, None
             return out
