@@ -2856,24 +2856,28 @@ def _ba_round_inputs(n_kf=24):
 
 
 def phase_graphs(frames, n_tiny=30):
-    """The tracker's two programs and BA's round captured as CUDA graphs
-    (utils/graphs.py) against their eager versions: frame_step_tracked2
-    bit for bit (keypoints, stats2, the bundle's planes, the fused depth
-    and weight: every output) on [tracked-small]'s 30 tiny orbit frames and
-    3 of [tracked]'s VGA frames (each against the first frame as its
-    keyframe and the frame before it, with its own draws), and
-    promote_probe at 5 candidates over a VGA DB of 9 keyframes of the loop
-    (rows in use 9 and 1), and BA's round program, pruning and last, at
-    GCSLAM's first buckets (`_ba_round_inputs`). One replay of each under
+    """The tracker's two programs, BA's round and the stale-frame
+    refinement captured as CUDA graphs (utils/graphs.py) against their
+    eager versions: frame_step_tracked2 bit for bit (keypoints, stats2,
+    the bundle's planes, the fused depth and weight: every output) on
+    [tracked-small]'s 30 tiny orbit frames and 3 of [tracked]'s VGA frames
+    (each against the first frame as its keyframe and the frame before
+    it, with its own draws), and promote_probe at 5 candidates over a VGA
+    DB of 9 keyframes of the loop (rows in use 9 and 1), and BA's round
+    program, pruning and last, at GCSLAM's first buckets
+    (`_ba_round_inputs`), and the refinement's
+    registration (gcslam.REFINE_PROGRAMS, the lite settings) on three
+    pairs of VGA frames with draws of their own. One replay of each under
     set_sync_debug_mode("error"), and its host launches: one graph launch
-    plus the copies in and out; each captured again while another thread
-    launches on the card, bit for bit. Eager against graphed host ms of
-    both programs. Returns the kabsch inputs of one eager VGA frame step and
+    plus the copies in and out (and the refinement's eager launches
+    beside them); each captured again while another thread launches on
+    the card, bit for bit. Eager against graphed host ms of each
+    program. Returns the kabsch inputs of one eager VGA frame step and
     probe, for [k3]."""
     from texturefusion_torch.core import camera as cam
     from texturefusion_torch.models import reconstruction as rec
     from texturefusion_torch.ops import preprocess
-    from texturefusion_torch.slam import fastba, loopclosure, matching, promote
+    from texturefusion_torch.slam import fastba, gcslam, loopclosure, matching, promote
     from texturefusion_torch.slam.features import extract_features
     from texturefusion_torch.utils import devtime
 
@@ -2959,13 +2963,36 @@ def phase_graphs(frames, n_tiny=30):
         return fastba.BA_ROUND_PROGRAMS(*ba, prunes=True, **ba_kw)
 
     ba_check = _graph_call_check("ba_gn_round", fastba.BA_ROUND_PROGRAMS, ba_round)
+    # the stale-frame refinement: a frame, the loop's last but one and the
+    # first frame against each other, lite draws of their own each
+    lite = matching.lite_config(config.tracking)
+    rgen = torch.Generator(device="cuda").manual_seed(6)
+    b3 = preprocess.preprocess_bundle(dp[3], None, intr, depth_scale=ds)
+    kp3 = extract_features(b3[3], b3[0], config.tracking, intr)
+    refine_same, registered = [], []
+    for ref, src in ((kp0, kp3), (kp0, kq), (kp3, kq)):
+        ra = (ref, src, matching.ransac_draws(lite, pad, rgen))
+        want = gcslam._refine_program(*ra, cfg=lite, intr=intr)
+        got = [gcslam.REFINE_PROGRAMS(*ra, cfg=lite, intr=intr) for _ in range(2)]
+        refine_same.append(all(bit_equal(want, g) for g in got))
+        registered.append(float(want[0]))
+
+    def refine():
+        return gcslam.REFINE_PROGRAMS(*ra, cfg=lite, intr=intr)
+
+    def refine_eager():
+        return gcslam._refine_program(*ra, cfg=lite, intr=intr)
+
+    refine_check = _graph_call_check("stale_refine", gcslam.REFINE_PROGRAMS, refine)
+    refine_check["eager_launches"] = host_launches(refine_eager)
     concurrent = _capture_beside_a_busy_thread(
         [(rec.FRAME_STEP_PROGRAMS, lambda: rec.frame_step_tracked2_captured(*step, draws=draws),
           rec.frame_step_tracked2(*step, draws=draws)),
          (promote.PROBE_PROGRAMS, lambda: promote.promote_probe_captured(*a),
           promote.promote_probe(*a)),
          (fastba.BA_ROUND_PROGRAMS, ba_round,
-          fastba._round_program(*ba, prunes=True, **ba_kw))])
+          fastba._round_program(*ba, prunes=True, **ba_kw)),
+         (gcslam.REFINE_PROGRAMS, refine, refine_eager())])
     times = {"frame_step_tracked2": (
         devtime.host_ms(lambda: rec.frame_step_tracked2(*step, draws=draws), "cuda", 5),
         devtime.host_ms(lambda: rec.frame_step_tracked2_captured(*step, draws=draws), "cuda", 5)),
@@ -2974,7 +3001,9 @@ def phase_graphs(frames, n_tiny=30):
             devtime.host_ms(lambda: promote.promote_probe_captured(*a), "cuda", 5)),
         "ba_gn_round(32 kf, 128 edges)": (
             devtime.host_ms(lambda: fastba._round_program(*ba, prunes=True, **ba_kw), "cuda", 5),
-            devtime.host_ms(ba_round, "cuda", 5))}
+            devtime.host_ms(ba_round, "cuda", 5)),
+        "stale_refine": (devtime.host_ms(refine_eager, "cuda", 5),
+                         devtime.host_ms(refine, "cuda", 5))}
 
     # the kabsch calls of one eager frame step and one eager probe, for [k3]
     recorded, kabsch = [], matching.kabsch
@@ -2994,17 +3023,20 @@ def phase_graphs(frames, n_tiny=30):
         f"{same_tiny} of {n_tiny - 1} tiny frames and {same_vga} of {len(vga_frames)} VGA "
         f"frames; promote_probe(5 cand) bit for bit {probe_same} (rows in use 9, 9 tracked, "
         f"1; {admitted} loop candidates admitted); ba_gn_round (pruning, last) bit for bit "
-        f"{ba_same}; programs frame step {len(rec.FRAME_STEP_PROGRAMS.programs)}, probe "
-        f"{len(promote.PROBE_PROGRAMS.programs)}, BA round {len(fastba.BA_ROUND_PROGRAMS.programs)}")
+        f"{ba_same}; stale_refine bit for bit {refine_same} (registered {registered}); "
+        f"programs frame step {len(rec.FRAME_STEP_PROGRAMS.programs)}, probe "
+        f"{len(promote.PROBE_PROGRAMS.programs)}, "
+        f"BA round {len(fastba.BA_ROUND_PROGRAMS.programs)}, refine "
+        f"{len(gcslam.REFINE_PROGRAMS.programs)}")
     log(f"[graphs] a replay under set_sync_debug_mode('error'): no sync; host launches a call: "
         f"frame step {json.dumps(step_check)}, probe {json.dumps(probe_check)}, BA round "
-        f"{json.dumps(ba_check)}")
+        f"{json.dumps(ba_check)}, stale_refine {json.dumps(refine_check)}")
     log(f"[graphs] captured again while another thread launched on the card: bit for bit "
         f"{concurrent}")
     log("[graphs] host ms a call (median of 5, each ending in a synchronize), eager | graphed: "
         + ", ".join(f"{k} {e:.3f} | {g:.3f}" for k, (e, g) in times.items()))
     if not (same_tiny == n_tiny - 1 and same_vga == len(vga_frames) and all(probe_same)
-            and all(ba_same) and all(concurrent)):
+            and all(ba_same) and all(refine_same) and all(concurrent)):
         raise AssertionError("[graphs] a captured program disagrees with its eager version")
     return recorded
 

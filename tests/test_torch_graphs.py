@@ -1,12 +1,15 @@
 """The captured programs (utils/graphs.py): the tracker's two per-frame
-programs as one CUDA graph each, checked on the CPU.
+programs, BA's round and the stale-frame refinement as one CUDA graph
+each, checked on the CPU.
 
 (a) Capture safety: frame_step_tracked2 and promote_probe at the tiny
-    config, and BA's round program (a pruning round and a last round) at
-    GCSLAM's first buckets, 32 keyframes and 128 edges, under
-    graphs.HostSyncGuard, the dispatch mode the capture runs
-    under, which fails on any op that reads a tensor on the host
-    (`_local_scalar_dense`, `is_nonzero`, `equal`), makes a tensor from
+    config, the stale-frame refinement's registration (gcslam's
+    REFINE_PROGRAMS) at the lite settings, and BA's round program (a
+    pruning round and a last round) at GCSLAM's first buckets, 32
+    keyframes and 128 edges, under graphs.HostSyncGuard, the dispatch
+    mode the capture runs under, which fails on any op that reads a
+    tensor on the host (`_local_scalar_dense`, `is_nonzero`, `equal`),
+    makes a tensor from
     host data (`lift_fresh`), copies between the host and the card, gives
     a shape that depends on the data (`nonzero`, `masked_select`,
     boolean-mask indexing, `unique*`), or solves with a host check
@@ -18,7 +21,10 @@ programs as one CUDA graph each, checked on the CPU.
     the cache's real copies in and out. Under it, the pipelined tracker
     (depths 1-3, deferred promotion, stale-frame refinement, 16 orbit
     frames) takes the same keyframes, stale frames and adopted
-    refinements, and gives the same poses bit for bit, as the direct run.
+    refinements, and gives the same poses bit for bit, as the direct run;
+    at depth 2 every stale frame's refinement goes through the cache, one
+    capture and then replays. On the card (cuda-marked) the refinement's
+    replay gives the eager registration's stats bit for bit.
 (c) The probe with device scalars against the JAX `promote_probe`, at
     test_torch_loopclosure.py's tolerances (same candidate slots and
     admission, stats 1e-4, edge sums rtol 1e-4, match indices on ≥ 99% of
@@ -29,34 +35,33 @@ programs as one CUDA graph each, checked on the CPU.
     once per key and `ba_replay` at every later call; a function that
     fails, or that reads a tensor on the host, raises through the cache
     with the op named, is not cached and is never run eagerly in its place.
+(e) The readers of the refinement's two per-layer metrics,
+    stale_refine_ms and refine_replay_share: a value from the span and
+    the counts, None without them.
+
+The JAX package (BA's graph from test_torch_fastba, the JAX side of
+(c)) is imported where it is used, so that the cuda-marked case runs on
+a machine without JAX: `PYTHONPATH=. python -m pytest
+tests/test_torch_graphs.py --noconftest -m cuda`.
 """
 
 import contextlib
 import dataclasses
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from test_torch_draws import batch_draws
-from test_torch_fastba import FLOORS, _both, _bucketed, _graph
-from texturefusion_tpu.config import tiny_test_config as jax_tiny_config
-from texturefusion_tpu.core import camera as jcam
-from texturefusion_tpu.io import synthetic as jsyn
-from texturefusion_tpu.ops import preprocess as jpre
-from texturefusion_tpu.slam import features as jf
-from texturefusion_tpu.slam import loopclosure as jlc
-from texturefusion_tpu.slam import promote as jpr
+from tfbench import harness
 from texturefusion_torch.config import tiny_test_config
 from texturefusion_torch.core import camera as tcam
 from texturefusion_torch.fusion.pipeline import ReconstructionPipeline
 from texturefusion_torch.io import synthetic as tsyn
 from texturefusion_torch.models import reconstruction as rec
+from texturefusion_torch.ops import cuda_kernels
 from texturefusion_torch.ops import preprocess as tpre
 from texturefusion_torch.config import BAConfig
-from texturefusion_torch.slam import fastba
+from texturefusion_torch.slam import fastba, gcslam
 from texturefusion_torch.slam import loopclosure as tlc
 from texturefusion_torch.slam import matching as tm
 from texturefusion_torch.slam import promote as tpr
@@ -69,7 +74,7 @@ torch.set_num_threads(2)
 
 CFG = tiny_test_config()
 TI = tcam.Intrinsics.from_config(CFG.camera)
-JI = jcam.Intrinsics.from_config(jax_tiny_config().camera)
+FLOORS = (BAConfig.kf_bucket_floor, BAConfig.edge_bucket_floor)     # (32, 128)
 SCALE = CFG.camera.depth_scale
 N_CAND = 5
 
@@ -105,6 +110,7 @@ def _clear_programs():
     rec.FRAME_STEP_PROGRAMS.clear()
     tpr.PROBE_PROGRAMS.clear()
     fastba.BA_ROUND_PROGRAMS.clear()
+    gcslam.REFINE_PROGRAMS.clear()
 
 
 @pytest.fixture
@@ -115,6 +121,13 @@ def stand_in(monkeypatch):
     _clear_programs()
     yield ReplayStandIn
     _clear_programs()
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (a CUDA graph has no CPU mode)")
+    return torch.device("cuda")
 
 
 def _packed(n_frames, seed=3):
@@ -128,8 +141,9 @@ def _packed(n_frames, seed=3):
     return poses, out
 
 
-def _features(packed):
-    b = tpre.preprocess_bundle(torch.as_tensor(packed), None, TI, depth_scale=SCALE)
+def _features(packed, device="cpu"):
+    b = tpre.preprocess_bundle(torch.as_tensor(packed, device=device), None, TI,
+                               depth_scale=SCALE)
     return b, extract_features(b[3], b[0], CFG.tracking, TI)
 
 
@@ -232,6 +246,7 @@ def test_probe_is_capture_safe(guard, probe_db, have_tracked):
 def ba_inputs():
     """test_torch_fastba's pose graph at GCSLAM's first buckets: poses,
     edges and active rows as torch tensors."""
+    from test_torch_fastba import _both, _bucketed, _graph
     poses, edges, _, _ = _graph()
     return _both(*_bucketed(poses, edges, *FLOORS))[1]
 
@@ -244,6 +259,22 @@ def test_ba_round_is_capture_safe(guard, ba_inputs, prunes):
         got = fastba._round_program(*ba_inputs, **kw)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert (got[2] is None) == (not prunes)
+
+
+def _refine_args(kp_ref, kp, generator):
+    """A stale-frame refinement's arguments: the adopted keyframe's and
+    the frame's keypoints, the lite draws, and the static ones."""
+    lite = tm.lite_config(CFG.tracking)
+    draws = tm.ransac_draws(lite, CFG.tracking.max_features_pad, generator)
+    return (kp_ref, kp, draws), dict(cfg=lite, intr=TI)
+
+
+def test_refine_is_capture_safe(guard, step_inputs):
+    args, kw = _refine_args(step_inputs[2], step_inputs[3], torch.Generator().manual_seed(9))
+    want = gcslam._refine_program(*args, **kw)
+    with guard:
+        got = gcslam._refine_program(*args, **kw)
+    assert torch.equal(got, want) and float(got[0]) == 1.0     # registered
 
 
 @pytest.mark.parametrize("op", ["item", "bool", "nonzero", "masked_select", "bool_index",
@@ -283,7 +314,7 @@ def _pipelined_run(config, packed):
     pipe.flush_tracking()
     slam = pipe.slam
     return ([k.frame_index for k in slam.keyframes], list(slam.stale_frames),
-            slam.refine_adopted, slam.promote_late, slam.trajectory())
+            slam.refine_adopted, slam.promote_late, slam.trajectory(), slam.refine_dispatched)
 
 
 @pytest.fixture(scope="module")
@@ -312,20 +343,84 @@ def test_pipelined_tracker_through_the_cache(stand_in, orbit16, depth):
     np.testing.assert_array_equal(graphed[4], direct[4])
 
 
+REFINE_COUNTS = ("refine_capture", "refine_replay", "stale_refine")
+
+
+def test_every_stale_frame_refines_through_the_cache(stand_in, orbit16):
+    """At depth 2 each stale frame's refinement is one call of
+    REFINE_PROGRAMS inside the span `stale_refine`: the first makes the
+    program (`refine_capture`), every later one replays it
+    (`refine_replay`). Poses, stale frames and adopted refinements equal
+    a run without the cache, which counts no capture and no replay."""
+    config = CFG.replace(parallel=dataclasses.replace(CFG.parallel, pipelined_tracking=True,
+                                                      pipeline_depth=2))
+
+    def counted(run):
+        before = {k: STOPWATCH.counts.get(k, 0) for k in REFINE_COUNTS}
+        out = run()
+        return out, {k: STOPWATCH.counts.get(k, 0) - before[k] for k in REFINE_COUNTS}
+
+    graphed, n = counted(lambda: _pipelined_run(config, orbit16))
+    with pytest.MonkeyPatch.context() as mp:      # the direct run: no cache at all
+        mp.setattr(graphs, "_captures", lambda device: False)
+        direct, n_direct = counted(lambda: _pipelined_run(config, orbit16))
+    dispatched = graphed[5]
+    assert dispatched == len(graphed[1]) >= 2
+    assert n == {"refine_capture": 1, "refine_replay": dispatched - 1, "stale_refine": dispatched}
+    assert n_direct == {"refine_capture": 0, "refine_replay": 0, "stale_refine": dispatched}
+    assert len(gcslam.REFINE_PROGRAMS.programs) == 1
+    assert graphed[1:3] == direct[1:3] and graphed[5] == direct[5]
+    np.testing.assert_array_equal(graphed[4], direct[4])
+
+
+@pytest.mark.cuda
+def test_refine_replay_equals_eager_on_the_card(cuda_device):
+    """On the card the refinement's program, replayed on three pairs of
+    tiny orbit frames with draws of their own, gives the eager
+    registration's stats bit for bit: one capture, then two replays."""
+    cuda_kernels.build()
+    _, packed = _packed(6)
+    kps = [_features(p, cuda_device)[1] for p in packed[:3]]
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    gcslam.REFINE_PROGRAMS.clear()
+    for ref, src in ((0, 1), (0, 2), (1, 2)):
+        args, kw = _refine_args(kps[ref], kps[src], gen)
+        want = gcslam._refine_program(*args, **kw)
+        got = gcslam.REFINE_PROGRAMS(*args, **kw)
+        assert got.device == want.device and torch.equal(got, want), (ref, src)
+    progs = list(gcslam.REFINE_PROGRAMS.programs.values())
+    assert len(progs) == 1 and progs[0].replays == 2
+    gcslam.REFINE_PROGRAMS.clear()
+
+
 # (c) ---------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
 def jax_state():
     """test_torch_loopclosure's keyframes: the loop of 12 frames, 6 keyframes."""
+    import jax.numpy as jnp
+    from texturefusion_tpu.io import synthetic as jsyn
+    from texturefusion_tpu.ops import preprocess as jpre
+    from texturefusion_tpu.slam import features as jf
+    jcfg, JI = _jax_config()
     poses = jsyn.loop_trajectory(12, radius=0.6)
     depths, rgbs = jsyn.render_sequence(jsyn.BoxRoomScene(), JI, poses)
-    jcfg = jax_tiny_config()
     jkp = [jf.extract_features(jpre.rgb_to_gray(jnp.asarray(c)) * 255.0, jnp.asarray(d),
                                jcfg.tracking, JI) for d, c in zip(depths, rgbs)]
     return jkp, [keypoints_from_numpy(k, "cpu") for k in jkp]
 
 
+def _jax_config():
+    """The JAX package's tiny config and its intrinsics."""
+    from texturefusion_tpu.config import tiny_test_config as jax_tiny_config
+    from texturefusion_tpu.core import camera as jcam
+    jcfg = jax_tiny_config()
+    return jcfg, jcam.Intrinsics.from_config(jcfg.camera)
+
+
 def _dbs(jax_state, n_rows, capacity):
+    from texturefusion_tpu.slam import loopclosure as jlc
+    from texturefusion_tpu.slam import promote as jpr
     jkp, tkp = jax_state
     jdb = jlc.KeyframeDescriptorDB(max_keyframes=capacity)
     tdb = tlc.KeyframeDescriptorDB(max_keyframes=capacity, device="cpu")
@@ -341,6 +436,11 @@ def _dbs(jax_state, n_rows, capacity):
 
 @pytest.mark.parametrize("n_rows,capacity", [(6, 8), (6, 16), (1, 8), (0, 8)])
 def test_probe_with_device_scalars_matches_jax(stand_in, jax_state, n_rows, capacity):
+    import jax
+    import jax.numpy as jnp
+    from test_torch_draws import batch_draws
+    from texturefusion_tpu.slam import promote as jpr
+    jcfg, JI = _jax_config()
     jkp, tkp = jax_state
     jdb, tdb, jkdb, tkdb = _dbs(jax_state, n_rows, capacity)
     last_slot = max(n_rows - 1, 0)
@@ -350,7 +450,7 @@ def test_probe_with_device_scalars_matches_jax(stand_in, jax_state, n_rows, capa
     args = (CFG.tracking.salient_score_threshold, CFG.ba.huber_delta)
     jp = jpr.promote_probe(jkdb.kp, jdb.desc, jdb.valid, jnp.asarray(r2s), jnp.int32(n_rows),
                            jnp.int32(last_slot), jkp[11], jnp.zeros(21), jnp.asarray(False),
-                           key, *args, jax_tiny_config().tracking, JI, N_CAND)
+                           key, *args, jcfg.tracking, JI, N_CAND)
     targs = (tkdb.kp, tdb.desc, tdb.valid, torch.as_tensor(r2s).long(), torch.tensor(n_rows),
              torch.tensor(last_slot), tkp[11], torch.zeros(21), torch.tensor(False),
              batch_draws(key, N_CAND, CFG.tracking, CFG.tracking.max_features_pad), *args,
@@ -472,3 +572,30 @@ def test_cache_does_not_hide_a_failure(stand_in, monkeypatch, failure):
     assert not cache.programs
     # one call (the eager first) or two (and the capture) an attempt; no eager fallback
     assert len(calls) == (2 if failure == "raises" else 4)
+
+
+# (e) ---------------------------------------------------------------------
+
+def _run(totals=None, counts=None):
+    return harness.Run(seed=1, setup_s=1.0, window_s=1.0, sessions=[],
+                       stopwatch_totals=totals or {}, stopwatch_counts=counts or {})
+
+
+@pytest.mark.parametrize("totals,counts,want", [
+    ({"stale_refine": 0.06, "update_frame": 3.0}, {"stale_refine": 30, "update_frame": 90}, 2.0),
+    ({"update_frame": 3.0}, {"update_frame": 90, "refine_replay": 29}, None), ({}, {}, None)])
+def test_stale_refine_ms_reads_the_span(totals, counts, want):
+    """Host ms a stale frame's refinement; None from a program without the
+    span `stale_refine`, as the parent of the captured refinement."""
+    got = harness.load_reader("stale_refine_ms").read(_run(totals, counts))
+    assert got is None if want is None else got == pytest.approx(want)
+
+
+@pytest.mark.parametrize("counts,want", [({}, None), ({"stale_refine": 12}, None),
+                                         ({"refine_capture": 1, "refine_replay": 55}, 55 / 56),
+                                         ({"refine_capture": 2}, 0.0)])
+def test_refine_replay_share_reads_the_counts(counts, want):
+    """The share of refinements replayed; None from a program that counts
+    no captured refinement."""
+    got = harness.load_reader("refine_replay_share").read(_run(counts=counts))
+    assert got is None if want is None else got == pytest.approx(want)

@@ -36,7 +36,8 @@ solve; over a DeviceMesh BA is edge-sharded (`_run_ba`, parallel/ba.py).
 
 On the card the promotion probe is one captured CUDA graph
 (promote.promote_probe_captured), its scalars 0-d device tensors, as the
-JAX package runs it as one jitted program.
+JAX package runs it as one jitted program; so is the stale-frame
+refinement's registration (REFINE_PROGRAMS).
 
 Random draws: every registration takes Gumbel draws from `draw_fn(cfg,
 n)` ([R, H, 4, K], or [n, R, H, 4, K] for n candidates). By default they
@@ -64,7 +65,7 @@ from texturefusion_torch.slam.features import Keypoints, extract_features
 from texturefusion_torch.slam.matching import (TwoViewResult, lite_config, ransac_draws,
                                                register_frames, register_frames_batch,
                                                stack_keypoints)
-from texturefusion_torch.utils import async_fetch
+from texturefusion_torch.utils import async_fetch, graphs
 from texturefusion_torch.utils.stopwatch import STOPWATCH
 
 
@@ -89,6 +90,17 @@ class KeyframeRecord:
     origin_index: int
     local_frames: List[int] = dataclasses.field(default_factory=list)
     reg_success_count: int = 0
+
+
+def _refine_program(kp_ref: Keypoints, kp: Keypoints, draws: torch.Tensor, *,
+                    cfg: TrackingConfig, intr: cam.Intrinsics) -> torch.Tensor:
+    """The stale-frame refinement's registration: its stats [21]."""
+    return register_frames(kp_ref, kp, draws, cfg, intr).stats
+
+
+# the refinement as the JAX package runs it, one jitted register_frames per
+# (cfg, intr, shapes): one captured program on the card
+REFINE_PROGRAMS = graphs.GraphCache(_refine_program, "stale_refine", counter="refine")
 
 
 def _next_bucket(n: int, lo: int, cap: int) -> int:
@@ -810,12 +822,16 @@ class GCSLAM:
                          last_kf: KeyframeRecord) -> None:
         """Re-register a stale-finalized frame against its adopted keyframe
         with the lite settings (a quarter of the hypotheses, no fine
-        search: the baseline is at most a keyframe interval)."""
-        kp_ref = self.frames[last_kf.frame_index].keypoints
-        cfg_lite = lite_config(self.cfg)
-        res = register_frames(kp_ref, kp, self._draws(cfg_lite), cfg_lite, self.intr)
-        self._pending_refine.append({"frame": frame.index, "kf_slot": last_kf.slot,
-                                     "fetch": async_fetch.fetch_async(res.stats)})
+        search: the baseline is at most a keyframe interval), as one call
+        of REFINE_PROGRAMS: on the card one replay of a captured program,
+        its draws made outside and copied in; the span `stale_refine`."""
+        with STOPWATCH.time("stale_refine", frame=frame.index):
+            kp_ref = self.frames[last_kf.frame_index].keypoints
+            cfg_lite = lite_config(self.cfg)
+            stats = REFINE_PROGRAMS(kp_ref, kp, self._draws(cfg_lite), cfg=cfg_lite,
+                                    intr=self.intr)
+            self._pending_refine.append({"frame": frame.index, "kf_slot": last_kf.slot,
+                                         "fetch": async_fetch.fetch_async(stats)})
         self.refine_dispatched += 1
 
     def consume_pending_refine(self, force: bool = False) -> None:
