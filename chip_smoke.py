@@ -253,6 +253,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -2790,32 +2791,33 @@ def host_launches(fn) -> dict:
     return dict(collections.Counter(e.name for e in prof.events() if e.name in _LAUNCH_CALLS))
 
 
-def _graph_call_check(name, cache, call) -> dict:
-    """One replay of `call` (a program of `cache` already made) under
+def _graph_call_check(program, call) -> dict:
+    """One replay of `call` (a call of `program`, its capture made) under
     torch.cuda.set_sync_debug_mode("error"), then its host launches: one
     graph launch and a copy per input and output tensor of the program."""
-    replays = {id(p): p.replays for p in cache.programs.values()}
+    replays = {id(p): p.replays for p in program.programs.values()}
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         call()
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    prog = next(p for p in cache.programs.values() if p.replays != replays.get(id(p)))
+    prog = next(p for p in program.programs.values() if p.replays != replays.get(id(p)))
     calls = host_launches(call)
     copies = len(prog.inputs) + len(prog.outputs)
     if calls.get("cudaGraphLaunch") != 1 or sum(calls.values()) != 1 + copies:
-        raise AssertionError(f"[graphs] {name}: a call launched {calls}, not one graph and "
-                             f"{copies} copies")
+        raise AssertionError(f"[graphs] {program.name}: a call launched {calls}, not one graph "
+                             f"and {copies} copies")
     return {"launches": calls, "copies": copies}
 
 
-def _capture_beside_a_busy_thread(programs) -> list:
-    """Each (cache, call, eager result): the cache emptied, then the call
-    made twice (its capture, then a replay) while another thread launches
-    work on its own stream, as the fusion thread does during a promotion;
-    whether both results equal the eager one bit for bit."""
+def _capture_beside_a_busy_thread(table) -> list:
+    """Each GraphCase's program emptied, then its timed call made twice
+    (its capture, then a replay) while another thread launches work on its
+    own stream, as the fusion thread does during a promotion; whether both
+    results equal the eager one bit for bit."""
     import threading
+    wants = [c.eager() for c in table]
     stop = threading.Event()
 
     def busy():
@@ -2828,9 +2830,9 @@ def _capture_beside_a_busy_thread(programs) -> list:
     worker.start()
     try:
         out = []
-        for cache, call, want in programs:
-            cache.clear()
-            out.append(all(bit_equal(want, call()) for _ in range(2)))
+        for c, want in zip(table, wants):
+            c.program.clear()
+            out.append(all(bit_equal(want, c.graphed()) for _ in range(2)))
         torch.cuda.synchronize()
     finally:
         stop.set()
@@ -2855,62 +2857,66 @@ def _ba_round_inputs(n_kf=24):
                                                                         "cfg": cfg}
 
 
+class GraphCase(NamedTuple):
+    """A row of [graphs]' table: a registered program, its inputs [(args,
+    statics)] called `calls` times each, its timed input, its log note."""
+    program: object
+    inputs: list
+    calls: int
+    timed: tuple
+    note: Callable
+
+    def graphed(self):
+        return self.program(*self.timed[0], **self.timed[1])
+
+    def eager(self):
+        return self.program.fn(*self.timed[0], **self.timed[1])
+
+
 def phase_graphs(frames, n_tiny=30):
-    """The tracker's two programs, BA's round and the stale-frame
-    refinement captured as CUDA graphs (utils/graphs.py) against their
-    eager versions: frame_step_tracked2 bit for bit (keypoints, stats2,
-    the bundle's planes, the fused depth and weight: every output) on
-    [tracked-small]'s 30 tiny orbit frames and 3 of [tracked]'s VGA frames
-    (each against the first frame as its keyframe and the frame before
-    it, with its own draws), and promote_probe at 5 candidates over a VGA
-    DB of 9 keyframes of the loop (rows in use 9 and 1), and BA's round
-    program, pruning and last, at GCSLAM's first buckets
-    (`_ba_round_inputs`), and the refinement's
-    registration (gcslam.REFINE_PROGRAMS, the lite settings) on three
-    pairs of VGA frames with draws of their own. One replay of each under
-    set_sync_debug_mode("error"), and its host launches: one graph launch
-    plus the copies in and out (and the refinement's eager launches
-    beside them); each captured again while another thread launches on
-    the card, bit for bit. Eager against graphed host ms of each
-    program. Returns the kabsch inputs of one eager VGA frame step and
-    probe, for [k3]."""
+    """Every registered program (utils/graphs.PROGRAMS) against its fn, one
+    GraphCase a program: bit for bit on its inputs (the frame step on 29 tiny
+    orbit and 3 VGA frames, the probe over a VGA DB of 9 keyframes, BA's
+    pruning and last round at GCSLAM's first buckets, the refinement on 3
+    VGA pairs); one replay under set_sync_debug_mode("error") and its host
+    launches; captured again beside a busy thread; eager | graphed host ms.
+    Returns the kabsch inputs of one eager VGA frame step and probe, for [k3]."""
     from texturefusion_torch.core import camera as cam
     from texturefusion_torch.models import reconstruction as rec
     from texturefusion_torch.ops import preprocess
     from texturefusion_torch.slam import fastba, gcslam, loopclosure, matching, promote
     from texturefusion_torch.slam.features import extract_features
-    from texturefusion_torch.utils import devtime
+    from texturefusion_torch.utils import devtime, graphs
 
-    def step_inputs(config, packed):
+    def features(config, intr, dev_packed):
+        b = preprocess.preprocess_bundle(dev_packed, None, intr,
+                                         depth_scale=config.camera.depth_scale)
+        return b, extract_features(b[3], b[0], config.tracking, intr)
+
+    def step_inputs(config, packed, indices):
+        # each frame against the first as its keyframe and the one before it
+        # in `indices`, with draws of its own
         intr = cam.Intrinsics.from_config(config.camera)
-        ds = config.camera.depth_scale
-        dev_packed = [torch.as_tensor(p).cuda() for p in packed]
-        b0 = preprocess.preprocess_bundle(dev_packed[0], None, intr, depth_scale=ds)
-        kp0 = extract_features(b0[3], b0[0], config.tracking, intr)
-        return intr, ds, dev_packed, kp0, b0[0], (b0[0] > 0).to(torch.float32)
-
-    def compare_steps(config, packed, indices):
-        intr, ds, dp, kp0, kfd, kfw = step_inputs(config, packed)
-        kp_prev, n_same = kp0, 0
+        statics = dict(intr=intr, tcfg=config.tracking,
+                       depth_scale=float(config.camera.depth_scale))
+        dp = [torch.as_tensor(p).cuda() for p in packed]
+        b0, kp0 = features(config, intr, dp[0])
+        kf = (kp0, b0[0], (b0[0] > 0).to(torch.float32))
+        calls, kp_prev = [], kp0
         for i in indices:
-            args = (dp[i], None, kp0, kp_prev, kfd, kfw, 7, i, intr, config.tracking, ds)
-            draws = rec.tracked_draws(7, i, config.tracking, "cuda")
-            want = rec.frame_step_tracked2(*args, draws=draws)
-            got = rec.frame_step_tracked2_captured(*args, draws=draws)
-            n_same += bit_equal(want, got)
-            kp_prev = want[1]
-        return n_same, (intr, ds, dp, kp0, kfd, kfw)
+            calls.append(((dp[i], None, kp0, kp_prev, *kf[1:],
+                           rec.tracked_draws(7, i, config.tracking, "cuda")), statics))
+            kp_prev = features(config, intr, dp[i])[1]
+        return calls, intr, dp, kf
 
     tiny = _tracked_config(small=True)
     _, tiny_packed = _orbit_frames(tiny, n_tiny)
-    same_tiny, _ = compare_steps(tiny, tiny_packed, range(1, n_tiny))
+    step_calls = step_inputs(tiny, tiny_packed, range(1, n_tiny))[0]
     config, _, packed = frames
     vga_frames = (1, 47, 70)
-    same_vga, (intr, ds, dp, kp0, kfd, kfw) = compare_steps(config, packed, vga_frames)
-    draws = rec.tracked_draws(7, 3, config.tracking, "cuda")
-    step = (dp[3], None, kp0, kp0, kfd, kfw, 7, 3, intr, config.tracking, ds)
-    step_check = _graph_call_check("frame_step_tracked2", rec.FRAME_STEP_PROGRAMS,
-                                   lambda: rec.frame_step_tracked2_captured(*step, draws=draws))
+    vga_calls, intr, dp, (kp0, kfd, kfw) = step_inputs(config, packed, vga_frames)
+    step = ((dp[3], None, kp0, kp0, kfd, kfw, rec.tracked_draws(7, 3, config.tracking, "cuda")),
+            vga_calls[0][1])
 
     # the probe over 9 keyframes of the loop; the query returns to the start
     r_max, pad = config.ba.max_keyframes, config.tracking.max_features_pad
@@ -2918,92 +2924,67 @@ def phase_graphs(frames, n_tiny=30):
     kdb = promote.KeypointDB(r_max, pad, "cuda")
     r2s = torch.full((r_max,), -1, dtype=torch.int64, device="cuda")
     for slot, i in enumerate(range(0, 108, 12)):
-        b = preprocess.preprocess_bundle(torch.as_tensor(packed[i]).cuda(), None, intr,
-                                         depth_scale=ds)
-        k = extract_features(b[3], b[0], config.tracking, intr)
+        k = features(config, intr, dp[i])[1]
         db.add(slot, k.desc, k.valid)
         kdb.add(slot, k)
         r2s[slot] = slot
-    bq = preprocess.preprocess_bundle(torch.as_tensor(packed[len(packed) - 2]).cuda(), None,
-                                      intr, depth_scale=ds)
-    kq = extract_features(bq[3], bq[0], config.tracking, intr)
+    kq = features(config, intr, dp[len(packed) - 2])[1]
     gen = torch.Generator(device="cuda").manual_seed(5)
     pdraws = matching.ransac_draws(config.tracking, pad, gen, (5,))
-    tracked = rec.frame_step_tracked2(dp[1], None, kp0, kp0, kfd, kfw, 7, 1, intr,
-                                      config.tracking, ds, draws=rec.tracked_draws(
-                                          7, 1, config.tracking, "cuda"))[2].stats
+    tracked = rec.FRAME_STEP_PROGRAMS.fn(*vga_calls[0][0], **vga_calls[0][1])[2].stats
+    probe_kw = dict(salient_threshold=float(config.tracking.salient_score_threshold),
+                    huber_delta=float(config.ba.huber_delta), cfg=config.tracking, intr=intr,
+                    n_cand=5)
 
     def sc(v, dtype):
         return torch.full((), v, dtype=dtype, device="cuda")
 
-    def probe_args(n_rows, have_tracked):
-        return (kdb.kp, db.desc, db.valid, r2s, sc(n_rows, torch.int64),
-                sc(n_rows - 1, torch.int64), kq, tracked, sc(have_tracked, torch.bool), pdraws,
-                config.tracking.salient_score_threshold, config.ba.huber_delta,
-                config.tracking, intr, 5)
+    def probe(n_rows, have_tracked):
+        return ((kdb.kp, db.desc, db.valid, r2s, sc(n_rows, torch.int64),
+                 sc(n_rows - 1, torch.int64), kq, tracked, sc(have_tracked, torch.bool),
+                 pdraws), probe_kw)
 
-    probe_same, admitted = [], 0
-    for n_rows, have in ((9, False), (9, True), (1, True)):
-        a = probe_args(n_rows, have)
-        want = promote.promote_probe(*a)
-        got = [promote.promote_probe_captured(*a) for _ in range(2)]    # the first is eager
-        probe_same.append(all(bit_equal(want, g) for g in got))
-        admitted = max(admitted, int(want.cand_ok[1:].sum()))
-    a = probe_args(9, True)
-    probe_check = _graph_call_check("promote_probe", promote.PROBE_PROGRAMS,
-                                    lambda: promote.promote_probe_captured(*a))
     ba, ba_kw = _ba_round_inputs()
-    ba_same = []
-    for prunes in (True, False):
-        want = fastba._round_program(*ba, prunes=prunes, **ba_kw)
-        got = [fastba.BA_ROUND_PROGRAMS(*ba, prunes=prunes, **ba_kw) for _ in range(2)]
-        ba_same.append(all(bit_equal(want, g) for g in got))
-
-    def ba_round():
-        return fastba.BA_ROUND_PROGRAMS(*ba, prunes=True, **ba_kw)
-
-    ba_check = _graph_call_check("ba_gn_round", fastba.BA_ROUND_PROGRAMS, ba_round)
     # the stale-frame refinement: a frame, the loop's last but one and the
     # first frame against each other, lite draws of their own each
     lite = matching.lite_config(config.tracking)
     rgen = torch.Generator(device="cuda").manual_seed(6)
-    b3 = preprocess.preprocess_bundle(dp[3], None, intr, depth_scale=ds)
-    kp3 = extract_features(b3[3], b3[0], config.tracking, intr)
-    refine_same, registered = [], []
-    for ref, src in ((kp0, kp3), (kp0, kq), (kp3, kq)):
-        ra = (ref, src, matching.ransac_draws(lite, pad, rgen))
-        want = gcslam._refine_program(*ra, cfg=lite, intr=intr)
-        got = [gcslam.REFINE_PROGRAMS(*ra, cfg=lite, intr=intr) for _ in range(2)]
-        refine_same.append(all(bit_equal(want, g) for g in got))
-        registered.append(float(want[0]))
+    kp3 = features(config, intr, dp[3])[1]
+    refine_calls = [((ref, src, matching.ransac_draws(lite, pad, rgen)),
+                     dict(cfg=lite, intr=intr)) for ref, src in ((kp0, kp3), (kp0, kq), (kp3, kq))]
 
-    def refine():
-        return gcslam.REFINE_PROGRAMS(*ra, cfg=lite, intr=intr)
-
-    def refine_eager():
-        return gcslam._refine_program(*ra, cfg=lite, intr=intr)
-
-    refine_check = _graph_call_check("stale_refine", gcslam.REFINE_PROGRAMS, refine)
-    refine_check["eager_launches"] = host_launches(refine_eager)
-    concurrent = _capture_beside_a_busy_thread(
-        [(rec.FRAME_STEP_PROGRAMS, lambda: rec.frame_step_tracked2_captured(*step, draws=draws),
-          rec.frame_step_tracked2(*step, draws=draws)),
-         (promote.PROBE_PROGRAMS, lambda: promote.promote_probe_captured(*a),
-          promote.promote_probe(*a)),
-         (fastba.BA_ROUND_PROGRAMS, ba_round,
-          fastba._round_program(*ba, prunes=True, **ba_kw)),
-         (gcslam.REFINE_PROGRAMS, refine, refine_eager())])
-    times = {"frame_step_tracked2": (
-        devtime.host_ms(lambda: rec.frame_step_tracked2(*step, draws=draws), "cuda", 5),
-        devtime.host_ms(lambda: rec.frame_step_tracked2_captured(*step, draws=draws), "cuda", 5)),
-        "promote_probe(5 cand)": (
-            devtime.host_ms(lambda: promote.promote_probe(*a), "cuda", 5),
-            devtime.host_ms(lambda: promote.promote_probe_captured(*a), "cuda", 5)),
-        "ba_gn_round(32 kf, 128 edges)": (
-            devtime.host_ms(lambda: fastba._round_program(*ba, prunes=True, **ba_kw), "cuda", 5),
-            devtime.host_ms(ba_round, "cuda", 5)),
-        "stale_refine": (devtime.host_ms(refine_eager, "cuda", 5),
-                         devtime.host_ms(refine, "cuda", 5))}
+    probes = [probe(9, False), probe(9, True), probe(1, True)]
+    table = [
+        GraphCase(rec.FRAME_STEP_PROGRAMS, step_calls + vga_calls, 1, step,
+                  lambda wants: f"{n_tiny - 1} tiny orbit frames, then VGA frames {vga_frames}"),
+        GraphCase(promote.PROBE_PROGRAMS, probes, 2, probes[1],
+                  lambda wants: "5 candidates, rows in use 9, 9 tracked, 1; "
+                  f"{max(int(w.cand_ok[1:].sum()) for w in wants)} loop candidates admitted"),
+        GraphCase(fastba.BA_ROUND_PROGRAMS, [(ba, dict(ba_kw, prunes=p)) for p in (True, False)],
+                  2, (ba, dict(ba_kw, prunes=True)),
+                  lambda wants: "pruning and last round, 32 kf, 128 edges"),
+        GraphCase(gcslam.REFINE_PROGRAMS, refine_calls, 2, refine_calls[-1],
+                  lambda wants: f"registered {[float(w[0]) for w in wants]}")]
+    assert {c.program.name for c in table} == set(graphs.PROGRAMS)
+    same = []
+    for c in table:
+        n, wants = 0, []
+        for args, statics in c.inputs:
+            wants.append(c.program.fn(*args, **statics))
+            n += all(bit_equal(wants[-1], c.program(*args, **statics)) for _ in range(c.calls))
+        same.append((n, c.note(wants)))
+    counts = {c.program.name: len(c.program.programs) for c in table}
+    n_programs = graphs.program_count()
+    checks = [dict(_graph_call_check(c.program, c.graphed), eager_launches=host_launches(c.eager))
+              for c in table]
+    concurrent = _capture_beside_a_busy_thread(table)
+    for c, (n, note), check, busy in zip(table, same, checks, concurrent):
+        ms = devtime.host_ms(c.eager, "cuda", 5), devtime.host_ms(c.graphed, "cuda", 5)
+        log(f"[graphs] {c.program.name} ({note}): bit for bit on {n} of {len(c.inputs)} "
+            f"inputs, {c.calls} call(s) each; a replay under set_sync_debug_mode('error'): no "
+            f"sync, host launches a call {json.dumps(check)}; captured again while another "
+            f"thread launched on the card: bit for bit {busy}; host ms a call (median of 5, "
+            f"each ending in a synchronize), eager | graphed {ms[0]:.3f} | {ms[1]:.3f}")
 
     # the kabsch calls of one eager frame step and one eager probe, for [k3]
     recorded, kabsch = [], matching.kabsch
@@ -3014,29 +2995,14 @@ def phase_graphs(frames, n_tiny=30):
 
     matching.kabsch = record
     try:
-        rec.frame_step_tracked2(*step, draws=draws)
-        promote.promote_probe(*a)
+        table[0].eager()
+        table[1].eager()
     finally:
         matching.kabsch = kabsch
     torch.cuda.synchronize()
-    log(f"[graphs] frame_step_tracked2 captured against eager, bit for bit on "
-        f"{same_tiny} of {n_tiny - 1} tiny frames and {same_vga} of {len(vga_frames)} VGA "
-        f"frames; promote_probe(5 cand) bit for bit {probe_same} (rows in use 9, 9 tracked, "
-        f"1; {admitted} loop candidates admitted); ba_gn_round (pruning, last) bit for bit "
-        f"{ba_same}; stale_refine bit for bit {refine_same} (registered {registered}); "
-        f"programs frame step {len(rec.FRAME_STEP_PROGRAMS.programs)}, probe "
-        f"{len(promote.PROBE_PROGRAMS.programs)}, "
-        f"BA round {len(fastba.BA_ROUND_PROGRAMS.programs)}, refine "
-        f"{len(gcslam.REFINE_PROGRAMS.programs)}")
-    log(f"[graphs] a replay under set_sync_debug_mode('error'): no sync; host launches a call: "
-        f"frame step {json.dumps(step_check)}, probe {json.dumps(probe_check)}, BA round "
-        f"{json.dumps(ba_check)}, stale_refine {json.dumps(refine_check)}")
-    log(f"[graphs] captured again while another thread launched on the card: bit for bit "
-        f"{concurrent}")
-    log("[graphs] host ms a call (median of 5, each ending in a synchronize), eager | graphed: "
-        + ", ".join(f"{k} {e:.3f} | {g:.3f}" for k, (e, g) in times.items()))
-    if not (same_tiny == n_tiny - 1 and same_vga == len(vga_frames) and all(probe_same)
-            and all(ba_same) and all(refine_same) and all(concurrent)):
+    log(f"[graphs] programs after the bit-for-bit calls: {json.dumps(counts)}, "
+        f"{n_programs} in all")
+    if not (all(n == len(c.inputs) for c, (n, _) in zip(table, same)) and all(concurrent)):
         raise AssertionError("[graphs] a captured program disagrees with its eager version")
     return recorded
 

@@ -2,11 +2,11 @@
 programs, BA's round and the stale-frame refinement as one CUDA graph
 each, checked on the CPU.
 
-(a) Capture safety: frame_step_tracked2 and promote_probe at the tiny
-    config, the stale-frame refinement's registration (gcslam's
-    REFINE_PROGRAMS) at the lite settings, and BA's round program (a
-    pruning round and a last round) at GCSLAM's first buckets, 32
-    keyframes and 128 edges, under graphs.HostSyncGuard, the dispatch
+(a) Capture safety: each registered program's function at its cases
+    (frame_step_tracked2, promote_probe with and without the tracked
+    stats, BA's pruning and last rounds at GCSLAM's first buckets, the
+    refinement's registration at the lite settings), every output equal
+    to the unguarded call's under graphs.HostSyncGuard, the dispatch
     mode the capture runs under, which fails on any op that reads a
     tensor on the host (`_local_scalar_dense`, `is_nonzero`, `equal`),
     makes a tensor from
@@ -38,6 +38,9 @@ each, checked on the CPU.
 (e) The readers of the refinement's two per-layer metrics,
     stale_refine_ms and refine_replay_share: a value from the span and
     the counts, None without them.
+(f) The registry (graphs.PROGRAMS): the four names, a taken one raises;
+    the replay shares read `ba` and `refine`; every program counts
+    `<name>_capture` and `<name>_replay`; clear_programs and program_count.
 
 The JAX package (BA's graph from test_torch_fastba, the JAX side of
 (c)) is imported where it is used, so that the cuda-marked case runs on
@@ -106,21 +109,14 @@ class ReplayStandIn(graphs.CapturedProgram):
         pass
 
 
-def _clear_programs():
-    rec.FRAME_STEP_PROGRAMS.clear()
-    tpr.PROBE_PROGRAMS.clear()
-    fastba.BA_ROUND_PROGRAMS.clear()
-    gcslam.REFINE_PROGRAMS.clear()
-
-
 @pytest.fixture
 def stand_in(monkeypatch):
     """CPU calls through the captured-program cache, replayed by ReplayStandIn."""
     monkeypatch.setattr(graphs, "CapturedProgram", ReplayStandIn)
     monkeypatch.setattr(graphs, "_captures", lambda device: True)
-    _clear_programs()
+    graphs.clear_programs()
     yield ReplayStandIn
-    _clear_programs()
+    graphs.clear_programs()
 
 
 @pytest.fixture
@@ -177,11 +173,16 @@ def probe_db(step_inputs):
     return db, kdb, r2s, kq, draws
 
 
+# the probe's static arguments, as its program takes them
+PROBE_STATICS = dict(salient_threshold=CFG.tracking.salient_score_threshold,
+                     huber_delta=CFG.ba.huber_delta, cfg=CFG.tracking, intr=TI, n_cand=N_CAND)
+
+
 def _probe_args(probe_db, n_rows=4, last_slot=3, have_tracked=False):
+    """The probe's tensor arguments over `probe_db`."""
     db, kdb, r2s, kq, draws = probe_db
     return (kdb.kp, db.desc, db.valid, r2s, torch.tensor(n_rows), torch.tensor(last_slot), kq,
-            torch.zeros(21), torch.tensor(have_tracked), draws,
-            CFG.tracking.salient_score_threshold, CFG.ba.huber_delta, CFG.tracking, TI, N_CAND)
+            torch.zeros(21), torch.tensor(have_tracked), draws)
 
 
 # (a) ---------------------------------------------------------------------
@@ -223,25 +224,6 @@ def guard(monkeypatch):
     return g
 
 
-def test_frame_step_is_capture_safe(guard, step_inputs):
-    packed, rgb, kp0, kp1, kf_depth, kf_weight, draws = step_inputs
-    want = rec.frame_step_tracked2(packed, rgb, kp0, kp1, kf_depth, kf_weight, 7, 2, TI,
-                                   CFG.tracking, SCALE, draws=draws)
-    with guard:
-        got = rec.frame_step_tracked2(packed, rgb, kp0, kp1, kf_depth, kf_weight, 7, 2, TI,
-                                      CFG.tracking, SCALE, draws=draws)
-    assert torch.equal(got[4], want[4]) and float(got[4][0]) == 1.0    # tracked vs keyframe
-
-
-@pytest.mark.parametrize("have_tracked", [False, True])
-def test_probe_is_capture_safe(guard, probe_db, have_tracked):
-    args = _probe_args(probe_db, have_tracked=have_tracked)
-    want = tpr.promote_probe(*args)
-    with guard:
-        got = tpr.promote_probe(*args)
-    assert torch.equal(got.fetch, want.fetch)
-
-
 @pytest.fixture(scope="module")
 def ba_inputs():
     """test_torch_fastba's pose graph at GCSLAM's first buckets: poses,
@@ -249,16 +231,6 @@ def ba_inputs():
     from test_torch_fastba import _both, _bucketed, _graph
     poses, edges, _, _ = _graph()
     return _both(*_bucketed(poses, edges, *FLOORS))[1]
-
-
-@pytest.mark.parametrize("prunes", [True, False])
-def test_ba_round_is_capture_safe(guard, ba_inputs, prunes):
-    kw = dict(n_kf=FLOORS[0], cfg=BAConfig(), prunes=prunes)
-    want = fastba._round_program(*ba_inputs, **kw)
-    with guard:
-        got = fastba._round_program(*ba_inputs, **kw)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert (got[2] is None) == (not prunes)
 
 
 def _refine_args(kp_ref, kp, generator):
@@ -269,12 +241,45 @@ def _refine_args(kp_ref, kp, generator):
     return (kp_ref, kp, draws), dict(cfg=lite, intr=TI)
 
 
-def test_refine_is_capture_safe(guard, step_inputs):
-    args, kw = _refine_args(step_inputs[2], step_inputs[3], torch.Generator().manual_seed(9))
-    want = gcslam._refine_program(*args, **kw)
+# the cases of a registered program (name: cases) that each test runs, and
+# what a case's eager result shows besides its equality: a registration
+# that succeeded, a round that prunes or does not
+PROGRAM_CASES = {"frame_step": ["frame_step"], "probe": ["probe", "probe_tracked"],
+                 "ba": ["ba", "ba_last"], "refine": ["refine"]}
+SHOWS = {"frame_step": lambda out: float(out[4][0]) == 1.0, "ba": lambda out: out[2] is not None,
+         "ba_last": lambda out: out[2] is None, "refine": lambda out: float(out[0]) == 1.0}
+
+
+def _program_inputs(request, case):
+    """(tensor arguments, static arguments) of the call `case`."""
+    step = request.getfixturevalue("step_inputs")
+    ba = lambda prunes: (request.getfixturevalue("ba_inputs"),     # noqa: E731
+                         dict(n_kf=FLOORS[0], cfg=BAConfig(), prunes=prunes))
+    return {"frame_step": lambda: (step, dict(intr=TI, tcfg=CFG.tracking, depth_scale=SCALE)),
+            "probe": lambda: (_probe_args(request.getfixturevalue("probe_db")), PROBE_STATICS),
+            "probe_tracked": lambda: (_probe_args(request.getfixturevalue("probe_db"),
+                                                  have_tracked=True), PROBE_STATICS),
+            "ba": lambda: ba(True), "ba_last": lambda: ba(False),
+            "refine": lambda: _refine_args(step[2], step[3], torch.Generator().manual_seed(9)),
+            }[case]()
+
+
+def _assert_same(got, want):
+    lg, lw = [], []
+    assert graphs.flatten(got, lg) == graphs.flatten(want, lw)
+    for a, b in zip(lg, lw, strict=True):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name,case", [(n, c) for n, cs in PROGRAM_CASES.items() for c in cs])
+def test_every_program_is_capture_safe(guard, request, name, case):
+    args, statics = _program_inputs(request, case)
+    fn = graphs.PROGRAMS[name].fn
+    want = fn(*args, **statics)
     with guard:
-        got = gcslam._refine_program(*args, **kw)
-    assert torch.equal(got, want) and float(got[0]) == 1.0     # registered
+        got = fn(*args, **statics)
+    _assert_same(got, want)
+    assert SHOWS.get(case, lambda out: True)(want)
 
 
 @pytest.mark.parametrize("op", ["item", "bool", "nonzero", "masked_select", "bool_index",
@@ -327,7 +332,6 @@ def test_pipelined_tracker_through_the_cache(stand_in, orbit16, depth):
     config = CFG.replace(parallel=dataclasses.replace(CFG.parallel, pipelined_tracking=True,
                                                       pipeline_depth=depth))
     assert config.tracking.defer_promote and config.tracking.refine_stale
-    _clear_programs()
     graphed = _pipelined_run(config, orbit16)
     n_programs = (len(rec.FRAME_STEP_PROGRAMS.programs), len(tpr.PROBE_PROGRAMS.programs))
     replays = sum(p.replays for p in rec.FRAME_STEP_PROGRAMS.programs.values())
@@ -382,7 +386,7 @@ def test_refine_replay_equals_eager_on_the_card(cuda_device):
     _, packed = _packed(6)
     kps = [_features(p, cuda_device)[1] for p in packed[:3]]
     gen = torch.Generator(device=cuda_device).manual_seed(9)
-    gcslam.REFINE_PROGRAMS.clear()
+    graphs.clear_programs()
     for ref, src in ((0, 1), (0, 2), (1, 2)):
         args, kw = _refine_args(kps[ref], kps[src], gen)
         want = gcslam._refine_program(*args, **kw)
@@ -390,7 +394,7 @@ def test_refine_replay_equals_eager_on_the_card(cuda_device):
         assert got.device == want.device and torch.equal(got, want), (ref, src)
     progs = list(gcslam.REFINE_PROGRAMS.programs.values())
     assert len(progs) == 1 and progs[0].replays == 2
-    gcslam.REFINE_PROGRAMS.clear()
+    graphs.clear_programs()
 
 
 # (c) ---------------------------------------------------------------------
@@ -447,16 +451,15 @@ def test_probe_with_device_scalars_matches_jax(stand_in, jax_state, n_rows, capa
     r2s = np.full(capacity, -1, np.int32)
     r2s[:n_rows] = np.arange(n_rows)
     key = jax.random.PRNGKey(11)
-    args = (CFG.tracking.salient_score_threshold, CFG.ba.huber_delta)
     jp = jpr.promote_probe(jkdb.kp, jdb.desc, jdb.valid, jnp.asarray(r2s), jnp.int32(n_rows),
                            jnp.int32(last_slot), jkp[11], jnp.zeros(21), jnp.asarray(False),
-                           key, *args, jcfg.tracking, JI, N_CAND)
+                           key, CFG.tracking.salient_score_threshold, CFG.ba.huber_delta,
+                           jcfg.tracking, JI, N_CAND)
     targs = (tkdb.kp, tdb.desc, tdb.valid, torch.as_tensor(r2s).long(), torch.tensor(n_rows),
              torch.tensor(last_slot), tkp[11], torch.zeros(21), torch.tensor(False),
-             batch_draws(key, N_CAND, CFG.tracking, CFG.tracking.max_features_pad), *args,
-             CFG.tracking, TI, N_CAND)
-    first = tpr.promote_probe_captured(*targs)          # eager; makes the program
-    tp = tpr.promote_probe_captured(*targs)             # the replay
+             batch_draws(key, N_CAND, CFG.tracking, CFG.tracking.max_features_pad))
+    first = tpr.PROBE_PROGRAMS(*targs, **PROBE_STATICS)     # eager; makes the program
+    tp = tpr.PROBE_PROGRAMS(*targs, **PROBE_STATICS)        # the replay
     assert all(torch.equal(a, b) for a, b in zip(tp, first))
     np.testing.assert_array_equal(tp.cand_slots.numpy(), np.asarray(jp.cand_slots))
     np.testing.assert_array_equal(tp.cand_ok.numpy(), np.asarray(jp.cand_ok))
@@ -479,10 +482,9 @@ def test_a_grown_db_is_a_second_program(stand_in, jax_state):
         r2s[:6] = torch.arange(6)
         draws = tm.ransac_draws(CFG.tracking, CFG.tracking.max_features_pad,
                                 torch.Generator().manual_seed(2), (N_CAND,))
-        outs.append(tpr.promote_probe_captured(
+        outs.append(tpr.PROBE_PROGRAMS(
             tkdb.kp, tdb.desc, tdb.valid, r2s, torch.tensor(6), torch.tensor(5),
-            jax_state[1][11], torch.zeros(21), torch.tensor(False), draws,
-            CFG.tracking.salient_score_threshold, CFG.ba.huber_delta, CFG.tracking, TI, N_CAND))
+            jax_state[1][11], torch.zeros(21), torch.tensor(False), draws, **PROBE_STATICS))
     assert len(tpr.PROBE_PROGRAMS.programs) == 2
     assert torch.equal(outs[0].fetch, outs[1].fetch)     # unused rows change nothing
 
@@ -490,22 +492,20 @@ def test_a_grown_db_is_a_second_program(stand_in, jax_state):
 # (d) ---------------------------------------------------------------------
 
 def test_cache_keys_and_replays(stand_in, step_inputs):
+    """A repeated key replays (its results equal eager's:
+    test_every_program_counts_its_captures_and_replays); a depth plane and
+    another depth scale are keys of their own; every result is fresh."""
     packed, rgb, kp0, kp1, kf_depth, kf_weight, draws = step_inputs
-    want = rec.frame_step_tracked2(packed, rgb, kp0, kp1, kf_depth, kf_weight, 7, 2, TI,
-                                   CFG.tracking, SCALE, draws=draws)
+    statics = dict(intr=TI, tcfg=CFG.tracking, depth_scale=SCALE)
     for _ in range(2):
-        got = rec.frame_step_tracked2_captured(packed, rgb, kp0, kp1, kf_depth, kf_weight, 7, 2,
-                                               TI, CFG.tracking, SCALE, draws=draws)
-        assert all(torch.equal(a, b) for a, b in zip(got[4:], want[4:]))
-        assert torch.equal(got[1].desc, want[1].desc)
+        got = rec.FRAME_STEP_PROGRAMS(*step_inputs, **statics)
     assert len(rec.FRAME_STEP_PROGRAMS.programs) == 1
     # a depth plane is another key, and so is another depth scale
     depth = (packed[..., 0].to(torch.float32) + packed[..., 1].to(torch.float32) * 256.0)
     rgb_f = packed[..., 2:5].to(torch.float32) / 255.0
-    rec.frame_step_tracked2_captured(depth, rgb_f, kp0, kp1, kf_depth, kf_weight, 7, 2, TI,
-                                     CFG.tracking, SCALE, draws=draws)
-    rec.frame_step_tracked2_captured(packed, rgb, kp0, kp1, kf_depth, kf_weight, 7, 2, TI,
-                                     CFG.tracking, SCALE * 2, draws=draws)
+    rec.FRAME_STEP_PROGRAMS(depth, rgb_f, kp0, kp1, kf_depth, kf_weight, draws, **statics)
+    rec.FRAME_STEP_PROGRAMS(packed, rgb, kp0, kp1, kf_depth, kf_weight, draws,
+                            **dict(statics, depth_scale=SCALE * 2))
     progs = list(rec.FRAME_STEP_PROGRAMS.programs.values())
     assert len(progs) == 3 and [p.replays for p in progs] == [1, 0, 0]
     # outputs are fresh tensors: no call returns a buffer of the program
@@ -517,12 +517,10 @@ def test_ba_rounds_count_captures_and_replays(stand_in, ba_inputs):
     """Two BAs of three rounds at one bucket: the first round (pruning) and
     the last (not pruning) are two keys, captured once each; every other
     round is a replay, and computes what the direct rounds compute. A
-    second bucket captures its two again. Each capture is timed as the
-    span `ba_capture`."""
+    second bucket captures its two again."""
     poses, edges, active = ba_inputs
     cfg = BAConfig()
     before = STOPWATCH.counts.copy()
-    timed = STOPWATCH.totals.get("ba_capture", 0.0)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(graphs, "_captures", lambda device: False)
         want = fastba.optimize(poses, edges, FLOORS[0], active, cfg)
@@ -535,9 +533,6 @@ def test_ba_rounds_count_captures_and_replays(stand_in, ba_inputs):
     assert len(fastba.BA_ROUND_PROGRAMS.programs) == 2
     assert STOPWATCH.counts["ba_capture"] - before["ba_capture"] == 2
     assert STOPWATCH.counts["ba_replay"] - before["ba_replay"] == 4
-    # a capture is the span `ba_capture`: its count is the counter's
-    assert STOPWATCH.totals["ba_capture"] > timed
-    assert "ba_replay" not in STOPWATCH.totals
     wider = fastba.EdgeSums(*(torch.cat([a, torch.zeros_like(a)]) for a in edges))
     fastba.optimize(poses, wider, FLOORS[0], active, cfg)
     assert len(fastba.BA_ROUND_PROGRAMS.programs) == 4
@@ -599,3 +594,51 @@ def test_refine_replay_share_reads_the_counts(counts, want):
     no captured refinement."""
     got = harness.load_reader("refine_replay_share").read(_run(counts=counts))
     assert got is None if want is None else got == pytest.approx(want)
+
+
+# (f) ---------------------------------------------------------------------
+
+def test_the_registry_holds_the_four_programs():
+    assert graphs.PROGRAMS == {"frame_step": rec.FRAME_STEP_PROGRAMS, "probe": tpr.PROBE_PROGRAMS,
+                               "ba": fastba.BA_ROUND_PROGRAMS, "refine": gcslam.REFINE_PROGRAMS}
+    assert all(cache.name == name for name, cache in graphs.PROGRAMS.items())
+    assert set(PROGRAM_CASES) == set(graphs.PROGRAMS)
+    with pytest.raises(ValueError, match="'ba' is declared already"):
+        graphs.program("ba", fastba._round_program)
+    assert graphs.PROGRAMS["ba"] is fastba.BA_ROUND_PROGRAMS
+
+
+@pytest.mark.parametrize("name,reader", [("ba", "ba_replay_share"),
+                                         ("refine", "refine_replay_share")])
+def test_the_replay_shares_read_a_registered_program(name, reader):
+    counts = {name + "_capture": 1, name + "_replay": 3}
+    assert name in graphs.PROGRAMS
+    assert harness.load_reader(reader).read(_run(counts=counts)) == pytest.approx(0.75)
+
+
+@pytest.mark.parametrize("name", sorted(graphs.PROGRAMS))
+def test_every_program_counts_its_captures_and_replays(stand_in, request, name):
+    """The first call is the span `<name>_capture`, each later one a
+    `<name>_replay`; every call gives the eager result."""
+    prog, (args, statics) = graphs.PROGRAMS[name], _program_inputs(request, name)
+    keys = (name + "_capture", name + "_replay")
+    before, timed = [STOPWATCH.counts.get(k, 0) for k in keys], STOPWATCH.totals.get(keys[0], 0)
+    want = prog.fn(*args, **statics)
+    for n in range(3):
+        _assert_same(prog(*args, **statics), want)
+        assert [STOPWATCH.counts.get(k, 0) - b for k, b in zip(keys, before)] == [1, n]
+    assert len(prog.programs) == 1 and STOPWATCH.totals[keys[0]] > timed
+    assert keys[1] not in STOPWATCH.totals
+
+
+def test_clear_programs_empties_the_registry(stand_in, request):
+    for name in graphs.PROGRAMS:
+        args, statics = _program_inputs(request, name)
+        graphs.PROGRAMS[name](*args, **statics)
+    args, statics = _program_inputs(request, "ba_last")
+    fastba.BA_ROUND_PROGRAMS(*args, **statics)
+    assert {n: len(p.programs) for n, p in graphs.PROGRAMS.items()} == {
+        "frame_step": 1, "probe": 1, "ba": 2, "refine": 1}
+    assert graphs.program_count() == 5
+    graphs.clear_programs()
+    assert graphs.program_count() == 0 and not any(p.programs for p in graphs.PROGRAMS.values())

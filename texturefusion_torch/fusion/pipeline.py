@@ -71,7 +71,7 @@ from texturefusion_torch.fusion import dynamics
 from texturefusion_torch.fusion.chunkmap import TSDFVolume
 from texturefusion_torch.fusion.mesher import IncrementalMesher
 from texturefusion_torch.fusion.streaming import ChunkStreamer
-from texturefusion_torch.models.reconstruction import frame_step_tracked2_captured
+from texturefusion_torch.models.reconstruction import FRAME_STEP_PROGRAMS, tracked_draws
 from texturefusion_torch.ops import preprocess
 from texturefusion_torch.parallel.mesh import DeviceMesh, same_device, tsdf_mesh
 from texturefusion_torch.slam.gcslam import GCSLAM
@@ -333,14 +333,15 @@ class ReconstructionPipeline:
                 else:
                     kf_depth = torch.zeros((intr.height, intr.width), device=self.device)
                     kf_weight = torch.zeros_like(kf_depth)
-                draws = None
                 if self._frame_draws is not None:
                     draws = tuple(d.to(self.device)
                                   for d in self._frame_draws(self._dispatch_count))
-                bundle, kp, res, res_ff, stats2, f_depth, f_weight = frame_step_tracked2_captured(
-                    depth_raw, rgb, kp_ref, kp_prev, kf_depth, kf_weight, self.slam.base_seed,
-                    self._dispatch_count, intr, tcfg, self.config.camera.depth_scale,
-                    draws=draws)
+                else:
+                    draws = tracked_draws(self.slam.base_seed, self._dispatch_count, tcfg,
+                                          kf_depth.device)
+                bundle, kp, res, res_ff, stats2, f_depth, f_weight = FRAME_STEP_PROGRAMS(
+                    depth_raw, rgb, kp_ref, kp_prev, kf_depth, kf_weight, draws,
+                    intr=intr, tcfg=tcfg, depth_scale=float(self.config.camera.depth_scale))
                 self._kp_prev = kp
                 out.update(bundle=bundle, kp=kp, res=res, res_ff=res_ff,
                            fused_kf=(f_depth, f_weight),

@@ -10,9 +10,9 @@ Port of texturefusion_tpu/models/reconstruction.py (ref: main.cpp:102-211
   * frame_step_tracked  — that, plus the keyframe-depth refinement;
   * frame_step_tracked2 — the same against the last keyframe AND the
                           previous frame: the tracked path's per-frame step;
-                          frame_step_tracked2_captured runs it as one
-                          captured CUDA graph on the card, as the JAX
-                          package runs it as one jitted program;
+                          FRAME_STEP_PROGRAMS runs it as one captured
+                          CUDA graph on the card, as the JAX package runs
+                          it as one jitted program;
   * make_multichip_step / make_multichip_full_step — the map cycle over a
                           DeviceMesh: chunk-sharded TSDF integration and one
                           edge-sharded BA Gauss-Newton round (the full step
@@ -139,29 +139,15 @@ def frame_step_tracked2(packed_or_depth: torch.Tensor, rgb, kp_ref: Keypoints,
 
 def _frame_step_program(packed_or_depth, rgb, kp_ref, kp_prev, kf_depth, kf_weight, draws, *,
                         intr, tcfg, depth_scale):
+    """frame_step_tracked2 with its draws a tensor argument, made outside
+    the program (a packed frame and a depth plane are two programs)."""
     return frame_step_tracked2(packed_or_depth, rgb, kp_ref, kp_prev, kf_depth, kf_weight, 0, 0,
                                intr, tcfg, depth_scale, draws=draws)
 
 
-FRAME_STEP_PROGRAMS = graphs.GraphCache(_frame_step_program, "frame_step_tracked2")
-
-
-def frame_step_tracked2_captured(packed_or_depth: torch.Tensor, rgb, kp_ref: Keypoints,
-                                 kp_prev: Keypoints, kf_depth: torch.Tensor,
-                                 kf_weight: torch.Tensor, base_seed: int, frame_idx: int,
-                                 intr: cam.Intrinsics, tcfg: TrackingConfig, depth_scale: float,
-                                 draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
-    """frame_step_tracked2 as the JAX package runs it, one program per
-    (intr, tcfg, depth_scale, input shapes): on CUDA tensors a captured
-    CUDA graph replayed from one launch (utils/graphs.py; a packed frame
-    and a depth plane are two programs), on CPU tensors the eager
-    function. The draws are made outside the program, by tracked_draws
-    from the frame's generator unless given, and copied in; the seven
-    results are fresh tensors."""
-    if draws is None:
-        draws = tracked_draws(base_seed, frame_idx, tcfg, kf_depth.device)
-    return FRAME_STEP_PROGRAMS(packed_or_depth, rgb, kp_ref, kp_prev, kf_depth, kf_weight,
-                               tuple(draws), intr=intr, tcfg=tcfg, depth_scale=float(depth_scale))
+# the frame step as the JAX package runs it, one jitted program per
+# (intr, tcfg, depth_scale, input shapes): one captured program on the card
+FRAME_STEP_PROGRAMS = graphs.program("frame_step", _frame_step_program)
 
 
 class MultichipState(NamedTuple):

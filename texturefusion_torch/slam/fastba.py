@@ -259,7 +259,7 @@ def _round_program(poses: torch.Tensor, edges: EdgeSums, active: torch.Tensor, *
     return poses, torch.stack([e0, e1]), valid
 
 
-BA_ROUND_PROGRAMS = graphs.GraphCache(_round_program, "ba_gn_round", counter="ba")
+BA_ROUND_PROGRAMS = graphs.program("ba", _round_program)
 
 
 def optimize(poses: torch.Tensor, edges: EdgeSums, n_kf: int, active: torch.Tensor,

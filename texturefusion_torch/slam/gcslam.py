@@ -35,7 +35,7 @@ counts, so that its rounds are replayed as captured programs
 solve; over a DeviceMesh BA is edge-sharded (`_run_ba`, parallel/ba.py).
 
 On the card the promotion probe is one captured CUDA graph
-(promote.promote_probe_captured), its scalars 0-d device tensors, as the
+(promote.PROBE_PROGRAMS), its scalars 0-d device tensors, as the
 JAX package runs it as one jitted program; so is the stale-frame
 refinement's registration (REFINE_PROGRAMS).
 
@@ -100,7 +100,7 @@ def _refine_program(kp_ref: Keypoints, kp: Keypoints, draws: torch.Tensor, *,
 
 # the refinement as the JAX package runs it, one jitted register_frames per
 # (cfg, intr, shapes): one captured program on the card
-REFINE_PROGRAMS = graphs.GraphCache(_refine_program, "stale_refine", counter="refine")
+REFINE_PROGRAMS = graphs.program("refine", _refine_program)
 
 
 def _next_bucket(n: int, lo: int, cap: int) -> int:
@@ -471,13 +471,15 @@ class GCSLAM:
         # buffer: no blocking copy (and no wait for the queue) here
         ts = (upload(np.asarray(tracked_stats, np.float32), dev) if have_tracked
               else torch.zeros(21, device=dev))
-        probe = promote.promote_probe_captured(
+        probe = promote.PROBE_PROGRAMS(
             self.kp_db.kp, self.db.desc, self.db.valid, self._row_to_slot,
             torch.full((), len(self.db), dtype=torch.int64, device=dev),
             torch.full((), last_slot, dtype=self._row_to_slot.dtype, device=dev), kp, ts,
             torch.full((), have_tracked, dtype=torch.bool, device=dev),
-            self._draws(self.cfg, n_cand), self.cfg.salient_score_threshold,
-            self.config.ba.huber_delta, self.cfg, self.intr, n_cand)
+            self._draws(self.cfg, n_cand),
+            salient_threshold=float(self.cfg.salient_score_threshold),
+            huber_delta=float(self.config.ba.huber_delta), cfg=self.cfg, intr=self.intr,
+            n_cand=n_cand)
         return probe, n_cand, async_fetch.fetch_async(probe.fetch)
 
     def _probe_results(self, n_cand: int, fetched: np.ndarray):

@@ -7,8 +7,8 @@ keyframe descriptor DB → salient-score top-k rows → registration of the
 new frame against each candidate's stacked keypoints → Huber edge sums.
 The JAX package vmaps the candidates; here they are a loop over C ≤ 6.
 The top-k breaks ties by the lowest index, as jax.lax.top_k does. The
-JAX probe is one jitted program; `promote_probe_captured` is its
-counterpart on the card, one captured CUDA graph (utils/graphs.py).
+JAX probe is one jitted program; `PROBE_PROGRAMS` is its counterpart on
+the card, one captured CUDA graph (utils/graphs.py).
 """
 
 from __future__ import annotations
@@ -145,30 +145,7 @@ def promote_probe(db_kp: Keypoints, db_desc: torch.Tensor, db_desc_valid: torch.
                         minl=res.inliers.to(torch.float32), fetch=fetch.reshape(-1))
 
 
-def _probe_program(db_kp, db_desc, db_desc_valid, row_to_slot, n_rows, last_slot, kp_new,
-                   tracked_stats, have_tracked, gumbel_draws, *, salient_threshold,
-                   huber_delta, cfg, intr, n_cand):
-    return promote_probe(db_kp, db_desc, db_desc_valid, row_to_slot, n_rows, last_slot,
-                         kp_new, tracked_stats, have_tracked, gumbel_draws, salient_threshold,
-                         huber_delta, cfg, intr, n_cand)
-
-
-PROBE_PROGRAMS = graphs.GraphCache(_probe_program, "promote_probe")
-
-
-def promote_probe_captured(db_kp: Keypoints, db_desc: torch.Tensor,
-                           db_desc_valid: torch.Tensor, row_to_slot: torch.Tensor,
-                           n_rows: torch.Tensor, last_slot: torch.Tensor, kp_new: Keypoints,
-                           tracked_stats: torch.Tensor, have_tracked: torch.Tensor,
-                           gumbel_draws: torch.Tensor, salient_threshold: float,
-                           huber_delta: float, cfg: TrackingConfig, intr: cam.Intrinsics,
-                           n_cand: int) -> PromoteProbe:
-    """promote_probe as the JAX package runs it, one program per (cfg,
-    intr, n_cand, thresholds and input shapes): on CUDA tensors a captured
-    CUDA graph replayed from one launch (utils/graphs.py; a DB of another
-    capacity is another capture, as JAX recompiles), on CPU tensors the
-    eager function. n_rows, last_slot and have_tracked are 0-d tensors."""
-    return PROBE_PROGRAMS(db_kp, db_desc, db_desc_valid, row_to_slot, n_rows, last_slot,
-                          kp_new, tracked_stats, have_tracked, gumbel_draws,
-                          salient_threshold=float(salient_threshold),
-                          huber_delta=float(huber_delta), cfg=cfg, intr=intr, n_cand=int(n_cand))
+# the probe as the JAX package runs it, one jitted program per (cfg, intr,
+# n_cand, thresholds and input shapes; a DB of another capacity is another
+# program): one captured program on the card, its statics passed as keywords
+PROBE_PROGRAMS = graphs.program("probe", promote_probe)

@@ -1,16 +1,16 @@
 """Captured programs: the port's counterpart of jax.jit's executable cache.
 
-The JAX package compiles each of the tracker's per-frame programs
-(`frame_step_tracked2`, `promote_probe`) and BA (`optimize`) into one
-executable per set of static arguments and input shapes, and runs it
-with one dispatch. Here
-`GraphCache(fn, name)` does the same with CUDA graphs: a call on CUDA
-tensors looks up one captured program per key, the static keyword
-arguments plus the pytree structure, shapes, dtypes and device of the
-tensor arguments (and any non-tensor leaves, such as None), and replays
-it from one launch. A graph replays the eager kernels exactly, with the
-same arguments in the same order, so a replay computes the eager call's
-bits.
+The JAX package compiles each of its per-frame programs (the frame step,
+the promotion probe, BA's rounds, the stale-frame refinement's
+registration) into one executable per set of static arguments and input
+shapes, and runs it with one dispatch. Here `program(name, fn)` declares
+such a program: a `GraphCache` entered in the registry `PROGRAMS` under
+its short name. A call on CUDA tensors looks up one captured CUDA graph
+per key, the static keyword arguments plus the pytree structure, shapes,
+dtypes and device of the tensor arguments (and any non-tensor leaves,
+such as None), and replays it from one launch. A graph replays the eager
+kernels exactly, with the same arguments in the same order, so a replay
+computes the eager call's bits.
 
 A new key: the call runs the function eagerly on its tensors (which
 fills the first-use caches: core/exact.py's divisors, the feature
@@ -22,8 +22,8 @@ so launches of other threads on the card (the fusion thread's) are
 neither refused nor captured. The capture runs under `HostSyncGuard`,
 which names the first op that would read a tensor on the host, copy
 between the host and the card, or give a shape that hangs on the data;
-a capture that fails raises with the op named. Nothing falls back to
-the eager function.
+a capture that fails raises with the program's name and the op. Nothing
+falls back to the eager function.
 
 A call: each tensor argument is copied into the captured input, the
 graph is replayed on the current stream, and each output is copied into
@@ -31,12 +31,12 @@ a fresh tensor, so a caller never holds a buffer the next replay
 overwrites. The kernels a program launched while being captured are
 counted in ops/cuda_kernels.LAUNCHES at each replay.
 
-With a `counter` the cache counts its calls on CUDA tensors in the
-STOPWATCH: a call with a new key is the span counter + "_capture" (the
-eager call and the capture, so its count is that of the captures), every
-other adds one to the counter counter + "_replay".
+Every program counts its calls on CUDA tensors in the STOPWATCH: a call
+with a new key is the span name + "_capture" (the eager call and the
+capture, so its count is that of the captures), every other adds one to
+the counter name + "_replay".
 
-On CPU tensors the cache calls the function directly.
+On CPU tensors a program calls its function directly.
 """
 
 from __future__ import annotations
@@ -208,13 +208,12 @@ def _captures(device: torch.device) -> bool:
 
 class GraphCache:
     """fn(*args, **static) as one captured program per key on CUDA
-    tensors, called directly on CPU tensors; `counter` names the STOPWATCH
-    counts of its captures and replays."""
+    tensors, called directly on CPU tensors; its captures and replays
+    counted in the STOPWATCH under `name`. Declared through `program`."""
 
-    def __init__(self, fn: Callable, name: str, counter: Optional[str] = None):
+    def __init__(self, fn: Callable, name: str):
         self.fn = fn
         self.name = name
-        self.counter = counter
         self.programs: Dict[Tuple, CapturedProgram] = {}
         self._lock = threading.Lock()
 
@@ -232,11 +231,9 @@ class GraphCache:
         with self._lock:
             prog = self.programs.get(key)
             if prog is not None:
-                if self.counter is not None:
-                    STOPWATCH.count(self.counter + "_replay")
+                STOPWATCH.count(self.name + "_replay")
                 return prog(tensors)
-            with (STOPWATCH.time(self.counter + "_capture") if self.counter is not None
-                  else contextlib.nullcontext()):
+            with STOPWATCH.time(self.name + "_capture"):
                 prog = CapturedProgram(self.fn, self.name, spec, args, tensors, static)
             self.programs[key] = prog
             out, prog.first = prog.first, None
@@ -245,3 +242,28 @@ class GraphCache:
     def clear(self) -> None:
         with self._lock:
             self.programs.clear()
+
+
+# the port's captured programs by name: frame_step, probe, ba, refine
+PROGRAMS: Dict[str, GraphCache] = {}
+
+
+def program(name: str, fn: Callable) -> GraphCache:
+    """Declare fn as the captured program `name`: tensors are its
+    positional arguments, statics its keyword arguments. Raises if the
+    name is taken."""
+    if name in PROGRAMS:
+        raise ValueError(f"a captured program named {name!r} is declared already")
+    PROGRAMS[name] = GraphCache(fn, name)
+    return PROGRAMS[name]
+
+
+def clear_programs() -> None:
+    """Drop every registered program's captures."""
+    for cache in PROGRAMS.values():
+        cache.clear()
+
+
+def program_count() -> int:
+    """The captures held across the registry."""
+    return sum(len(cache.programs) for cache in PROGRAMS.values())

@@ -173,12 +173,10 @@ def programs(inp: dict) -> dict:
     """The report's programs in its order: name -> fn() on `inp` (the TSDF
     ones update inp["batch"] in place), and "mesh_pool": the pool that
     mesh_chunks_pooled writes."""
-    from texturefusion_torch.models.reconstruction import (frame_step_tracked2,
-                                                          frame_step_tracked2_captured)
+    from texturefusion_torch.models.reconstruction import FRAME_STEP_PROGRAMS
     from texturefusion_torch.ops import hamming, tsdf
     from texturefusion_torch.ops import marching_cubes as mc
-    from texturefusion_torch.slam.promote import (KeypointDB, promote_probe,
-                                                  promote_probe_captured)
+    from texturefusion_torch.slam.promote import PROBE_PROGRAMS, KeypointDB
     config, intr = inp["config"], inp["intr"]
     cfg, tcfg = config.tsdf, config.tracking
     dev = inp["depth"].device
@@ -203,6 +201,10 @@ def programs(inp: dict) -> dict:
     scalars = [torch.full((), v, dtype=t, device=dev)
                for v, t in ((KF_ROWS, torch.int64), (KF_ROWS - 1, torch.int64),
                             (False, torch.bool))]
+    step = (inp["packed"], None, kp, kp, d, kf_w, inp["tracked_draws"])
+    step_kw = dict(intr=intr, tcfg=tcfg, depth_scale=float(config.camera.depth_scale))
+    probe_kw = dict(salient_threshold=float(tcfg.salient_score_threshold),
+                    huber_delta=float(config.ba.huber_delta), cfg=tcfg, intr=intr, n_cand=N_CAND)
     return {
         ROWS[0]: lambda: tsdf.integrate_frame_fused(b, o, idx, act, d, rgb, q, pose, 1.0, intr,
                                                     cfg, with_color=True),
@@ -216,20 +218,14 @@ def programs(inp: dict) -> dict:
                                                           max_out=cfg.max_update_chunks * 4),
         ROWS[5]: lambda: mc.mesh_chunks_pooled(pool, *b, m_idx, nbr, o[m_idx], m_act,
                                                cfg.chunk_size, cfg.voxel_resolution),
-        ROWS[6]: lambda: frame_step_tracked2(inp["packed"], None, kp, kp, d, kf_w, inp["seed"], 0,
-                                             intr, tcfg, config.camera.depth_scale,
-                                             draws=inp["tracked_draws"]),
-        ROWS[7]: lambda: promote_probe(db.kp, desc, dvalid, r2s, KF_ROWS, KF_ROWS - 1, kp,
-                                       torch.zeros(21, device=dev), False, inp["probe_draws"],
-                                       tcfg.salient_score_threshold, config.ba.huber_delta, tcfg,
-                                       intr, N_CAND),
-        GRAPHED_ROWS[0]: lambda: frame_step_tracked2_captured(
-            inp["packed"], None, kp, kp, d, kf_w, inp["seed"], 0, intr, tcfg,
-            config.camera.depth_scale, draws=inp["tracked_draws"]),
-        GRAPHED_ROWS[1]: lambda: promote_probe_captured(
+        ROWS[6]: lambda: FRAME_STEP_PROGRAMS.fn(*step, **step_kw),
+        ROWS[7]: lambda: PROBE_PROGRAMS.fn(db.kp, desc, dvalid, r2s, KF_ROWS, KF_ROWS - 1, kp,
+                                           torch.zeros(21, device=dev), False,
+                                           inp["probe_draws"], **probe_kw),
+        GRAPHED_ROWS[0]: lambda: FRAME_STEP_PROGRAMS(*step, **step_kw),
+        GRAPHED_ROWS[1]: lambda: PROBE_PROGRAMS(
             db.kp, desc, dvalid, r2s, scalars[0], scalars[1], kp, torch.zeros(21, device=dev),
-            scalars[2], inp["probe_draws"], tcfg.salient_score_threshold, config.ba.huber_delta,
-            tcfg, intr, N_CAND),
+            scalars[2], inp["probe_draws"], **probe_kw),
         "mesh_pool": pool,
     }
 
