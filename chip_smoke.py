@@ -6,7 +6,7 @@
 Runs these phases (each prints one line of numbers; any failure exits
 non-zero):
   1. device   - requires CUDA; prints the card's name and power limit
-  2. build    - compiles the three hand-written kernels with nvcc (sm_90a),
+  2. build    - compiles the four hand-written kernels with nvcc (sm_90a),
                 one process per source, all at once; [sass] counts the
                 built K2 and F-frame kernels' instructions (cuobjdump),
                 the operations of their bounds
@@ -196,7 +196,10 @@ output tensor); eager against graphed host ms. Then [k3] holds kernel K3
 (csrc/kabsch.cu, the rigid fit that replaces torch.linalg.svd on the
 card) to its plain version on tests/test_torch_kabsch.py's point sets
 and on every kabsch call of one VGA frame step and probe, and times it
-at 400 fits of 4 points.
+at 400 fits of 4 points. Then [tex-blit] holds kernel K4
+(csrc/atlas_blit.cu, a texture cycle's atlas patches in one launch) to
+its plain version, bit for bit, at 8,192 patches of 24 px and 384 of
+96 px over 16 VGA keyframes, and times it and the consume's call.
 After phase 5, [raycast] renders 8 VGA views of [slice]'s volume
 (ops/raycast.raycast_volume; plain torch ops, no kernel) against the
 scene rendered there: hit share > 0.5, median depth error below a voxel,
@@ -2762,6 +2765,85 @@ def phase_k3(path_inputs):
     return {"max_abs_err": max(worst["err_f64"], worst["err_f32"]), **t}
 
 
+TEX_BLIT_CASES = ((8192, 24, (8, 48)), (384, 96, (30, 120)))   # a 5 mm cycle, a 2 cm one
+TEX_BLIT_KEYFRAMES = 16
+
+
+def tex_blit_case(n: int, size: int, sides, h: int = 480, w: int = 640, seed: int = 23):
+    """n regions with sides drawn from `sides` (px, clamped to the image)
+    over TEX_BLIT_KEYFRAMES structured [h, w, 3] uint8 images: (images,
+    roi_table rows)."""
+    from texturefusion_torch.texture import atlas
+    rng = np.random.default_rng(seed)
+    imgs = rng.integers(0, 256, (TEX_BLIT_KEYFRAMES, h, w, 3)).astype(np.uint8)
+    imgs = np.ascontiguousarray(np.cumsum(imgs, axis=2) % 256, np.uint8)
+    lo = rng.uniform(0, [w - 1, h - 1], (n, 2)).round()
+    hi = np.minimum(lo + rng.uniform(*sides, (n, 2)).round(), [w - 1, h - 1])
+    return imgs, atlas.roi_table(rng.integers(0, len(imgs), n), lo, hi, h, w)
+
+
+def k4_bytes(table: np.ndarray, size: int, h: int, w: int) -> int:
+    """The bytes K4 needs for `table`: its table, the patches it writes,
+    and each source pixel its taps read, counted once however many
+    patches read it."""
+    from texturefusion_torch.texture import atlas
+    touched = {}
+    for s, x0, y0, x1, y1 in table.tolist():
+        rows = np.unique(np.concatenate(atlas._taps(y1 - y0, size)[:2])) + y0
+        cols = np.unique(np.concatenate(atlas._taps(x1 - x0, size)[:2])) + x0
+        touched.setdefault(s, np.zeros((h, w), bool))[np.ix_(rows, cols)] = True
+    return table.nbytes + len(table) * size * size * 3 + 3 * sum(
+        int(m.sum()) for m in touched.values())
+
+
+def phase_tex_blit():
+    """K4 against its plain version (texture/atlas.py resize_patches on
+    host tensors: resize_bilinear a patch), bit for bit, at a 5 mm
+    cycle's 8,192 patches of 24 px and a 2 cm cycle's 384 of 96 px over
+    16 VGA keyframes. Timed: the kernel alone (warm, cold; its table
+    already on the card), the call as the consume makes it
+    (resize_patches: the table's copy in, the launch, the patches' copy
+    out and its wait), the plain version on the host (two runs, the
+    faster), and the byte bound (k4_bytes at 3.35 TB/s) with its share."""
+    from texturefusion_torch.ops import cuda_kernels
+    from texturefusion_torch.texture import atlas
+    lib = cuda_kernels.build()
+    out = {}
+    for n, size, sides in TEX_BLIT_CASES:
+        imgs, table = tex_blit_case(n, size, sides)
+        h, w = imgs.shape[1:3]
+        host = [torch.from_numpy(i) for i in imgs]
+        dev = [t.cuda() for t in host]
+        plain = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            want = atlas.resize_patches(host, table, size)
+            plain.append((time.perf_counter() - t0) * 1e3)
+        got = atlas.resize_patches(dev, table, size)
+        if not np.array_equal(got, want):
+            bad = int((got != want).any(axis=(1, 2, 3)).sum())
+            raise AssertionError(f"[tex-blit] K4 differs from its plain version on {bad} of "
+                                 f"{n} patches of {size} px")
+        entries = table.copy()
+        entries[:, 0] = np.asarray([t.data_ptr() for t in dev], np.int64)[table[:, 0]]
+        dev_table = torch.from_numpy(entries).cuda()
+        buf = torch.empty((n, size, size, 3), dtype=torch.uint8, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        warm, cold = kernel_times(lambda: lib.tf_atlas_blit_launch(
+            dev_table.data_ptr(), buf.data_ptr(), n, size, w, stream))
+        n_bytes = k4_bytes(table, size, h, w)
+        bms = n_bytes / HBM_BYTES_PER_S * 1e3
+        t = {"kernel_ms": warm, "kernel_cold_ms": cold,
+             "call_ms": cuda_ms(lambda: atlas.resize_patches(dev, table, size)),
+             "plain_ms": min(plain), "bound_ms": bms, "bound_by": "bytes", "bound_unit": "bytes",
+             "share": bms / warm, "library_ms": None, "bytes": n_bytes, "bit_for_bit": True}
+        log(f"[tex-blit] {n} patches of {size} px (sides {sides[0]}-{sides[1]} px, "
+            f"{TEX_BLIT_KEYFRAMES} VGA keyframes): bit for bit against the plain version; "
+            f"{fmt_times(t)} bytes={n_bytes}")
+        out[f"{n}x{size}"] = t
+    return out
+
+
 def bit_equal(a, b) -> bool:
     """Every tensor of two results equal bit for bit (NaN where NaN)."""
     from texturefusion_torch.utils import graphs
@@ -3063,7 +3145,7 @@ def phase_sol():
         f"{json.dumps(launches)}")
     if [r["kernel"] for r in rows] != list(sol.ROWS + sol.GRAPHED_ROWS) or max(shares) > 1.0:
         raise AssertionError("[sol] rows out of order, or a share above 1.0")
-    if min(launches.values()) <= 0:
+    if min(v for k, v in launches.items() if k != "atlas_blit") <= 0:   # no texture stage
         raise AssertionError(f"[sol] a kernel was not launched: {launches}")
     return rows, launches
 
@@ -3448,6 +3530,7 @@ def main() -> int:
     tracked_launches, tracked_frames = timed("tracked", phase_tracked)
     timed("tracked-small", phase_tracked_small, tracked_frames)
     k3 = timed("k3", phase_k3, timed("graphs", phase_graphs, tracked_frames))
+    k4 = timed("tex-blit", phase_tex_blit)
     timed("profile-tracked", phase_profile_tracked, tracked_frames)
     runs = [timed("pipeline", phase_pipeline, tracked_frames)]
     k2f.update(timed("k2-frames-path", phase_k2_frames_path, runs[0]["frame_shapes"]))
@@ -3498,6 +3581,10 @@ def main() -> int:
          "source": "texturefusion_torch/csrc/kabsch.cu",
          "replaces": "texturefusion_tpu/slam/matching.py:53",
          "launches": total("kabsch", tracked_launches["kabsch"]), **k3},
+        {"name": "atlas_blit", "route": "cuda",
+         "source": "texturefusion_torch/csrc/atlas_blit.cu",
+         "replaces": "none: texture/atlas.py resize_bilinear a patch on the host",
+         "launches": total("atlas_blit"), **k4["8192x24"], "cases": k4},
     ]
     log(f"[launches] per phase: slice {json.dumps(launches)}, tracked "
         f"{json.dumps(tracked_launches)}, pipeline / pipeline-async / pipeline-stream / "

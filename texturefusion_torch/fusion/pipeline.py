@@ -97,12 +97,23 @@ class KeyframeFusionState:
     integrated: bool = False
     rgb_host: Optional[np.ndarray] = None         # uint8 host copy
     integrated_ids: Optional[np.ndarray] = None   # chunk ids [N, 3] at integration
+    rgb_host_dev: Optional[torch.Tensor] = None   # rgb_host's bytes on rgb's device
 
     def rgb_np(self) -> np.ndarray:
         """Host uint8 copy, read once."""
         if self.rgb_host is None:
-            self.rgb_host = self.rgb.cpu().numpy()
+            self.rgb_host, self.rgb_host_dev = self.rgb.cpu().numpy(), self.rgb
         return self.rgb_host
+
+    def rgb_blit(self) -> torch.Tensor:
+        """rgb_np()'s bytes on rgb's device, the atlas blits' source: rgb,
+        or the caller's packed frame's rgb where rgb_host came from it
+        (rgb is rounded from float and may differ by a level)."""
+        if self.rgb_host is None:
+            return self.rgb
+        if self.rgb_host_dev is None:      # a keyframe restored from a checkpoint
+            self.rgb_host_dev = torch.from_numpy(self.rgb_host).to(self.rgb.device)
+        return self.rgb_host_dev
 
     def release_device_memory(self) -> None:
         """Move what an integrated keyframe needs only for a rare drift
@@ -348,6 +359,8 @@ class ReconstructionPipeline:
                            stats2=(async_fetch.fetch_async(stats2)
                                    if self.config.parallel.pipelined_tracking
                                    else stats2.cpu().numpy()))   # the frame's one host read
+        if depth_raw.dim() == 3 and depth_raw.shape[-1] == 5:
+            out["packed"] = depth_raw
         self._dispatch_count += 1
         return out
 
@@ -380,14 +393,18 @@ class ReconstructionPipeline:
         self._refresh_disco_prefetch()
 
         if frame.is_keyframe:
-            host_rgb = None
+            host_rgb = host_dev = None
             hp = p["host_packed"]
             if hp is not None and hp.ndim == 3 and hp.shape[-1] == 5:
                 host_rgb = np.ascontiguousarray(hp[..., 2:5])
+                if "packed" in p:
+                    # the same bytes on the card, from the frame uploaded
+                    # for this step (rgb_blit uploads host_rgb otherwise)
+                    host_dev = p["packed"][..., 2:5].contiguous()
             self.kf_states[frame.keyframe_slot] = KeyframeFusionState(
                 kf_slot=frame.keyframe_slot, frame_index=frame.index, depth=depth_refined,
                 rgb=(rgb_f * 255.0).to(torch.uint8), quality=quality, rgb_host=host_rgb,
-                local_depths=[], local_rel_poses=[])
+                rgb_host_dev=host_dev, local_depths=[], local_rel_poses=[])
             self.stats["keyframes"] += 1
             self._prefetch_discovery(frame.keyframe_slot, depth_refined)
             # the previous keyframe is finished: its fusion cycle
@@ -778,6 +795,8 @@ class ReconstructionPipeline:
         dev = vol.rows.nbytes()
         kf = sum(nbytes(st.depth) + nbytes(st.rgb) + nbytes(st.quality)
                  + sum(nbytes(d) for d in st.local_depths)
+                 + (nbytes(st.rgb_host_dev) if st.rgb_host_dev is not None
+                    and st.rgb_host_dev is not st.rgb else 0)
                  for st in self.kf_states.values())
         meshes = sum(sum(a.nbytes for a in m) for m in self.mesher.meshes.values())
         return {"device_tsdf_mb": float(dev) / 2**20,
@@ -836,7 +855,7 @@ class TexturedPipeline(ReconstructionPipeline):
         self._cycle_inputs = collections.deque()
 
     def _keyframe_inputs(self) -> dict:
-        return {s: (st.rgb, st.depth, self.slam.keyframe_pose(s))
+        return {s: (st.rgb, st.depth, self.slam.keyframe_pose(s), st.rgb_blit())
                 for s, st in list(self.kf_states.items())}
 
     def _submit_fusion(self, slot: int, cause: Optional[int] = None) -> None:
@@ -844,13 +863,13 @@ class TexturedPipeline(ReconstructionPipeline):
         super()._submit_fusion(slot, cause)
 
     def _tex_states(self, inputs: Optional[dict] = None) -> dict:
-        """Keyframe slot → BA pose, rgb and depth tensors and the host rgb
-        for the atlas blits; `inputs` from a submission, else current."""
+        """Keyframe slot → BA pose, rgb and depth tensors and the atlas
+        blits' source (KeyframeFusionState.rgb_blit); `inputs` from a
+        submission, else current."""
         states = {}
-        for slot, (rgb, depth, pose) in (inputs or self._keyframe_inputs()).items():
-            self._on_fusion_stream(rgb, depth)
-            states[slot] = types.SimpleNamespace(pose=pose, rgb=rgb, depth=depth,
-                                                 rgb_host=self.kf_states[slot].rgb_np)
+        for slot, (rgb, depth, pose, blit) in (inputs or self._keyframe_inputs()).items():
+            self._on_fusion_stream(rgb, depth, blit)
+            states[slot] = types.SimpleNamespace(pose=pose, rgb=rgb, depth=depth, rgb_blit=blit)
         return states
 
     def _texture_cycle(self) -> None:

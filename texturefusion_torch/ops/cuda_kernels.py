@@ -5,12 +5,15 @@ The two TPU kernels of the JAX package have Hopper counterparts here:
   K1  csrc/bilateral.cu        replaces ops/pallas_kernels.py bilateral_filter_pallas
   K2  csrc/tsdf_integrate.cu   replaces examples/pallas_voxel_kernel.py integrate_rows_pallas
 
-and one kernel has no Pallas counterpart:
+and two kernels have no Pallas counterpart:
 
   K3  csrc/kabsch.cu           the weighted rigid fit of slam/matching.py kabsch, which
                                the JAX package computes with jnp.linalg.svd inside its
                                jitted programs; torch.linalg.svd synchronises with the
                                host on the card, which a captured program cannot do
+  K4  csrc/atlas_blit.cu       a texture cycle's atlas patches, each a keyframe region
+                               resized as texture/atlas.py resize_bilinear does, which
+                               the JAX package blits on the host one chunk at a time
 
 K2 has two entry points: one frame with colour or depth only, ±1
 (tsdf_integrate_cuda), and its F-frame mode, F depth-only frames with a
@@ -20,8 +23,9 @@ plain C interface (texturefusion_torch/_build/, named by a hash of the
 sources and flags so an edited source rebuilds) and bound with ctypes:
 pointers, the current stream and scalars cross as c_void_p / c_int /
 c_float. Each source is compiled with its own flags, all at once, and the
-objects are linked into the library: K2 needs -fmad=false (its projection
-must round as the plain version does), K1 wants fused multiply-adds.
+objects are linked into the library: K2 and K4 need -fmad=false (K2's
+projection must round as the plain version does, K4's resize equal it
+bit for bit), K1 wants fused multiply-adds.
 Each launch function returns cudaGetLastError() and the wrapper raises
 if it is not 0. The wrappers check device, dtype, shape and contiguity,
 allocate their outputs with torch.empty and never synchronise.
@@ -56,13 +60,15 @@ _BUILD = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 # each source and the flags it adds to NVCC_FLAGS
-SOURCES = {"bilateral.cu": (), "tsdf_integrate.cu": ("-fmad=false",), "kabsch.cu": ()}
+SOURCES = {"bilateral.cu": (), "tsdf_integrate.cu": ("-fmad=false",), "kabsch.cu": (),
+           "atlas_blit.cu": ("-fmad=false",)}
 
 MAX_RADIUS = 8              # K1 is instantiated for radius 0..MAX_RADIUS
 
 MAX_FRAMES = 64             # frames of one launch of K2's F-frame mode
 
-LAUNCHES = {"bilateral": 0, "tsdf_integrate": 0, "tsdf_integrate_frames": 0, "kabsch": 0}
+LAUNCHES = {"bilateral": 0, "tsdf_integrate": 0, "tsdf_integrate_frames": 0, "kabsch": 0,
+            "atlas_blit": 0}
 LANES = {"tsdf_integrate": 0}
 FRAME_SHAPES: collections.Counter = collections.Counter()
 
@@ -168,6 +174,8 @@ def build(verbose: bool = False) -> ctypes.CDLL:
             ctypes.POINTER(TsdfParams), ctypes.POINTER(FrameSigns), i, p]
         lib.tf_kabsch_launch.restype = i
         lib.tf_kabsch_launch.argtypes = [p, p, p, p, i, i, p]
+        lib.tf_atlas_blit_launch.restype = i
+        lib.tf_atlas_blit_launch.argtypes = [p, p, i, i, i, p]
         _lib = lib
         return lib
 
@@ -380,4 +388,45 @@ def kabsch_cuda(p: torch.Tensor, q: torch.Tensor, w: torch.Tensor) -> torch.Tens
                               p.shape[-2], torch.cuda.current_stream(p.device).cuda_stream)
     _check(rc, "kabsch")
     _count("kabsch")
+    return out
+
+
+def atlas_blit_cuda(images, table: np.ndarray, size: int) -> torch.Tensor:
+    """K4: the regions of `table` (texture/atlas.py roi_table's [n, 5]
+    int64 rows: index into `images`, x0, y0, x1, y1, ends exclusive) of
+    the [H, W, 3] uint8 images on one card, each resized to size × size
+    as texture/atlas.py resize_bilinear does, bit for bit: [n, size, size,
+    3] uint8 on that card. The table goes to the card in one copy, with
+    each image's address in place of its index; one launch of one thread
+    an output pixel."""
+    if not images:
+        raise ValueError("atlas_blit: no source images")
+    h, w = images[0].shape[:2]
+    for i, t in enumerate(images):
+        _require(t, f"images[{i}]", torch.uint8, (h, w, 3))
+    _on_card(**{f"images[{i}]": t for i, t in enumerate(images)})
+    dev = images[0].device
+    if any(t.device != dev for t in images):
+        raise ValueError("atlas_blit: the source images lie on several cards")
+    table = np.asarray(table, np.int64)
+    if table.ndim != 2 or table.shape[1] != 5:
+        raise ValueError(f"table must be [n, 5], got {table.shape}")
+    if size <= 0:
+        raise ValueError(f"size must be positive, got {size}")
+    s, x0, y0, x1, y1 = table.T
+    if ((s < 0) | (s >= len(images)) | (x0 < 0) | (x0 >= x1) | (x1 > w)
+            | (y0 < 0) | (y0 >= y1) | (y1 > h)).any():
+        raise ValueError("atlas_blit: a region lies outside its image, or names no image")
+    n = len(table)
+    out = torch.empty((n, size, size, 3), dtype=torch.uint8, device=dev)
+    if n == 0:
+        return out
+    lib = build()
+    entries = table.copy()
+    entries[:, 0] = np.asarray([t.data_ptr() for t in images], np.int64)[s]
+    dev_table = torch.from_numpy(entries).pin_memory().to(dev, non_blocking=True)
+    rc = lib.tf_atlas_blit_launch(dev_table.data_ptr(), out.data_ptr(), n, size, w,
+                                  torch.cuda.current_stream(dev).cuda_stream)
+    _check(rc, "atlas_blit")
+    _count("atlas_blit")
     return out
