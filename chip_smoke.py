@@ -200,6 +200,17 @@ at 400 fits of 4 points. Then [tex-blit] holds kernel K4
 (csrc/atlas_blit.cu, a texture cycle's atlas patches in one launch) to
 its plain version, bit for bit, at 8,192 patches of 24 px and 384 of
 96 px over 16 VGA keyframes, and times it and the consume's call.
+Last, [kf-grow] runs the benchmark cell fr1room-87s.loop8's 2,613 frames
+(one seed) twice through TexturedPipeline in the synchronous
+configuration (async_fusion=False, async_cycle_results=False): with the
+keyframe and edge capacities grown from ba.max_keyframes 512 and
+ba.max_edges 4,096, and preset to 1,024 and 8,192. Gates: more than 512
+keyframes, a kf_grow span, the same keyframes, edges and loop edges, and
+the same hashes of the poses, the mesh and the atlas. It records the last
+BA call at 1,024 rows of the grown run (its input poses, edges, active
+mask and result; chiprun_out/kf_grow_ba_1024.pt) and holds the captured
+result to tfbench/reference/posegraph.py's BA in float64 on the card,
+within posegraph.TOL_M and TOL_RAD; the reference in bfloat16 must fail it.
 After phase 5, [raycast] renders 8 VGA views of [slice]'s volume
 (ops/raycast.raycast_volume; plain torch ops, no kernel) against the
 scene rendered there: hit share > 0.5, median depth error below a voxel,
@@ -2844,6 +2855,126 @@ def phase_tex_blit():
     return out
 
 
+KF_GROW_WORKLOAD = "fr1room-87s.loop8"
+KF_GROW_SEED = 3_300_000_041
+KF_GROW_PRESET = dict(max_keyframes=1024, max_edges=8192)
+
+
+def _sha(*arrays) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
+
+
+def kf_grow_session(cell, frames, device, capacities=None, record_rows=None):
+    """One session of `cell`'s frames on `device` through its pipeline in the
+    synchronous configuration, at the configuration's keyframe and edge
+    capacities or at `capacities`. Returns (facts, the last BA call at
+    `record_rows` rows or None): the keyframes, edges, loop edges,
+    kf_grow spans, the largest BA bucket and the hashes of the poses,
+    the mesh and the atlas."""
+    import copy
+
+    from tfbench import session
+    from texturefusion_torch.slam import fastba
+    from texturefusion_torch.utils.stopwatch import STOPWATCH
+    spec = copy.deepcopy(cell.config["pipeline"])
+    spec["parallel"] = dict(spec["parallel"], async_fusion=False, async_cycle_results=False)
+    spec["ba"] = dict(spec.get("ba", {}), **(capacities or {}))
+    calls, rows = [], []
+    optimize = fastba.optimize
+
+    def recorded(poses, edges, n_kf, active, cfg):
+        rows.append(n_kf)
+        if n_kf != record_rows:
+            return optimize(poses, edges, n_kf, active, cfg)
+        given = (poses.clone(), fastba.EdgeSums(*(a.clone() for a in edges)), active.clone())
+        replays = STOPWATCH.counts.get("ba_replay", 0)
+        out = optimize(poses, edges, n_kf, active, cfg)
+        calls[:] = [given + (out[0].clone(), out[1].valid.clone(),
+                             STOPWATCH.counts.get("ba_replay", 0) - replays)]
+        return out
+
+    STOPWATCH.reset()
+    fastba.optimize = recorded
+    try:
+        pipe, timing = session.run(session.pipeline_class(cell.config["pipeline_class"]),
+                                   session.pipeline_config(spec), frames, device)
+    finally:
+        fastba.optimize = optimize
+    verts, faces = pipe.mesher.full_mesh()[:2]
+    facts = {"keyframes": len(pipe.slam.keyframes), "edges": pipe.slam.n_edges,
+             "loop_edges": STOPWATCH.counts.get("loop_edges", 0),
+             "kf_grow": STOPWATCH.counts.get("kf_grow", 0),
+             "kf_staged": STOPWATCH.counts.get("kf_staged", 0),
+             "ba_rows": max(rows, default=0), "seconds": round(timing.seconds, 3),
+             "poses": _sha(pipe.trajectory()), "mesh": _sha(verts, faces),
+             "atlas": _sha(pipe.texture.atlas.image)}
+    pipe.close()
+    return facts, (calls[0] if calls else None)
+
+
+def kf_grow_reference(call, cfg):
+    """The recorded BA call against posegraph's BA on its inputs, in float64
+    and in bfloat16 on the card: (pose errors, bfloat16's pose errors,
+    edges whose valid mask differs, rows active)."""
+    from tfbench.reference import posegraph
+    poses, edges, active, got, valid, _ = call
+    kw = dict(rounds=cfg.gn_rounds, iterations=cfg.gn_iterations_per_round,
+              damping=cfg.levenberg_lambda, rollback=cfg.rollback_error_growth)
+    ref, ref_valid, _ = posegraph.optimize(poses, edges, active, **kw)
+    low, _, _ = posegraph.optimize(poses, edges, active, dtype=torch.bfloat16, **kw)
+    n = int(active.sum())
+    return (posegraph.pose_errors(got[:n], ref[:n]), posegraph.pose_errors(low[:n], ref[:n]),
+            int((valid != ref_valid).sum()), n)
+
+
+def phase_kf_grow(seed=KF_GROW_SEED, workload=KF_GROW_WORKLOAD):
+    """[kf-grow]: a session past 512 keyframes grown against preset, and
+    its BA at 1,024 rows against the float64 reference (see the module's
+    docstring)."""
+    from tfbench import harness, session
+    from tfbench.reference import posegraph
+    from tfbench.traffic.generator import Traffic
+    from texturefusion_torch.ops import cuda_kernels
+    cuda_kernels.build()
+    cell = harness.find_cell(harness.load_json(harness.ROOT, "BENCHMARK.json"), workload)
+    traffic = Traffic(cell.mix, cell.config, "cuda")
+    traffic.render()
+    frames = traffic.session(seed, 0)
+    grown, call = kf_grow_session(cell, frames, "cuda",
+                                  record_rows=KF_GROW_PRESET["max_keyframes"])
+    log(f"[kf-grow] grown from 512 / 4,096: {json.dumps(grown)}")
+    preset, _ = kf_grow_session(cell, frames, "cuda", capacities=KF_GROW_PRESET)
+    log(f"[kf-grow] preset to 1,024 / 8,192: {json.dumps(preset)}")
+    del frames, traffic
+    same = [k for k in ("keyframes", "edges", "loop_edges", "poses", "mesh", "atlas")
+            if grown[k] != preset[k]]
+    if same or grown["keyframes"] <= 512 or not grown["kf_grow"] or call is None:
+        raise AssertionError(f"[kf-grow] grown against preset differ in {same}, or the session "
+                             f"did not pass 512 keyframes, grow or reach BA at 1,024 rows")
+    poses, edges, active = call[:3]
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    torch.save({"poses": poses.cpu(), "edges": {f: a.cpu() for f, a in edges._asdict().items()},
+                "active": active.cpu(), "result": call[3].cpu(), "valid": call[4].cpu()},
+               os.path.join(out, "kf_grow_ba_1024.pt"))
+    cfg = session.pipeline_config(cell.config["pipeline"]).ba
+    (dt, dr), (low_dt, low_dr), flips, n = kf_grow_reference(call, cfg)
+    log(f"[kf-grow] BA at 1,024 rows ({n} active, {len(edges.valid)} edge rows, "
+        f"{int(edges.valid.sum())} valid, {call[5]} of its rounds replayed) against the float64 "
+        f"reference: {dt * 1e3:.6f} mm, {dr:.3e} rad, {flips} edges pruned otherwise; the "
+        f"reference in bfloat16: {low_dt * 1e3:.3f} mm, {low_dr:.3e} rad; tolerance "
+        f"{posegraph.TOL_M * 1e3} mm, {posegraph.TOL_RAD} rad")
+    if not (dt < posegraph.TOL_M and dr < posegraph.TOL_RAD) or flips:
+        raise AssertionError("[kf-grow] the BA at 1,024 rows is off the float64 reference")
+    if low_dt < posegraph.TOL_M and low_dr < posegraph.TOL_RAD:
+        raise AssertionError("[kf-grow] the bfloat16 reference passes the tolerance")
+    return {"grown": grown, "preset": preset, "ba_mm": dt * 1e3, "ba_rad": dr}
+
+
 def bit_equal(a, b) -> bool:
     """Every tensor of two results equal bit for bit (NaN where NaN)."""
     from texturefusion_torch.utils import graphs
@@ -3592,6 +3723,7 @@ def main() -> int:
         f"{json.dumps([r['launches'] for r in runs])}, cli-synthetic / cli-dataset / "
         f"checkpoint / fr1-proxy / demo / multichip {json.dumps(cli)}, sol "
         f"{json.dumps(sol_launches)}")
+    timed("kf-grow", phase_kf_grow)
     log(f"[phase-seconds] {json.dumps(seconds)}")
     log(f"[total] chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s, build included")
     print(smi)

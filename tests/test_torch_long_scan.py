@@ -6,9 +6,11 @@ process_frame, flush_tracking, finish).
 
 BA's buckets start at 4 keyframes and 8 edges and the keyframe stack at
 2 rows, so that a session this short crosses the bucket and capacity
-boundaries the long cell crosses at 32 / 128 / 64; BA's capacities are
-raised past its 33 keyframes. The blur burst's sigma is scaled to the
-tiny camera's quarter resolution (the cell's 3.0 px is for 640 px).
+boundaries the long cell crosses at 32 / 128 / 64; the keyframe and edge
+capacities are preset past its 33 keyframes (PRESET), or start at 8 and
+32 and grow (GROWN), as the 87-second cell's grow past 512 and 4,096.
+The blur burst's sigma is scaled to the tiny camera's quarter resolution
+(the cell's 3.0 px is for 640 px).
 
 The tracker of the tiny cell (160 x 120, 256 features) does not hold the
 tiny cell's limits at 11.4 degrees a frame, nor over 96 frames at its
@@ -40,22 +42,33 @@ FRAMES, TURNS = 96, 3.05
 SEED = 2 ** 31 + 977
 DEFAULT = None              # the configuration's keyframe_device_budget_mb
 COUNTERS = ("loop_edges", "kf_reintegrated", "kfstack_grow", "kf_staged", "kf_stage_out",
-            "kf_restage", "ba_capture")
+            "kf_restage", "ba_capture", "kf_grow")
+# the session's initial keyframe and edge capacities: past its keyframes
+# and edges, or below them (the session grows them)
+PRESET = dict(max_keyframes=128, max_edges=1024)
+GROWN = dict(max_keyframes=8, max_edges=32)
 
 
-def _cell():
+def _cell(capacities=PRESET):
     c = tiny.cell(FRAMES)
     c.mix["trajectory"] = dict(c.mix["trajectory"], revolutions=TURNS, base_frames=FRAMES)
     c.mix["blur"] = dict(c.mix["blur"], sigma=c.mix["blur"]["sigma"] * tiny.CAMERA["width"] / 640)
     p = c.config["pipeline"]
-    p["ba"].update(kf_bucket_floor=4, edge_bucket_floor=8, max_keyframes=128, max_edges=1024)
+    p["ba"].update(kf_bucket_floor=4, edge_bucket_floor=8, **capacities)
     p["texture"].update(kf_stack_initial=2)
     return c
 
 
+def _frames(c, device="cpu"):
+    traffic = Traffic(c.mix, c.config, device)
+    traffic.render()
+    return traffic, traffic.session(SEED, 0)
+
+
 def _scan(c, frames, budget, device):
-    """(Outputs, STOPWATCH counts) of one session at a keyframe device
-    budget of `budget` MB (None: the configuration's)."""
+    """(Outputs, STOPWATCH counts and the session's `edges`) of one session
+    at a keyframe device budget of `budget` MB (None: the
+    configuration's)."""
     spec = dict(c.config["pipeline"])
     if budget is not None:
         spec["tsdf"] = dict(spec["tsdf"], keyframe_device_budget_mb=budget)
@@ -63,8 +76,10 @@ def _scan(c, frames, budget, device):
     pipe, _ = session.run(session.pipeline_class(c.config["pipeline_class"]),
                           session.pipeline_config(spec), frames, device)
     outputs = session.extract(pipe, np.random.default_rng(SEED))
+    counts = {k: STOPWATCH.counts.get(k, 0) for k in COUNTERS}
+    counts["edges"] = pipe.slam.n_edges
     pipe.close()
-    return outputs, {k: STOPWATCH.counts.get(k, 0) for k in COUNTERS}
+    return outputs, counts
 
 
 def _numbers(c, gt, outputs):
@@ -76,13 +91,17 @@ def _numbers(c, gt, outputs):
 
 @pytest.fixture(scope="module")
 def scans():
-    """{budget: (Outputs, STOPWATCH counts)} of the same frames at a
-    keyframe device budget of 1 MB and at the default."""
+    """{(capacities, budget): (Outputs, counts)} of the same frames at the
+    preset and the grown capacities (PRESET and GROWN: None, "grown"), at
+    a keyframe device budget of 1 MB and at the default. The preset
+    session at the default budget is out[DEFAULT]."""
     c = _cell()
-    traffic = Traffic(c.mix, c.config, "cpu")
-    traffic.render()
-    frames = traffic.session(SEED, 0)
-    out = {budget: _scan(c, frames, budget, "cpu") for budget in (1.0, DEFAULT)}
+    traffic, frames = _frames(c)
+    out = {}
+    for caps, cell in ((None, c), ("grown", _cell(GROWN))):
+        for budget in (1.0, DEFAULT):
+            key = budget if caps is None else (caps, budget)
+            out[key] = _scan(cell, frames, budget, "cpu")
     return c, traffic.poses, out
 
 
@@ -113,16 +132,25 @@ def test_the_long_session_gives_every_output(scans):
     assert all(math.isfinite(v) for v in nums.values()), nums
 
 
-@pytest.mark.parametrize("budget", [1.0, DEFAULT], ids=["budget_1MB", "budget_default"])
-def test_staging_moves_memory_only(scans, budget):
+@pytest.mark.parametrize("caps,budget", [
+    pytest.param(None, 1.0, id="budget_1MB"),
+    pytest.param(None, DEFAULT, id="budget_default"),
+    pytest.param("grown", 1.0, id="grown-budget_1MB"),
+    pytest.param("grown", DEFAULT, id="grown-budget_default")])
+def test_staging_moves_memory_only(scans, caps, budget):
     """At 1 MB the keyframes' stageable state is staged as the cycles pass
     (`kf_staged`, `kf_stage_out`); at the default budget none is. On the
     CPU host memory is the keyframe's own device, so nothing comes back
-    (`kf_restage`): test_staging_on_the_card holds the copy back. Either way the poses, the mesh, the sampled voxels and the
-    texture are those of the other run, bit for bit."""
+    (`kf_restage`): test_staging_on_the_card holds the copy back. Either
+    way the poses, the mesh, the sampled voxels and the texture are those
+    of the other run at the same capacities, bit for bit; the grown
+    session (GROWN) doubles its keyframe and edge capacities on the way
+    (`kf_grow`)."""
     _, _, out = scans
-    outputs, counts = out[budget]
-    other = out[DEFAULT if budget is not None else 1.0][0]
+    key = (lambda b: b) if caps is None else (lambda b: (caps, b))
+    outputs, counts = out[key(budget)]
+    other = out[key(DEFAULT if budget is not None else 1.0)][0]
+    assert (counts["kf_grow"] > 0) == (caps == "grown")
     assert counts["kf_restage"] == 0
     if budget is None:
         assert counts["kf_staged"] == 0
@@ -155,9 +183,8 @@ def test_staging_on_the_card(cuda_device):
 
     cuda_kernels.build()
     c = _cell()
-    traffic = Traffic(c.mix, c.config, cuda_device)
-    traffic.render()
-    outputs, counts = _scan(c, traffic.session(SEED, 0), 1.0, cuda_device)
+    traffic, frames = _frames(c, cuda_device)
+    outputs, counts = _scan(c, frames, 1.0, cuda_device)
     assert counts["kf_staged"] > 0 and counts["kf_stage_out"] == counts["kf_staged"]
     assert counts["kf_restage"] > 0
     nums = _numbers(c, traffic.poses, outputs)

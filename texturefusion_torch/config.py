@@ -89,8 +89,10 @@ class BAConfig:
     huber_delta: float = 0.008
     rollback_error_growth: float = 1.05  # rollback if error ↑ >5% (ref :1165-1205)
     levenberg_lambda: float = 1e-6       # diagonal damping for the dense solve
-    max_keyframes: int = 512             # static pose-array capacity
-    max_edges: int = 4096                # static edge capacity
+    # the initial keyframe and edge capacities: the pose array, the DBs
+    # and the observation columns, and the edge store, double past them
+    max_keyframes: int = 512
+    max_edges: int = 4096
     # the Schur-complement solve (eliminate interior keyframes, solve the
     # separator system; parallel/ba.py schur_gn) from this many keyframes
     # on. On one device the port's GCSLAM takes the equal dense solve at

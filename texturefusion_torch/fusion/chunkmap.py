@@ -53,6 +53,7 @@ from texturefusion_torch.ops import tsdf as tsdf_ops
 from texturefusion_torch.parallel.mesh import DeviceMesh
 from texturefusion_torch.parallel.sharded_tsdf import ORIGIN_FIELD, TSDF_FIELDS, volume_rows
 from texturefusion_torch.utils import async_fetch
+from texturefusion_torch.utils.capacity import doubled, grown
 from texturefusion_torch.utils.stopwatch import STOPWATCH
 
 
@@ -80,10 +81,11 @@ class TSDFVolume:
         self.ids = np.zeros((cap, 3), np.int32)      # slot -> chunk id
         self.used = np.zeros(cap, bool)
         # per-(chunk, keyframe) observation quality (ref: Chunk.h:170-172
-        # `observations`), dense [cap+1, max_kf]; presence is _obs_mask
-        self._max_kf = config.ba.max_keyframes
-        self._obs_q = np.zeros((cap + 1, self._max_kf), np.float32)
-        self._obs_mask = np.zeros((cap + 1, self._max_kf), bool)
+        # `observations`), dense [cap+1, keyframe columns]; presence is
+        # _obs_mask. The columns start at ba.max_keyframes and double when
+        # a keyframe outgrows them (`_obs_columns`)
+        self._obs_q = np.zeros((cap + 1, config.ba.max_keyframes), np.float32)
+        self._obs_mask = np.zeros((cap + 1, config.ba.max_keyframes), bool)
         # integrations whose quality fetch is not yet applied, in dispatch
         # order: (slots, fetch of (quality, updated), keyframe, sign)
         self._pending_obs: List[tuple] = []
@@ -148,8 +150,19 @@ class TSDFVolume:
 
     # ---------------------------------------------------------- observations
 
+    def _obs_columns(self, kf_id: int) -> None:
+        """Double the observation table's keyframe columns until column
+        kf_id exists (the STOPWATCH span `kf_grow`)."""
+        if kf_id < self._obs_q.shape[1]:
+            return
+        cols = doubled(self._obs_q.shape[1], kf_id + 1)
+        with STOPWATCH.time("kf_grow", kf=kf_id):
+            self._obs_q = grown(self._obs_q, cols, axis=1)
+            self._obs_mask = grown(self._obs_mask, cols, False, axis=1)
+
     def obs_arrays(self, flush: bool = True):
-        """(quality [cap+1, max_kf] f32, present [cap+1, max_kf] bool).
+        """(quality [cap+1, K] f32, present [cap+1, K] bool) over the
+        table's K keyframe columns.
         flush=False reads the table as it stands: the entries of
         integrations whose fetch is still queued are missing, and entries
         a queued de-integration removes are still there (the deferred
@@ -189,6 +202,7 @@ class TSDFVolume:
         return {int(j): float(self._obs_q[slot, j]) for j in k.tolist()}
 
     def set_obs_row(self, slot: int, d: Dict[int, float]) -> None:
+        self._obs_columns(max((int(kf) for kf in d), default=0))
         self._obs_q[slot] = 0.0
         self._obs_mask[slot] = False
         for kf, q in d.items():
@@ -207,6 +221,7 @@ class TSDFVolume:
 
     def _queue_obs(self, slots: np.ndarray, quality: torch.Tensor, updated: torch.Tensor,
                    kf_id: int, sign: float) -> None:
+        self._obs_columns(kf_id)
         self._pending_obs.append((np.asarray(slots, np.int64),
                                   async_fetch.fetch_async((quality, updated)), kf_id, sign))
 

@@ -15,7 +15,10 @@ On the card each round of `optimize` (its GN iterations, the rollback
 test and the prune after it) is one captured CUDA graph
 (`BA_ROUND_PROGRAMS`, utils/graphs.py), one per keyframe and edge count,
 as the JAX package runs `optimize` as one jitted program; GCSLAM calls it
-at the JAX package's bucketed counts, so the programs are replayed.
+at the JAX package's bucketed counts, so the programs are replayed. The
+buckets stop at GCSLAM's current capacities, which double as a session
+outgrows them, so a session past 512 keyframes or 4,096 edges captures
+the next bucket (1,024 rows, 8,192 edges) like any other.
 """
 
 from __future__ import annotations

@@ -34,6 +34,14 @@ counts, so that its rounds are replayed as captured programs
 (fastba.BA_ROUND_PROGRAMS), and the JAX package's Schur BA is the dense
 solve; over a DeviceMesh BA is edge-sharded (`_run_ba`, parallel/ba.py).
 
+The keyframe-indexed state (the pose array, the descriptor DB's rows and
+their slots, the keypoint DB) starts at `ba.max_keyframes` rows and the
+edge-indexed state (the edge sums, the raw matches) at `ba.max_edges`;
+each doubles when a keyframe or an edge outgrows it (`_grow_keyframes`,
+`_grow_edges`: the STOPWATCH span `kf_grow`), as upstream's vectors
+grow. The JAX package's fixed capacities raise at keyframe 512 and turn
+edges away past 4,096 (ROADMAP, its known fault 23).
+
 On the card the promotion probe is one captured CUDA graph
 (promote.PROBE_PROGRAMS), its scalars 0-d device tensors, as the
 JAX package runs it as one jitted program; so is the stale-frame
@@ -66,6 +74,7 @@ from texturefusion_torch.slam.matching import (TwoViewResult, lite_config, ransa
                                                register_frames, register_frames_batch,
                                                stack_keypoints)
 from texturefusion_torch.utils import async_fetch, graphs
+from texturefusion_torch.utils.capacity import doubled, grown
 from texturefusion_torch.utils.stopwatch import STOPWATCH
 
 
@@ -104,8 +113,9 @@ REFINE_PROGRAMS = graphs.program("refine", _refine_program)
 
 
 def _next_bucket(n: int, lo: int, cap: int) -> int:
-    """The least lo·2^k at or above n, at most `cap`: the JAX package's
-    bucket of BA's keyframe and edge counts (its gcslam._next_bucket)."""
+    """The least lo·2^k at or above n, at most `cap` (the current
+    capacity): the JAX package's bucket of BA's keyframe and edge counts
+    (its gcslam._next_bucket)."""
     b = lo
     while b < n:
         b *= 2
@@ -138,10 +148,13 @@ class GCSLAM:
         max_kf = config.ba.max_keyframes
         pad = config.tracking.max_features_pad
         # keyframe poses; BA's newest are pending until the first read of
-        # `poses` (the fusion thread reads them too, hence the lock)
+        # `poses` (the fusion thread reads them too, hence the lock); the
+        # pose array, the DBs and _row_to_slot hold kf_capacity rows
+        self.kf_capacity = max_kf
         self._poses_np = np.tile(np.eye(4, dtype=np.float32), (max_kf, 1, 1))
         self._poses_pending = None        # (fetch handle, rows active at dispatch)
         self._pose_lock = threading.Lock()
+        self.edge_capacity = config.ba.max_edges
         self.edges = fastba.make_edges(config.ba.max_edges, self.device)
         self.n_edges = 0
         # raw per-edge matches: finalBA re-pre-integrates edges with Huber
@@ -248,9 +261,40 @@ class GCSLAM:
         self.consume_pending_refine(force=True)
         return np.stack([self.frame_pose(i) for i in range(len(self.frames))])
 
+    # ------------------------------------------------------------ capacities
+
+    def _grow_keyframes(self, n: int) -> None:
+        """Double the keyframe-indexed state until it holds n keyframes:
+        the pose array (new rows identity), the descriptor DB's rows and
+        their slots, the keypoint DB (the STOPWATCH span `kf_grow`)."""
+        if n <= self.kf_capacity:
+            return
+        cap = doubled(self.kf_capacity, n)
+        with STOPWATCH.time("kf_grow", kf=n - 1):
+            with self._pose_lock:
+                self._poses_np = grown(self._poses_np, cap, np.eye(4, dtype=np.float32))
+            self._row_to_slot = grown(self._row_to_slot, cap, -1)
+            self.db.grow(cap)
+            self.kp_db.grow(cap)
+            self.kf_capacity = cap
+
+    def _grow_edges(self, n: int) -> None:
+        """Double the edge-indexed state until it holds n edges: the edge
+        sums (new rows invalid) and the raw matches (the span `kf_grow`)."""
+        if n <= self.edge_capacity:
+            return
+        cap = doubled(self.edge_capacity, n)
+        with STOPWATCH.time("kf_grow", kf=len(self.keyframes) - 1):
+            self.edges = fastba.EdgeSums(*(grown(a, cap) for a in self.edges))
+            self._edge_midx = grown(self._edge_midx, cap)
+            self._edge_minl = grown(self._edge_minl, cap)
+            self._edge_has = grown(self._edge_has, cap, False)
+            self.edge_capacity = cap
+
     # ------------------------------------------------------------ edges
 
     def _append_edge(self, kf_i_slot, kf_j_slot, sums, matches=None) -> None:
+        self._grow_edges(self.n_edges + 1)
         e = torch.tensor([self.n_edges], device=self.device)
         fastba.write_edges(self.edges, e, kf_i_slot, kf_j_slot, [s[None] for s in sums])
         if matches is not None:
@@ -261,8 +305,6 @@ class GCSLAM:
                           n_pts: int = 64, weight: float = 0.5) -> None:
         """Odometry-prior edge from a relative pose without shared features:
         virtual points p = T_rel·q tie the two keyframes in FastBA."""
-        if self.n_edges >= self.config.ba.max_edges:
-            return
         rng = np.random.default_rng(kf_j_slot)
         q = rng.uniform(-1.0, 1.0, (n_pts, 3)).astype(np.float32)
         q[:, 2] += 2.0
@@ -276,8 +318,6 @@ class GCSLAM:
                   kp_src: Keypoints, res: TwoViewResult) -> None:
         """Pre-integrate a successful registration into the edge store
         (ref: MultiViewGeometry.h:245-311; GCSLAM.cpp:178-183)."""
-        if self.n_edges >= self.config.ba.max_edges:
-            return
         inl = res.inliers.to(torch.float32)
         sums = fastba.preintegrate_from_registration(
             kp_ref.points3d[res.match_idx], kp_src.points3d, inl, res.pose,
@@ -309,9 +349,9 @@ class GCSLAM:
             return
         cfg = self.config.ba
         if self.mesh is None:
-            n_rows = _next_bucket(n_kf, cfg.kf_bucket_floor, cfg.max_keyframes)
+            n_rows = _next_bucket(n_kf, cfg.kf_bucket_floor, self.kf_capacity)
             edges = self.edges.head(_next_bucket(self.n_edges, cfg.edge_bucket_floor,
-                                                 cfg.max_edges))
+                                                 self.edge_capacity))
             dev = self.device
         else:
             n_rows = pad_to_multiple(n_kf, self.mesh.size)
@@ -350,6 +390,7 @@ class GCSLAM:
     def _promote_keyframe(self, frame: FrameRecord, kp: Keypoints,
                           pose_world: np.ndarray) -> KeyframeRecord:
         slot = len(self.keyframes)
+        self._grow_keyframes(slot + 1)
         # stored without adopting a pending BA result: its rows stop
         # below this slot
         with self._pose_lock:
@@ -424,8 +465,7 @@ class GCSLAM:
             self._append_probe_edges(probe, [r[2] for r in results], kf.slot)
         else:
             for kf_c, _stats, sums, matches in results:
-                if self.n_edges < self.config.ba.max_edges:
-                    self._append_edge(kf_c.slot, kf.slot, sums, matches)
+                self._append_edge(kf_c.slot, kf.slot, sums, matches)
         _count_loop_edges(results, last_slot)
         kf.reg_success_count = len(results)
 
@@ -506,10 +546,10 @@ class GCSLAM:
     def _append_probe_edges(self, probe: promote.PromoteProbe, rows: List[int],
                             kf_slot: int) -> int:
         """Append the taken probe candidates as edges + raw-match rows."""
-        rows = rows[:self.config.ba.max_edges - self.n_edges]
         if not rows:
             return 0
         n0, n = self.n_edges, len(rows)
+        self._grow_edges(n0 + n)
         e = torch.arange(n0, n0 + n, device=self.device)
         r = torch.as_tensor(rows, device=self.device)
         sums = [s[r] for s in (probe.s_w, probe.s_p, probe.s_q, probe.s_pp, probe.s_qq,

@@ -21,12 +21,14 @@ import numpy as np
 import torch
 
 from texturefusion_torch.ops import hamming
+from texturefusion_torch.utils.capacity import grown
 
 _ROW_CHUNK_ELEMS = 1 << 25   # Q·rows·S distances per chunk (128 MiB of f32)
 
 
 class KeyframeDescriptorDB:
-    """Per-keyframe descriptor subsamples, stacked on the device."""
+    """Per-keyframe descriptor subsamples, stacked on the device;
+    `max_keyframes` rows until its owner grows them (`grow`)."""
 
     def __init__(self, sub_per_kf: int = 256, max_keyframes: int = 512, *, device):
         self.sub = sub_per_kf
@@ -42,7 +44,8 @@ class KeyframeDescriptorDB:
         valid-first on the device."""
         k = len(self.kf_ids)
         if k >= self.max_kf:
-            return
+            raise IndexError(f"the descriptor DB holds {self.max_kf} rows, all in use: "
+                             "grow it first")
         n = desc.shape[0]
         if n == 0:
             return
@@ -54,6 +57,12 @@ class KeyframeDescriptorDB:
         self.desc[k] = desc[sel]
         self.valid[k] = v_perm[part][:self.sub]
         self.kf_ids.append(kf_id)
+
+    def grow(self, capacity: int) -> None:
+        """Hold `capacity` rows; the new ones empty."""
+        self.desc = grown(self.desc, capacity)
+        self.valid = grown(self.valid, capacity, False)
+        self.max_kf = capacity
 
     def __len__(self) -> int:
         return len(self.kf_ids)

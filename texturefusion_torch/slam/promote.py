@@ -25,11 +25,12 @@ from texturefusion_torch.slam.features import Keypoints
 from texturefusion_torch.slam.loopclosure import similarity_rows
 from texturefusion_torch.slam.matching import register_frames, stack_results
 from texturefusion_torch.utils import graphs
+from texturefusion_torch.utils.capacity import grown
 
 
 class KeypointDB:
     """Stacked keypoints of every keyframe, indexed by keyframe SLOT
-    ([max_kf, pad, ...] tensors on the device)."""
+    ([max_kf, pad, ...] tensors on the device; `grow` adds rows)."""
 
     def __init__(self, max_kf: int, pad: int, device):
         self.max_kf = max_kf
@@ -39,6 +40,11 @@ class KeypointDB:
                             desc=z(hamming.WORDS, dtype=torch.int32),
                             valid=z(dtype=torch.bool), points3d=z(3),
                             has_depth=z(dtype=torch.bool))
+
+    def grow(self, capacity: int) -> None:
+        """Hold `capacity` slots; the new ones zero."""
+        self.kp = Keypoints(*(grown(a, capacity) for a in self.kp))
+        self.max_kf = capacity
 
     def add(self, slot: int, kp: Keypoints) -> None:
         for dst, src in zip(self.kp, kp):

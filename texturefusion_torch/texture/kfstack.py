@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from texturefusion_torch.utils.capacity import doubled, grown
 from texturefusion_torch.utils.stopwatch import STOPWATCH
 
 
@@ -46,16 +47,10 @@ class KeyframeStack:
         if kf_slot < self.cap:
             return
         with STOPWATCH.time("kfstack_grow"):
-            while kf_slot >= self.cap:
-                k = self.cap
-                self.cap *= 2
-                rgb = self.rgb_packed.new_zeros((self.cap, self.h, self.w))
-                depth = self.depth.new_zeros((self.cap, self.h, self.w))
-                rgb[:k], depth[:k] = self.rgb_packed, self.depth
-                self.rgb_packed, self.depth = rgb, depth
-                grown = np.tile(np.eye(4, dtype=np.float32), (self.cap, 1, 1))
-                grown[:k] = self.poses
-                self.poses = grown
+            self.cap = doubled(self.cap, kf_slot + 1)
+            self.rgb_packed = grown(self.rgb_packed, self.cap)
+            self.depth = grown(self.depth, self.cap)
+            self.poses = grown(self.poses, self.cap, np.eye(4, dtype=np.float32))
 
     def add(self, kf_slot: int, rgb_u8, depth, pose: np.ndarray) -> None:
         """Write one keyframe's images (uint8 [H, W, 3], float [H, W]) and

@@ -266,6 +266,9 @@ def restore_pipeline_state(pipe, arrays, meta: Dict[str, Any]) -> None:
                         if "new_since_gc" in arrays else set())
 
     slam = pipe.slam
+    # a session that grew its keyframe and edge capacities resumes at them
+    slam._grow_keyframes(len(arrays["row_to_slot"]))
+    slam._grow_edges(len(arrays["edge_has"]))
     _restore_tracker(slam, arrays, meta, dev)
     for dst, name in zip(slam.edges, slam.edges._fields):
         put(dst, f"edge_{name}")
